@@ -1,0 +1,85 @@
+"""Packed payload exchange over the data-parallel process group (twin of
+``src/repro/comm/exchange.py``).
+
+The compressed path's only collective is ONE ``all_gather`` of the flat
+packed buffer; :func:`check_bucket_payload` guarantees before it that the
+buffer is exactly the bytes ``Compressor.wire_bytes`` accounts for.  The
+words move as int32: NCCL and gloo support uint32 collectives thinly,
+and the bits are the same.
+"""
+from __future__ import annotations
+
+import os
+import socket
+
+import torch
+import torch.distributed as dist
+
+
+def check_bucket_payload(payload: torch.Tensor, plan, comp) -> None:
+    """The flat buffer about to cross the process group is exactly the
+    per-leaf accounted bytes, with every lane at its planned offset.
+    Raises (not assert), so the contract holds under ``python -O``."""
+    if payload.dtype != torch.int32:
+        raise ValueError(f"payload must be int32 words, got {payload.dtype}")
+    if tuple(payload.shape) != (plan.total_words,):
+        raise ValueError(f"bucket payload is {tuple(payload.shape)}, plan "
+                         f"says ({plan.total_words},)")
+    words = 0
+    for lane in plan.leaves:
+        if lane.dense:
+            continue
+        accounted = comp.wire_bytes(lane.d)
+        if lane.spec.row_bytes != accounted:
+            raise ValueError(
+                f"wire accounting drift: leaf {lane.index} payload row is "
+                f"{lane.spec.row_bytes} B but Compressor.wire_bytes"
+                f"({lane.d}) = {accounted} B")
+        if lane.word_off != words:
+            raise ValueError(f"bucket offset drift: leaf {lane.index} at "
+                             f"word {lane.word_off}, expected {words}")
+        words += lane.words
+    if words != plan.total_words:
+        raise ValueError(f"bucket plan sums to {words} words, total_words "
+                         f"says {plan.total_words}")
+
+
+def gather_packed(payload: torch.Tensor, group=None) -> torch.Tensor:
+    """All-gather one worker's flat (n,) int32 payload -> (W, n), rows in
+    rank order."""
+    W = dist.get_world_size(group)
+    out = torch.empty((W * payload.numel(),), dtype=payload.dtype,
+                      device=payload.device)
+    dist.all_gather_into_tensor(out, payload.contiguous(), group=group)
+    return out.reshape(W, -1)
+
+
+def all_reduce_mean(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Mean over the process group (the JAX ``pmean``)."""
+    x = x.clone()
+    dist.all_reduce(x, group=group)
+    return x / dist.get_world_size(group)
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def init_process_group(device: torch.device) -> bool:
+    """Join the data-parallel process group: NCCL on cuda, gloo on cpu.
+    Under ``torchrun`` the rank and world size come from its environment;
+    otherwise a group of one on a free localhost port, so the collectives
+    run on one device too.  Returns True when this call created the group
+    (the caller destroys it)."""
+    if dist.is_initialized():
+        return False
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    if "WORLD_SIZE" in os.environ and "RANK" in os.environ:
+        dist.init_process_group(backend, init_method="env://")
+    else:
+        dist.init_process_group(
+            backend, init_method=f"tcp://localhost:{_free_port()}",
+            world_size=1, rank=0)
+    return True

@@ -1,0 +1,98 @@
+"""Armijo step-size search with scaling (twin of ``src/repro/core/armijo.py``,
+paper Algorithm 1 + §III-A).
+
+* The search tests ``alpha_max`` first and then backtracks by ``rho``
+  (the do-while reading of Algorithm 1, DESIGN.md §7).
+* Stopping condition (2): ``f(x - alpha*grad) <= f(x) -
+  sigma*alpha*||grad||^2``, with the unscaled alpha; a non-finite trial
+  loss is a reject.
+* The descent step is ``eta = a * alpha``.
+* Across iterations ``alpha_max_t = omega * alpha_{t-1}``.
+
+PyTorch runs eagerly, so the loop is a host loop: each trial reads its
+loss back (one sync per trial, where the JAX package runs a device while
+loop).  The scalar arithmetic is float32 throughout, as in the JAX
+package, so the accept/reject decisions agree on the same losses.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.utils import tree_leaves, tree_map
+
+f32 = np.float32
+
+
+@dataclasses.dataclass(frozen=True)
+class ArmijoConfig:
+    sigma: float = 0.1          # sufficient-decrease parameter
+    rho: float = 0.8            # backtracking factor
+    omega: float = 1.2          # alpha_max growth
+    a_scale: float = 0.3        # eta = a * alpha (paper: a = 3*sigma)
+    alpha0: float = 0.1         # initial alpha_max
+    max_backtracks: int = 40
+    alpha_min: float = 1e-8
+
+
+class ArmijoResult(NamedTuple):
+    alpha: np.float32     # accepted (unscaled) alpha_t
+    eta: np.float32       # a * alpha_t
+    f0: np.float32        # f(x_t) on the sampled batch
+    n_evals: int          # stopping-condition evaluations
+    accepted: bool        # condition met before the caps
+
+
+def tree_sqnorm(tree) -> torch.Tensor:
+    """sum of squares over every leaf, as one f32 0-dim tensor."""
+    total = None
+    for leaf in tree_leaves(tree):
+        s = leaf.float().square().sum()
+        total = s if total is None else total + s
+    return total
+
+
+def armijo_search(loss_fn: Callable, params, grads, alpha_max,
+                  cfg: ArmijoConfig, f0=None,
+                  grad_sqnorm=None) -> ArmijoResult:
+    """Run Algorithm 1 from ``alpha_max`` on the sampled batch's loss
+    ``loss_fn`` (called under ``torch.no_grad``)."""
+    with torch.no_grad():
+        if f0 is None:
+            f0 = loss_fn(params)
+        if grad_sqnorm is None:
+            grad_sqnorm = tree_sqnorm(grads)
+        f0 = f32(float(f0))
+        gsq = f32(float(grad_sqnorm))
+        sigma = f32(cfg.sigma)
+
+        def trial(alpha):
+            a = float(alpha)
+            cand = tree_map(lambda p, g: torch.add(p, g.to(p.dtype),
+                                                   alpha=-a), params, grads)
+            return f32(float(loss_fn(cand)))
+
+        def ok(f_try, alpha):
+            return bool(np.isfinite(f_try)) and \
+                bool(f_try <= f0 - sigma * alpha * gsq)
+
+        alpha = f32(alpha_max)
+        f_try = trial(alpha)
+        n = 1
+        while not ok(f_try, alpha) and n < cfg.max_backtracks \
+                and alpha > f32(cfg.alpha_min):
+            alpha = alpha * f32(cfg.rho)
+            f_try = trial(alpha)
+            n += 1
+        accepted = ok(f_try, alpha)
+    return ArmijoResult(alpha=alpha, eta=f32(cfg.a_scale) * alpha,
+                        f0=f0, n_evals=n, accepted=accepted)
+
+
+def next_alpha_max(alpha_t, cfg: ArmijoConfig) -> np.float32:
+    """Algorithm 2 step 3: alpha_max_{t+1} = omega * alpha_t."""
+    return f32(np.clip(f32(cfg.omega) * f32(alpha_t), f32(cfg.alpha_min),
+                       f32(1e6)))

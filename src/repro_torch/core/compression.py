@@ -1,0 +1,129 @@
+"""Gradient compression operators (twin of ``src/repro/core/compression.py``,
+the parts the DCSGD-ASSS training path reads).
+
+Compression is per layer (per leaf row); leaves under
+``min_compress_size`` parameters ship uncompressed; ``gamma = k/d``.
+
+* ``topk``       — exact per-layer magnitude top-k.
+* ``block_topk`` — per 1024-wide block top-k_b through the fused EF
+                   kernels (``repro_torch/kernels``).
+
+Ties are broken toward the lower index, as ``lax.top_k`` does: selection
+uses a stable descending sort, because ``torch.topk`` leaves the order of
+equal values unspecified and the shipped indices must match the JAX
+package's bit for bit.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+import torch.nn.functional as F_
+
+#: Leaves smaller than this are not compressed (paper §IV-A).
+MIN_COMPRESS_SIZE = 1000
+
+#: Integer quantization range per sub-byte/byte value width (symmetric).
+QMAX = {8: 127.0, 4: 7.0}
+
+
+def quant_scale(vals: torch.Tensor, qmax: float) -> torch.Tensor:
+    """Per-row absmax quantization scale, max|row| / qmax + 1e-30, as the
+    jitted JAX package computes it: XLA turns the division into a
+    multiplication by the f32 reciprocal and fuses the add into it, one
+    rounding in all.  A true division differs in the last bit for about
+    half the rows, a separate multiply and add on exact midpoints."""
+    amax = vals.abs().amax(dim=-1, keepdim=True)
+    recip = float(np.float32(1.0) / np.float32(qmax))
+    return torch.addcmul(torch.full_like(amax, 1e-30), amax,
+                         torch.full_like(amax, recip))
+
+
+def stable_topk_indices(mag: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the k largest entries along the last axis, largest
+    first and the lower index first among equals (``lax.top_k``'s order)."""
+    return torch.sort(mag, dim=-1, descending=True, stable=True).indices[
+        ..., :k]
+
+
+def block_extract_sparse(x2d: torch.Tensor, comp: "Compressor"):
+    """Wire pairs via exact per-block top-k_b.  x2d: (L, d) per-layer rows;
+    blocks never span layers.  Returns (vals, idx), each (L, nb*k_b), idx
+    flat into [0, d) (clamped: padding positions carry zero values)."""
+    L, d = x2d.shape
+    block = comp.block
+    pad = (-d) % block
+    blocks = (F_.pad(x2d, (0, pad)) if pad else x2d).reshape(L, -1, block)
+    nb = blocks.shape[1]
+    bidx = stable_topk_indices(blocks.abs(), comp.block_k())
+    base = (torch.arange(nb, device=x2d.device) * block)[None, :, None]
+    idx = (bidx + base).reshape(L, -1).clamp_max(d - 1).to(torch.int32)
+    vals = torch.gather(blocks, 2, bidx).reshape(L, -1)
+    return vals, idx
+
+
+@dataclasses.dataclass(frozen=True)
+class Compressor:
+    """Per-leaf compression policy; ``gamma`` is the paper's k/d.
+
+    ``value_bits`` (32|16|8|4): wire value width of the packed payload
+    (``repro_torch/comm/wire.py``).  ``block_topk`` always runs through
+    the fused EF kernels."""
+
+    gamma: float = 0.01
+    method: str = "topk"            # topk | block_topk | none
+    block: int = 1024
+    min_compress_size: int = MIN_COMPRESS_SIZE
+    value_bits: int = 32
+
+    def __post_init__(self):
+        if self.method not in ("topk", "block_topk", "none"):
+            raise ValueError(f"unknown compression method {self.method!r}")
+
+    def k_for(self, d: int) -> int:
+        if self.method == "none" or d < self.min_compress_size:
+            return d
+        return max(1, int(round(self.gamma * d)))
+
+    def block_k(self) -> int:
+        """k_b: entries kept per ``block``-wide block (block_topk)."""
+        return max(1, int(round(self.gamma * self.block)))
+
+    def sparse_k(self, d: int) -> int:
+        """(value, index) pairs on the wire for a row of size d."""
+        k = self.k_for(d)
+        if k == d:
+            return d
+        if self.method == "block_topk":
+            return -(-d // self.block) * self.block_k()
+        return k
+
+    def ships_dense(self, d: int) -> bool:
+        """THE dense-vs-compressed predicate of a row of size d."""
+        return (self.method == "none" or d < self.min_compress_size
+                or self.sparse_k(d) >= d)
+
+    def wire_bytes(self, x_size: int, itemsize: int = 4) -> int:
+        """Bytes on the wire for one leaf row: the packed payload row, or
+        the dense row for uncompressed leaves."""
+        if self.sparse_k(x_size) >= x_size:
+            return x_size * itemsize
+        from repro_torch.comm.wire import WireSpec  # local import: no cycle
+        return WireSpec.for_row(self, x_size).row_bytes
+
+    def leaf_wire_bytes(self, shape, itemsize: int = 4) -> int:
+        """Wire bytes for one leaf; ndim >= 2 leaves are compressed per
+        layer (leading axis)."""
+        L, d = leaf_geometry(shape)
+        return L * self.wire_bytes(d, itemsize)
+
+
+def leaf_geometry(shape) -> tuple[int, int]:
+    """(L, d) per-layer view of a leaf shape (ndim >= 2: leading axis =
+    layers)."""
+    shape = tuple(shape)
+    if len(shape) >= 2:
+        return shape[0], int(np.prod(shape[1:]))
+    return 1, (shape[0] if shape else 1)
+

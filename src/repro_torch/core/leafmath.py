@@ -1,0 +1,91 @@
+"""Per-leaf selection/encode math of the bucketed transport (twin of
+``src/repro/core/leafmath.py``).
+
+:func:`select_and_encode` is the whole-tree selection stage before the
+gather: for block_topk ONE fused-EF two-pass launch pair over every
+compressed leaf and the per-block selection of what it sent; for topk
+the EF accumulation and an exact per-layer top-k; either way the
+``(vals, idx)`` rows that ``comm.bucket.encode_buckets`` consumes.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import ef_acc
+from .compression import Compressor, block_extract_sparse, \
+    stable_topk_indices
+
+
+def per_layer_topk(acc2d: torch.Tensor, k: int):
+    """Exact top-k over the last axis of (L, d), ties to the lower index."""
+    idx = stable_topk_indices(acc2d.abs(), k)
+    return torch.gather(acc2d, 1, idx), idx.to(torch.int32)
+
+
+def scatter_layers(vals: torch.Tensor, idx: torch.Tensor, L: int, d: int,
+                   dtype=torch.float32) -> torch.Tensor:
+    """Scatter-add (L, k) or gathered (W, L, k) sparse pairs into a dense
+    (L, d) accumulator; the W axis sums into the same layer rows."""
+    if vals.dim() not in (2, 3):
+        raise ValueError(f"expected (L, k) or (W, L, k), got "
+                         f"{tuple(vals.shape)}")
+    vals = vals.reshape(-1, L, vals.shape[-1])
+    idx = idx.reshape(vals.shape).to(torch.int64)
+    lidx = torch.arange(L, device=vals.device)[None, :, None].expand_as(idx)
+    dense = torch.zeros((L, d), dtype=dtype, device=vals.device)
+    return dense.index_put_((lidx, idx), vals.to(dtype), accumulate=True)
+
+
+def leaf_2d(x: torch.Tensor, stacked: bool) -> torch.Tensor:
+    """(L, d) per-layer view of a leaf (L = 1 when unstacked)."""
+    if stacked and x.dim() >= 2:
+        return x.reshape(x.shape[0], -1)
+    return x.reshape(1, -1)
+
+
+@dataclasses.dataclass
+class Selection:
+    """Whole-tree selection-stage outputs, indexed by leaf position
+    (None where a field does not apply).  ``use_fused``: block_topk, whose
+    leaves carry ``sent``/``resid`` from the fused EF kernels; topk leaves
+    carry ``acc2`` instead."""
+
+    use_fused: bool
+    g2f: list
+    acc2: list
+    sent: list
+    resid: list
+    leaf_g_sq: list
+    leaf_acc_sq: list
+    enc_rows: list
+
+
+def select_and_encode(flat_g, flat_m, flat_s, eta: torch.Tensor,
+                      comp: Compressor, plan) -> Selection:
+    """``eta``: one f32 element on the working device."""
+    use_fused = comp.method == "block_topk"
+    n = len(plan.leaves)
+    comp_ids = list(plan.compressed_ids)
+    sel = Selection(use_fused, *([None] * n for _ in range(7)))
+    if use_fused and comp_ids:
+        ms = [leaf_2d(flat_m[i], flat_s[i]).float() for i in comp_ids]
+        gs = [leaf_2d(flat_g[i], flat_s[i]).float() for i in comp_ids]
+        outs = ops.fused_ef_compress_batched(ms, gs, eta, comp.gamma,
+                                             comp.block)
+        for i, g2, (s, r, _, moments) in zip(comp_ids, gs, outs):
+            sel.g2f[i], sel.sent[i], sel.resid[i] = g2, s, r
+            sel.leaf_g_sq[i] = moments[:, 0].sum()
+            sel.leaf_acc_sq[i] = moments[:, 1].sum()
+            sel.enc_rows[i] = block_extract_sparse(s, comp)
+        return sel
+    for i in comp_ids:
+        g2 = leaf_2d(flat_g[i], flat_s[i]).float()
+        a2 = ef_acc(leaf_2d(flat_m[i], flat_s[i]), g2, eta)
+        sel.g2f[i], sel.acc2[i] = g2, a2
+        sel.leaf_g_sq[i] = (g2 * g2).sum()
+        sel.leaf_acc_sq[i] = (a2 * a2).sum()
+        sel.enc_rows[i] = per_layer_topk(a2, comp.k_for(plan.leaves[i].d))
+    return sel

@@ -1,0 +1,104 @@
+"""Plain PyTorch versions of the hand-written kernels — the CPU path and
+the oracle the CUDA kernels are held against on the card.
+
+Twins of the jnp oracles in ``src/repro/kernels/ref.py``, bit for bit
+where those are bit-exact.  Two conventions differ from the JAX package,
+both forced by PyTorch:
+
+* ``acc = m + eta*g`` is formed with ``torch.addcmul``, which rounds once
+  like the fused multiply-add the JAX reference compiles to; ``m + eta*g``
+  written out rounds twice and differs in the last bit.
+* Wire fields and words are uint32 bit patterns carried in ``int32``
+  tensors: torch's ``uint32`` has no shifts or comparisons on the CPU.
+  Shifts widen to int64 and fold back to the int32 bit pattern.
+"""
+from __future__ import annotations
+
+import torch
+
+_U32 = 1 << 32
+
+
+def ef_acc(m: torch.Tensor, g: torch.Tensor,
+           eta: torch.Tensor) -> torch.Tensor:
+    """``m + eta*g`` in f32 with one rounding; eta is a 1-element tensor."""
+    return torch.addcmul(m.float(), eta.float().reshape(1, 1), g.float())
+
+
+def ef_block_update(m: torch.Tensor, g: torch.Tensor, eta: torch.Tensor,
+                    tau: torch.Tensor):
+    """Per-block-row EF threshold split.  m, g: (R, C); tau: (R, 1).
+    Returns (sent, m') in m's dtype; ``sent + m' == m + eta*g`` exactly."""
+    acc = ef_acc(m, g, eta)
+    mask = acc.abs() >= tau.reshape(-1, 1).float()
+    sent = torch.where(mask, acc, torch.zeros((), dtype=acc.dtype,
+                                              device=acc.device))
+    return sent.to(m.dtype), (acc - sent).to(m.dtype)
+
+
+def ef_block_stats_telemetry(m: torch.Tensor, g: torch.Tensor,
+                             eta: torch.Tensor, k_b: int):
+    """Per-block-row k_b-th largest |m + eta*g| and the moments
+    [sum g^2, sum acc^2].  (R, C) -> (tau (R, 1), moments (R, 2)) f32."""
+    gf = g.float()
+    acc = ef_acc(m, gf, eta)
+    tau = torch.topk(acc.abs(), k_b, dim=-1).values[:, -1:]
+    moments = torch.stack([(gf * gf).sum(-1), (acc * acc).sum(-1)], dim=-1)
+    return tau, moments
+
+
+def to_i32_bits(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) -> the same 32 bits as int32."""
+    return torch.where(x >= (1 << 31), x - _U32, x).to(torch.int32)
+
+
+def to_u32_value(x: torch.Tensor) -> torch.Tensor:
+    """int32 bit patterns -> their unsigned values as int64."""
+    return x.to(torch.int64) & (_U32 - 1)
+
+
+def _count_mask(R: int, n: int, counts: torch.Tensor,
+                period: int) -> torch.Tensor:
+    """(R, n) ragged validity: field j of a row is valid iff
+    ``j % period < count`` (per-block prefix for block-local rows)."""
+    pos = torch.arange(n, device=counts.device) % period
+    return pos[None, :] < counts.to(torch.int64).reshape(-1, 1)
+
+
+def pack_fields(fields: torch.Tensor, bits: int,
+                counts: torch.Tensor | None = None,
+                period: int = 0) -> torch.Tensor:
+    """Pack (R, n) fields into (R, n*bits/32) words, field f of a word at
+    bits [f*bits, (f+1)*bits).  n must be a multiple of 32 // bits.  With
+    ``counts``, fields with ``j % period >= counts[row]`` are zeroed."""
+    fields = fields.to(torch.int32)
+    R, n = fields.shape
+    if counts is not None:
+        fields = torch.where(_count_mask(R, n, counts, period), fields, 0)
+    if bits >= 32:
+        return fields
+    F = 32 // bits
+    w = (to_u32_value(fields) & ((1 << bits) - 1)).reshape(R, n // F, F)
+    shifts = torch.arange(F, device=fields.device, dtype=torch.int64) * bits
+    return to_i32_bits((w << shifts).sum(-1))
+
+
+def unpack_fields(words: torch.Tensor, bits: int,
+                  counts: torch.Tensor | None = None,
+                  period: int = 0) -> torch.Tensor:
+    """Inverse of :func:`pack_fields`: (R, W) words -> (R, W*32/bits)
+    fields; fields beyond the per-row count come out 0."""
+    words = words.to(torch.int32)
+    R, W = words.shape
+    if bits >= 32:
+        fields = words
+    else:
+        F = 32 // bits
+        shifts = torch.arange(F, device=words.device,
+                              dtype=torch.int64) * bits
+        fields = ((to_u32_value(words)[:, :, None] >> shifts)
+                  & ((1 << bits) - 1)).reshape(R, W * F).to(torch.int32)
+    if counts is not None:
+        fields = torch.where(
+            _count_mask(R, fields.shape[1], counts, period), fields, 0)
+    return fields

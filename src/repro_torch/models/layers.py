@@ -1,0 +1,90 @@
+"""Basic layers (twin of ``src/repro/models/layers.py``): init helpers,
+RMSNorm, rotary embeddings, SwiGLU MLP, embeddings, LM head and the
+cross-entropy.  Functional: params are nested dicts of tensors in the JAX
+package's layout; each function takes ``(params, x, ...)``."""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F_
+
+
+def he_init(gen: torch.Generator, shape, dtype, fan_in=None, lead=()):
+    """normal / sqrt(fan_in); ``lead`` prepends stacked layer axes."""
+    fan_in = fan_in or shape[0]
+    x = torch.randn(tuple(lead) + tuple(shape), generator=gen,
+                    device=gen.device) / math.sqrt(fan_in)
+    return x.to(dtype)
+
+
+def dense(p, x):
+    return x @ p["w"].to(x.dtype)
+
+
+def rms_norm(p, x, eps: float):
+    """x * rsqrt(mean(x^2) + eps) * w, f32 accumulation."""
+    xf = x.float()
+    var = (xf * xf).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * p["w"].float()).to(x.dtype)
+
+
+def init_rms_norm(d, dtype, device, lead=()):
+    return {"w": torch.ones(tuple(lead) + (d,), dtype=dtype, device=device)}
+
+
+def rope_freqs(hd: int, theta: float, device) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
+                                         device=device) / hd))
+
+
+def apply_rope(x: torch.Tensor, pos: torch.Tensor, theta: float):
+    """x: (B, S, H, hd); pos: (S,) absolute positions."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    ang = (pos[:, None].float() * freqs[None, :])[None, :, None, :]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def init_mlp(gen, cfg, dtype, lead=()):
+    return {"wg": he_init(gen, (cfg.d_model, cfg.d_ff), dtype, lead=lead),
+            "wi": he_init(gen, (cfg.d_model, cfg.d_ff), dtype, lead=lead),
+            "wo": he_init(gen, (cfg.d_ff, cfg.d_model), dtype, lead=lead)}
+
+
+def mlp(p, x):
+    """SwiGLU."""
+    h = F_.silu(x @ p["wg"].to(x.dtype)) * (x @ p["wi"].to(x.dtype))
+    return h @ p["wo"].to(x.dtype)
+
+
+def init_embed(gen, cfg, dtype):
+    return {"w": (torch.randn((cfg.padded_vocab, cfg.d_model), generator=gen,
+                              device=gen.device) * 0.02).to(dtype)}
+
+
+def embed(p, tokens, cfg):
+    return p["w"][tokens.long()].to(getattr(torch, cfg.compute_dtype))
+
+
+def init_lm_head(gen, cfg, dtype):
+    return {"w": he_init(gen, (cfg.d_model, cfg.padded_vocab), dtype,
+                         fan_in=cfg.d_model)}
+
+
+def lm_head(p, x, true_vocab: int | None = None):
+    """Logits in f32; padded vocab columns masked to -1e30."""
+    logits = (x @ p["w"].to(x.dtype)).float()
+    V = logits.shape[-1]
+    if true_vocab is not None and true_vocab < V:
+        mask = torch.arange(V, device=logits.device) < true_vocab
+        logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
+    return logits
+
+
+def softmax_xent(logits: torch.Tensor, targets: torch.Tensor):
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    return (lse - gold).mean()

@@ -1,0 +1,85 @@
+"""The bucketed exchange across two worker processes (gloo on the CPU).
+
+Each worker all-gathers the packed payload, decodes both rows and takes
+the mean; its EF memory comes from its own decoded row.  So with two
+workers the update must equal the mean of the two single-worker updates
+and each worker's memory its single-worker memory, bit for bit: f32
+addition of two values is commutative, the halving is exact, and a
+single-worker update is exactly that worker's decoded payload.  This pins
+the rank order of the gather, the own-row slice and the dense all-reduce.
+"""
+import multiprocessing as mp
+import socket
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.comm import exchange
+from repro_torch.convert import to_numpy, to_torch
+from repro_torch.core.compression import Compressor
+from repro_torch.core.dcsgd import worker_compress_aggregate
+
+torch.set_num_threads(2)
+
+COMP = dict(gamma=0.05, method="block_topk", block=512, min_compress_size=64,
+            value_bits=8)
+ETA = np.float32(0.7)
+
+
+def _inputs(rank):
+    rng = np.random.default_rng(10 + rank)
+    tree = {"a": rng.standard_normal((3, 2048)).astype(np.float32),
+            "b": rng.standard_normal((3000,)).astype(np.float32),
+            "tiny": rng.standard_normal((50,)).astype(np.float32)}
+    mem = {k: (0.05 * rng.standard_normal(v.shape)).astype(np.float32)
+           for k, v in tree.items()}
+    return tree, mem
+
+
+def _exchange(rank):
+    tree, mem = _inputs(rank)
+    upd, new_mem, wire, _ = worker_compress_aggregate(
+        to_torch(tree), to_torch(mem), ETA, Compressor(**COMP))
+    return to_numpy(upd), to_numpy(new_mem), float(wire)
+
+
+def _worker(rank, port, queue):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=2, rank=rank)
+    try:
+        queue.put((rank, _exchange(rank)))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_two_workers_mean_of_single_worker_exchanges():
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=_worker, args=(r, port, queue))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    got = dict(queue.get(timeout=120) for _ in procs)
+    for p in procs:
+        p.join(timeout=60)
+        assert not p.is_alive() and p.exitcode == 0
+
+    created = exchange.init_process_group(torch.device("cpu"))
+    try:
+        single = [_exchange(r) for r in range(2)]
+    finally:
+        if created:
+            dist.destroy_process_group()
+    for rank in range(2):
+        upd, mem, wire = got[rank]
+        for k in upd:
+            want = (single[0][0][k] + single[1][0][k]) / np.float32(2)
+            np.testing.assert_array_equal(upd[k], want, err_msg=k)
+            np.testing.assert_array_equal(mem[k], single[rank][1][k],
+                                          err_msg=k)
+        assert wire == single[rank][2]

@@ -1,0 +1,160 @@
+"""The port's kernel ops against their JAX twins.
+
+The same numpy inputs go through ``repro.kernels.ops`` (Pallas in
+interpret mode, as the JAX package's own tests run it on the CPU) and
+``repro_torch.kernels.ops`` (the plain PyTorch versions on the CPU).
+
+Tolerances: tau, sent, m', packed words and unpacked fields are
+bit-exact.  The per-row moments [sum g^2, sum acc^2] are f32 sums whose
+reduction order differs between XLA and PyTorch; DESIGN.md §11 holds
+them to 8 ulp.
+
+tests/test_torch_gpu.py holds each CUDA kernel against its plain version
+on the card.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro_torch.kernels import dispatch, ops, ref
+from repro_torch.kernels import ef_topk, wire_pack
+
+torch.set_num_threads(2)
+
+INTERP = "pallas-interpret"
+
+
+def _leaves(seed, shapes, ties=False):
+    rng = np.random.default_rng(seed)
+    ms, gs = [], []
+    for s in shapes:
+        m = rng.standard_normal(s).astype(np.float32) * 0.05
+        g = rng.standard_normal(s).astype(np.float32)
+        if ties:
+            # duplicated magnitudes (rounded values, both signs) and whole
+            # zero blocks: exactly the cases where the selection's tie
+            # order decides which element is knocked out
+            g = np.round(g * 2.0).astype(np.float32)
+            m = np.zeros_like(m)
+            g.reshape(-1)[:1024] = 0.0
+        ms.append(m)
+        gs.append(g)
+    return ms, gs
+
+
+def _u32(t):
+    return np.asarray(t.numpy()).view(np.uint32)
+
+
+@pytest.mark.parametrize("gamma,ties", [(0.01, False), (0.05, False),
+                                        (0.01, True)])
+def test_fused_ef_compress_batched_matches_jax(gamma, ties):
+    shapes = [(3, 2048), (2, 1500), (5000,)]      # ragged multi-leaf list
+    ms, gs = _leaves(7, shapes, ties)
+    eta = np.float32(0.37)
+    want = jops.fused_ef_compress_batched(
+        [jnp.asarray(m) for m in ms], [jnp.asarray(g) for g in gs],
+        jnp.float32(eta), gamma, telemetry=True, impl=INTERP)
+    got = ops.fused_ef_compress_batched(
+        [torch.from_numpy(m) for m in ms], [torch.from_numpy(g) for g in gs],
+        torch.tensor([eta]), gamma)
+    for (js, jm, jt, jmom), (ts, tm, tt, tmom), m, g in zip(want, got, ms,
+                                                            gs):
+        np.testing.assert_array_equal(np.asarray(jt), tt.numpy())
+        np.testing.assert_array_equal(np.asarray(js), ts.numpy())
+        np.testing.assert_array_equal(np.asarray(jm), tm.numpy())
+        np.testing.assert_array_max_ulp(np.asarray(jmom), tmom.numpy(),
+                                        maxulp=8)
+        # the EF identity against the single-rounding accumulator
+        acc = ref.ef_acc(torch.from_numpy(m), torch.from_numpy(g),
+                         torch.tensor([eta])).reshape(m.shape)
+        np.testing.assert_array_equal((ts + tm).numpy(), acc.numpy())
+
+
+def test_acc_rounds_once_like_jax():
+    """addcmul forms m + eta*g with one rounding, as the JAX kernel does;
+    the two-rounding expression differs (the hazard the kernels avoid)."""
+    ms, gs = _leaves(3, [(64, 1024)])
+    eta = np.float32(0.37)
+    _, jm = jops.ef_apply(jnp.asarray(ms[0]), jnp.asarray(gs[0]),
+                          jnp.float32(eta).reshape(1),
+                          jnp.full((64, 1), jnp.inf), interpret=True)
+    acc = ref.ef_acc(torch.from_numpy(ms[0]), torch.from_numpy(gs[0]),
+                     torch.tensor([eta]))
+    np.testing.assert_array_equal(np.asarray(jm), acc.numpy())
+    two = torch.from_numpy(ms[0]) + torch.tensor(eta) * torch.from_numpy(
+        gs[0])
+    assert (two != acc).any()
+
+
+@pytest.mark.parametrize("bits", [4, 8, 16, 32])
+@pytest.mark.parametrize("ragged", [False, True])
+def test_pack_unpack_fields_match_jax(bits, ragged):
+    rng = np.random.default_rng(bits)
+    R, n = 6, 77
+    fields = rng.integers(0, 2**32, (R, n), dtype=np.uint64).astype(
+        np.uint32)
+    counts = rng.integers(0, 12, R).astype(np.int32) if ragged else None
+    period = 11 if ragged else 0
+    kw = dict(counts=None if counts is None else jnp.asarray(counts),
+              period=period)
+    jw = jops.pack_fields(jnp.asarray(fields), bits, impl=INTERP, **kw)
+    tkw = dict(counts=None if counts is None else torch.from_numpy(counts),
+               period=period)
+    tw = ops.pack_fields(torch.from_numpy(fields.view(np.int32)), bits,
+                         **tkw)
+    np.testing.assert_array_equal(np.asarray(jw), _u32(tw))
+    jf = jops.unpack_fields(jw, n, bits, impl=INTERP, **kw)
+    tf = ops.unpack_fields(tw, n, bits, **tkw)
+    np.testing.assert_array_equal(np.asarray(jf), _u32(tf))
+
+
+@pytest.mark.parametrize("bits", [4, 8, 16, 32])
+def test_pack_unpack_stream_match_jax(bits):
+    rng = np.random.default_rng(100 + bits)
+    F = max(1, 32 // bits)
+    n = F * 1300                                  # > WORD_CHUNK words
+    fields = rng.integers(0, 2**bits, n, dtype=np.uint64).astype(np.uint32)
+    jw = jops.pack_fields_stream(jnp.asarray(fields), bits, impl=INTERP)
+    tw = ops.pack_fields_stream(torch.from_numpy(fields.view(np.int32)),
+                                bits)
+    np.testing.assert_array_equal(np.asarray(jw), _u32(tw))
+    jf = jops.unpack_fields_stream(jw, bits, impl=INTERP)
+    tf = ops.unpack_fields_stream(tw, bits)
+    np.testing.assert_array_equal(np.asarray(jf), _u32(tf))
+    np.testing.assert_array_equal(_u32(tf), fields)
+
+
+def test_stream_shape_matches_jax():
+    from repro.kernels import wire_pack as jwp
+    for n in (0, 1, 511, 512, 513, 537_000):
+        assert wire_pack.stream_shape(n) == jwp.stream_shape(n)
+
+
+def test_dispatch_follows_device():
+    reg = dispatch.registered()
+    for op in ("ef_stats_telemetry", "ef_update", "wire_pack",
+               "wire_unpack"):
+        assert reg[op] == ("ref", "cuda")
+    assert dispatch.resolve(torch.zeros(1)) == "ref"
+    with pytest.raises(ValueError, match="no kernel"):
+        dispatch.resolve(torch.zeros(1, device="meta"))
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    """A wrapper checks its inputs before it builds or launches, and
+    never runs the plain version itself."""
+    m = torch.zeros(2, 1024)
+    eta = torch.ones(1)
+    with pytest.raises(ValueError, match="CUDA"):
+        ef_topk.ef_stats_telemetry(m, m, eta, 10)
+    with pytest.raises(ValueError, match="CUDA"):
+        ef_topk.ef_apply(m, m, eta, torch.zeros(2, 1))
+    w = torch.zeros(2, 8, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        wire_pack.pack_words(w, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        wire_pack.unpack_words(w, 8)
+    assert all(v == 0 for v in ops.launch_counts().values())
