@@ -9,18 +9,30 @@ Phases, each fatal on failure (no phase catches and continues):
    CUDA versions;
 2. build every CUDA kernel from ``src/repro_torch/csrc`` with ``nvcc``
    for ``sm_90a``, one compiler per source, all started together;
-3. hold each kernel against its plain PyTorch version on the card at the
-   shapes paper-lm-100m's training step gives it (bit-exact; the pass-1
-   moments within 8 ulp), and time both with CUDA events (median of 25
-   runs) beside the kernel's byte bound at the H100's 3.35 TB/s;
-4. run the trainer (``repro_torch.launch.train``) on paper-lm-100m at full
-   width — 12 layers, d_model 768, vocab 16384, seq 256, global batch 8,
-   ``--compress-method block_topk`` — for 4 steps, with every launch count
-   set to 0 just before and read just after, then 2 steps at
-   ``--value-bits 8`` the same way;
-5. run the 2-layer smoke variant for 2 steps on the card and on the CPU
-   (the plain versions, which the CPU tests hold against the JAX
-   package) and compare losses and wire bytes;
+3. hold each of the 7 kernels against its plain PyTorch version on the
+   card at the shapes paper-lm-100m's two training paths give it
+   (bit-exact; the pass-1 moments within 8 ulp), plus a block of rows
+   with NaN, +-inf, zeros and ties through every pass-1 kernel, and time
+   both with CUDA events (median of 25 runs) beside the kernel's byte
+   bound at the H100's 3.35 TB/s; ``ef_block_stats`` runs through its
+   only path, ``ops.fused_ef_compress(telemetry=False)``, with the launch
+   counts set to 0 just before and read just after;
+4. run the DCSGD-ASSS trainer (``repro_torch.launch.train``) on
+   paper-lm-100m at full width — 12 layers, d_model 768, vocab 16384,
+   seq 256, global batch 8, ``--compress-method block_topk`` — for 4
+   steps, with every launch count set to 0 just before and read just
+   after, then 2 steps at ``--value-bits 8`` the same way;
+4b. profile one warm trainer step: device time by kernel group, the
+   device's idle share and the host time of each train_step span;
+4c. run single-node CSGD-ASSS (``repro_torch.core.csgd.csgd_asss``,
+   ``block_topk``, gamma 0.01) on the same model and batches for 4
+   steps the same way: 11 ``block_stats`` and 11 ``threshold_split``
+   launches per step, none of the other kernels, finite losses, the EF
+   identity sent + residual == acc on the largest leaf, exact wire bytes;
+   then profile one more step as in 4b;
+5. run the 2-layer smoke variant on the card and on the CPU (the plain
+   versions, which the CPU tests hold against the JAX package), through
+   the trainer for 2 steps and through CSGD-ASSS for 3, and compare;
 6. print the kernels as one JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -30,6 +42,7 @@ when the repository's ``src/repro_torch`` is not beside it.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -41,18 +54,24 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 F32_OPS_PER_S = 67e12            # H100 SXM, f32 outside the tensor cores
-MAIN_STEPS, VB8_STEPS = 4, 2
+MAIN_STEPS, VB8_STEPS, CSGD_STEPS = 4, 2, 4
 MAIN_ARGS = ["--arch", "paper-lm-100m", "--compress-method", "block_topk",
              "--seq-len", "256", "--global-batch", "8", "--log-every", "1"]
 REPLACES = {
     "ef_stats_telemetry": "src/repro/kernels/ef_topk.py:206",
     "ef_apply": "src/repro/kernels/ef_topk.py:107",
+    "ef_block_stats": "src/repro/kernels/ef_topk.py:188",
+    "block_stats": "src/repro/kernels/ef_topk.py:146",
+    "threshold_split": "src/repro/kernels/ef_topk.py:243",
     "pack_words": "src/repro/kernels/wire_pack.py:109",
     "unpack_words": "src/repro/kernels/wire_pack.py:154",
 }
 SOURCES = {
     "ef_stats_telemetry": "src/repro_torch/csrc/ef_topk.cu",
     "ef_apply": "src/repro_torch/csrc/ef_topk.cu",
+    "ef_block_stats": "src/repro_torch/csrc/ef_topk.cu",
+    "block_stats": "src/repro_torch/csrc/ef_topk.cu",
+    "threshold_split": "src/repro_torch/csrc/ef_topk.cu",
     "pack_words": "src/repro_torch/csrc/wire_pack.cu",
     "unpack_words": "src/repro_torch/csrc/wire_pack.cu",
 }
@@ -86,19 +105,27 @@ def max_ulp(a, b) -> int:
     return int(np.abs(ia - ib).max()) if ia.size else 0
 
 
-PORTED = ("ef_stats_telemetry_kernel", "ef_apply_kernel",
+#: the ``__global__`` names of the port's kernels, one per kernel
+PORTED = ("ef_stats_telemetry_kernel", "ef_block_stats_kernel",
+          "block_stats_kernel", "ef_apply_kernel", "threshold_split_kernel",
           "pack_words_kernel", "unpack_words_kernel")
 
 
 def kernel_group(name: str) -> str:
+    """A port kernel's own name, else a coarse group of library kernels.
+    The function name is the first identifier before a ``(`` (or the end)
+    of the profiler's key, e.g. ``(anonymous namespace)::block_stats_kernel
+    (...)``, so ``block_stats_kernel`` never matches
+    ``ef_block_stats_kernel``."""
+    fn = re.search(r"(\w+)\s*(?:\(|$)", name)
+    if fn and fn.group(1) in PORTED:
+        return fn.group(1)
     low = name.lower()
-    if any(p in name for p in PORTED):
-        return "ported EF/wire kernels"
     if any(s in low for s in ("gemm", "cutlass", "sm90_xmma", "cublas",
                               "nvjet")):
         return "matmul"
     if "sort" in low or "radix" in low:
-        return "sort (block_extract_sparse)"
+        return "sort"
     if "nccl" in low:
         return "nccl"
     return "other"
@@ -125,17 +152,36 @@ def profile_step(dev, cfg, comp) -> None:
             batch = {k: v.to(dev) for k, v in pipe.batch(step).items()}
             params, state, _ = train_step(params, state, batch, run)
         batch = {k: v.to(dev) for k, v in pipe.batch(2).items()}
-        torch.cuda.synchronize(dev)
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            train_step(params, state, batch, run)
-            torch.cuda.synchronize(dev)
-            wall_ms = (time.perf_counter() - t0) * 1e3
+        prof, wall_ms = profiled(
+            dev, lambda: train_step(params, state, batch, run))
     finally:
         if created:
             torch.distributed.destroy_process_group()
+    spans = report_profile("trainer", prof, wall_ms,
+                           ("ef_stats_telemetry_kernel", "ef_apply_kernel",
+                            "pack_words_kernel", "unpack_words_kernel"))
+    if len(spans) != 4 or min(spans.values()) <= 0:
+        fail(f"the profiler saw train_step spans {spans}, want 4 timed")
+
+
+def profiled(dev, fn):
+    """(profiler, wall ms) of one call of ``fn`` under torch.profiler."""
+    torch.cuda.synchronize(dev)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return prof, wall_ms
+
+
+def report_profile(label, prof, wall_ms, kernels_of_path) -> dict:
+    """Print device time by kernel group, the device's idle share of the
+    step and the host time of each ``train_step.*`` span; fail unless
+    each of the path's kernels shows under its own name; return the
+    spans."""
     groups, kernels, spans = {}, [], {}
     for ev in prof.key_averages():
         if ev.key.startswith("train_step."):
@@ -153,20 +199,23 @@ def profile_step(dev, cfg, comp) -> None:
                                                   0.0) + us / 1e3
         kernels.append((us / 1e3, ev.count, ev.key))
     busy = sum(groups.values())
-    print(f"profile: one step {wall_ms:.2f} ms wall (profiler on), device "
-          f"busy {busy:.2f} ms, idle share {1 - busy / wall_ms:.3f}")
+    if busy <= 0:
+        fail(f"the profiler saw no device time in the {label} step")
+    missing = [k for k in kernels_of_path if k not in groups]
+    if missing:
+        fail(f"the profiler saw no {missing} in the {label} step")
+    print(f"profile [{label}]: one step {wall_ms:.2f} ms wall (profiler "
+          f"on), device busy {busy:.2f} ms, idle share "
+          f"{1 - busy / wall_ms:.3f}")
     for name, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"  {name}: {ms:.3f} ms ({ms / busy:.3f} of device time)")
     # host time in each phase of train_step: launches plus any wait for
     # the device (the Armijo trials and the metrics read values back)
     for name, ms in spans.items():
         print(f"  host {name}: {ms:.3f} ms ({ms / wall_ms:.3f} of wall)")
-    if len(spans) != 4 or min(spans.values()) <= 0:
-        fail(f"the profiler saw train_step spans {spans}, want 4 timed")
     for ms, n, key in sorted(kernels, reverse=True)[:12]:
         print(f"    {ms:8.3f} ms x{n:<4d} {key[:90]}")
-    if busy <= 0:
-        fail("the profiler saw no device time in the train step")
+    return spans
 
 
 def step_wire_bytes(shapes, stacked, comp) -> float:
@@ -176,6 +225,230 @@ def step_wire_bytes(shapes, stacked, comp) -> float:
     plan = build_bucket_plan(shapes, stacked, comp)
     return float(plan.total_words * 4 + sum(
         ln.L * ln.d * 4 for ln in plan.leaves if ln.dense))
+
+
+def special_rows(dev):
+    """Block rows that decide the selection's edge cases: one NaN,
+    several NaNs, +inf twice, -inf, all zeros, rounded ties, all equal."""
+    x = np.random.default_rng(21).standard_normal((8, 1024)).astype(
+        np.float32)
+    x[1, 5] = np.nan
+    x[2, [3, 700, 900]] = np.nan
+    x[3, [10, 600]] = np.inf
+    x[4, 11] = -np.inf
+    x[5] = 0.0
+    x[6] = np.round(x[6] * 2.0)
+    x[7] = -1.5
+    return torch.from_numpy(x).to(dev)
+
+
+def same(a, b) -> bool:
+    """Bit-for-bit equal values, NaN where the other has NaN."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(a[~na], b[~nb])
+
+
+def check_dense_selection(dev, gen, leaf_rows, k_b, report) -> None:
+    """block_stats and threshold_split (the single-node compress_dense
+    path) against their plain versions: at the largest flat leaf, at a
+    padded 9-row leaf through the public ops, and on the edge-case rows
+    (with ef_block_stats and ef_stats_telemetry too); timed at the
+    largest leaf and summed over one step's leaves."""
+    from repro_torch.kernels import ef_topk, ops, ref
+    big = max(leaf_rows)
+    x = torch.randn((big, 1024), generator=gen, device=dev) * 1e-2
+    tau = ef_topk.block_stats(x, k_b)
+    rtau = ref.block_abs_topk_threshold(x, k_b)
+    sent, res = ef_topk.threshold_split(x, tau)
+    rsent, rres = ref.threshold_split(x, tau)
+    torch.cuda.synchronize()
+    if not same(tau, rtau):
+        fail(f"block_stats differs from the plain version in "
+             f"{int((tau != rtau).sum())} of {big} rows")
+    if not (torch.equal(sent, rsent) and torch.equal(res, rres)):
+        fail("threshold_split differs from the plain version")
+    if not torch.equal(sent + res, x):
+        fail("threshold_split breaks sent + residual == x")
+
+    leaf = torch.randn(8 * 1024 + 508, generator=gen, device=dev)
+    t9 = ops.block_topk_threshold(leaf, k_b).reshape(-1, 1)
+    x9 = torch.nn.functional.pad(leaf, (0, 516)).reshape(9, 1024)
+    s9, r9 = ops.threshold_split_blocks(leaf, t9)
+    rs9, rr9 = ref.threshold_split(x9, t9)
+    if not same(t9, ref.block_abs_topk_threshold(x9, k_b)) \
+            or not torch.equal(s9, rs9.reshape(-1)[:leaf.numel()]) \
+            or not torch.equal(r9, rr9.reshape(-1)[:leaf.numel()]):
+        fail("the padded 9-row leaf differs from the plain versions")
+
+    sp = special_rows(dev)
+    zeros = torch.zeros_like(sp)
+    eta = torch.tensor([0.5], device=dev)
+    for kb in (1, k_b, 1024):
+        pairs = {
+            "block_stats": (ef_topk.block_stats(sp, kb),
+                            ref.block_abs_topk_threshold(sp, kb)),
+            "ef_block_stats": (ef_topk.ef_block_stats(zeros, sp, eta, kb),
+                               ref.ef_block_stats(zeros, sp, eta, kb)),
+            "ef_stats_telemetry": (
+                ef_topk.ef_stats_telemetry(zeros, sp, eta, kb)[0],
+                ref.ef_block_stats_telemetry(zeros, sp, eta, kb)[0])}
+        for name, (got, want) in pairs.items():
+            if not same(got, want) or not torch.isnan(got[1:3]).all():
+                fail(f"{name} at k_b={kb} differs from the plain version "
+                     f"on the NaN/inf/tie rows: {got.ravel().tolist()} vs "
+                     f"{want.ravel().tolist()}")
+        ts, tr = ef_topk.threshold_split(sp, pairs["block_stats"][0])
+        rs, rr = ref.threshold_split(sp, pairs["block_stats"][0])
+        if not (same(ts, rs) and same(tr, rr)):
+            fail(f"threshold_split at k_b={kb} differs on the NaN/inf rows")
+    _, mom = ef_topk.ef_stats_telemetry(zeros, sp, eta, k_b)
+    _, rmom = ref.ef_block_stats_telemetry(zeros, sp, eta, k_b)
+    fin = torch.isfinite(rmom).all(1)
+    if not same(mom[~fin], rmom[~fin]) or max_ulp(
+            mom[fin].cpu().numpy(), rmom[fin].cpu().numpy()) > 8:
+        fail("ef_stats_telemetry moments differ on the NaN/inf rows")
+    print(f"edge-case rows (NaN, +-inf, zeros, ties) at k_b 1, {k_b}, 1024: "
+          f"tau {ef_topk.block_stats(sp, k_b).ravel().tolist()}", flush=True)
+
+    per_step = {"block_stats": 0.0, "threshold_split": 0.0}
+    for r in sorted(set(leaf_rows)):
+        xr, tr_ = x[:r], tau[:r]
+        n = leaf_rows.count(r)
+        per_step["block_stats"] += n * time_ms(
+            lambda: ef_topk.block_stats(xr, k_b))
+        per_step["threshold_split"] += n * time_ms(
+            lambda: ef_topk.threshold_split(xr, tr_))
+    print(f"one CSGD step's {len(leaf_rows)} leaves ({sum(leaf_rows)} block "
+          f"rows): block_stats {per_step['block_stats']:.4f} ms, "
+          f"threshold_split {per_step['threshold_split']:.4f} ms summed "
+          f"(bounds {sum(leaf_rows) * 1028 * 4 / HBM_BYTES_PER_S * 1e3:.4f}"
+          f" and {sum(leaf_rows) * 1024 * 12 / HBM_BYTES_PER_S * 1e3:.4f} "
+          "ms)", flush=True)
+    report["block_stats"] = dict(
+        max_abs_err=float((tau - rtau).abs().max()),
+        ms=time_ms(lambda: ef_topk.block_stats(x, k_b)),
+        plain_ms=time_ms(lambda: ref.block_abs_topk_threshold(x, k_b)),
+        library_ms=time_ms(
+            lambda: torch.topk(x.abs(), k_b, dim=1).values[:, -1:]),
+        bytes=big * 1024 * 4 + big * 4,
+        # per element |x|; per row k_b rounds of a 5-step warp max-reduce
+        ops=big * 1024 + big * k_b * 32 * 5 * 2,
+        note=f"largest leaf, {big} block rows")
+    report["threshold_split"] = dict(
+        max_abs_err=max(float((sent - rsent).abs().max()),
+                        float((res - rres).abs().max())),
+        ms=time_ms(lambda: ef_topk.threshold_split(x, tau)),
+        plain_ms=time_ms(lambda: ref.threshold_split(x, tau)),
+        bytes=big * 1024 * 12 + big * 4, ops=big * 1024 * 3,
+        note=f"largest leaf, {big} block rows")
+
+
+def run_csgd(dev, cfg, comp, steps) -> dict:
+    """Phase 4c: single-node CSGD-ASSS on the full-width model through
+    the library entry point; returns the launch counts of the run."""
+    from repro_torch.core.armijo import ArmijoConfig
+    from repro_torch.core.compression import Compressor, tree_wire_bytes
+    from repro_torch.core.csgd import CSGDConfig, csgd_asss
+    from repro_torch.data.synthetic import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.utils import tree_leaves
+    seen = {}
+
+    class Recording(Compressor):
+        """Keeps the (acc, sent, residual) of the largest leaf, so the EF
+        identity is checked on what the optimizer really passed."""
+
+        def compress_dense(self, x):
+            sent, resid = super().compress_dense(x)
+            if x.numel() >= seen.get("n", 0):
+                seen.update(n=x.numel(), x=x, sent=sent, resid=resid)
+            return sent, resid
+
+    params = lm.init_params(cfg, seed=0, device=dev)
+    n_leaves = sum(p.numel() >= comp.min_compress_size
+                   for p in tree_leaves(params))
+    want_bytes = float(tree_wire_bytes(params, comp))
+    opt = csgd_asss(CSGDConfig(armijo=ArmijoConfig(), compressor=Recording(
+        gamma=comp.gamma, method=comp.method)))
+    state = opt.init(params)
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=256,
+                         global_batch=8)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    log = []
+    for step in range(steps):
+        batch = {k: v.to(dev) for k, v in pipe.batch(step).items()}
+        t0 = time.perf_counter()
+        params, state, aux = opt.step(
+            lambda p, b=batch: lm.loss_fn(p, b, cfg), params, state)
+        loss = float(aux.loss)
+        torch.cuda.synchronize(dev)
+        log.append(dict(step_s=time.perf_counter() - t0, loss=loss,
+                        alpha=float(aux.alpha), n_evals=aux.n_evals,
+                        wire_bytes=float(aux.wire_bytes)))
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"csgd: launches {counts}; step_s "
+          f"{[round(x['step_s'], 4) for x in log]}; losses "
+          f"{[x['loss'] for x in log]}; alpha {[x['alpha'] for x in log]}; "
+          f"n_evals {[x['n_evals'] for x in log]}; wire bytes "
+          f"{log[0]['wire_bytes']} (want {want_bytes}); peak memory "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    for name, n in counts.items():
+        want = n_leaves * steps if name in ("block_stats",
+                                            "threshold_split") else 0
+        if n != want:
+            fail(f"[csgd] {name} launched {n} times in {steps} steps over "
+                 f"{n_leaves} compressed leaves, want {want}")
+    if not all(np.isfinite(x["loss"]) for x in log):
+        fail(f"[csgd] non-finite loss: {[x['loss'] for x in log]}")
+    if any(x["wire_bytes"] != want_bytes for x in log):
+        fail(f"[csgd] wire bytes {[x['wire_bytes'] for x in log]} != "
+             f"accounted {want_bytes}")
+    if not torch.equal(seen["sent"] + seen["resid"], seen["x"]):
+        fail("[csgd] sent + residual != acc on the largest leaf")
+    print(f"csgd: EF identity exact on a {seen['n']}-element leaf; "
+          f"{int((seen['sent'] != 0).sum())} entries sent", flush=True)
+    seen.clear()
+    batch = {k: v.to(dev) for k, v in pipe.batch(steps).items()}
+    report_profile("csgd", *profiled(dev, lambda: opt.step(
+        lambda p: lm.loss_fn(p, batch, cfg), params, state)),
+        ("block_stats_kernel", "threshold_split_kernel"))
+    return counts
+
+
+def csgd_smoke(dev, steps: int = 3) -> None:
+    """Phase 5b: CSGD-ASSS on the 2-layer variant, the card against the
+    CPU's plain versions from the same weights and batches."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.compression import Compressor
+    from repro_torch.core.csgd import CSGDConfig, csgd_asss
+    from repro_torch.data.synthetic import TokenPipeline
+    from repro_torch.models import lm
+    cfg = get_smoke_config("paper-lm-100m")
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        params = lm.init_params(cfg, seed=0, device=d)
+        opt = csgd_asss(CSGDConfig(compressor=Compressor(
+            gamma=0.01, method="block_topk")))
+        state = opt.init(params)
+        pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=33,
+                             global_batch=4)
+        out = []
+        for step in range(steps):
+            batch = {k: v.to(d) for k, v in pipe.batch(step).items()}
+            params, state, aux = opt.step(
+                lambda p, b=batch: lm.loss_fn(p, b, cfg), params, state)
+            out.append((float(aux.loss), float(aux.alpha), aux.n_evals))
+        runs.append(out)
+    for (lc, ac, nc), (lh, ah, nh) in zip(*runs):
+        if abs(lc - lh) > 1e-4 * abs(lh) or ac != ah or nc != nh:
+            fail(f"csgd smoke on the card {runs[0]} disagrees with the "
+                 f"CPU {runs[1]}")
+    print(f"csgd smoke card vs cpu: (loss, alpha, n_evals) {runs[0]} vs "
+          f"{runs[1]}", flush=True)
 
 
 def main() -> None:
@@ -274,7 +547,33 @@ def main() -> None:
         plain_ms=time_ms(lambda: ref.ef_block_update(m, g, eta, tau)),
         bytes=rows * 1024 * 16 + rows * 4, ops=rows * 1024 * 5,
         note=f"{kept:.2f} kept per block row (k_b={k_b})")
-    del m, g, sent, mnew, rsent, rmnew, tau, rtau, mom, rmom
+
+    # ef_block_stats through its only path, the per-leaf fused op without
+    # moments, at the same rows; the counts of that call are its launches
+    ops.reset_launch_counts()
+    sent, mnew, btau = ops.fused_ef_compress(m, g, eta, comp.gamma,
+                                             telemetry=False)
+    ef_block_counts = ops.launch_counts()
+    rbtau = ref.ef_block_stats(m, g, eta, k_b)
+    torch.cuda.synchronize()
+    want = dict.fromkeys(ef_block_counts, 0)
+    want.update(ef_block_stats=1, ef_apply=1)
+    if ef_block_counts != want:
+        fail(f"fused_ef_compress(telemetry=False) launched "
+             f"{ef_block_counts}, want {want}")
+    if not same(btau, rbtau) or not same(btau, rtau):
+        fail("ef_block_stats differs from the plain version")
+    if not torch.equal(sent, rsent) or not torch.equal(mnew, rmnew):
+        fail("fused_ef_compress(telemetry=False) differs from the plain "
+             "versions")
+    report["ef_block_stats"] = dict(
+        max_abs_err=float((btau - rbtau).abs().max()),
+        ms=time_ms(lambda: ef_topk.ef_block_stats(m, g, eta, k_b)),
+        plain_ms=time_ms(lambda: ref.ef_block_stats(m, g, eta, k_b)),
+        bytes=rows * 1024 * 8 + rows * 4,
+        ops=rows * 1024 * 3 + rows * k_b * 32 * 5 * 2,
+        note="through ops.fused_ef_compress(telemetry=False)")
+    del m, g, sent, mnew, rsent, rmnew, tau, rtau, mom, rmom, btau, rbtau
 
     W = index_words
     srows, scols = wire_pack.stream_shape(W)
@@ -315,13 +614,19 @@ def main() -> None:
         bytes=srows * scols * 4 * 3, ops=srows * scols * 2 * 3,
         note=f"16-bit index stream {W} words")
     del fields, words, rwords, back, rback
+
+    csgd_rows = [-(-int(np.prod(sh)) // comp.block) for sh in shapes
+                 if int(np.prod(sh)) >= comp.min_compress_size]
+    check_dense_selection(dev, gen, csgd_rows, k_b, report)
     for name, r in report.items():
         byte_ms = r["bytes"] / HBM_BYTES_PER_S * 1e3
         ops_ms = r["ops"] / F32_OPS_PER_S * 1e3
         r["bound_ms"] = max(byte_ms, ops_ms)
         r["bound_by"] = "bytes" if byte_ms >= ops_ms else "operations"
+        lib = (f", library {r['library_ms']:.4f} ms"
+               if r.get("library_ms") is not None else "")
         print(f"kernel {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} "
-              f"ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']}: "
+              f"ms{lib}, bound {r['bound_ms']:.4f} ms by {r['bound_by']}: "
               f"{r['bytes']} B, {r['ops']} ops; {r['note']})", flush=True)
 
     # ---- 4. the trainer at full width through the kernels ---------------
@@ -346,10 +651,10 @@ def main() -> None:
               f"{[x['wire_bytes'] for x in log]} (want {want_bytes}); "
               f"n_evals {[x['n_evals'] for x in log]}; peak memory "
               f"{peak / 2**30:.2f} GiB", flush=True)
-        for name, n in per_step.items():
-            if counts[name] != n * steps:
-                fail(f"[{label}] {name} launched {counts[name]} times in "
-                     f"{steps} steps, want {n * steps}")
+        for name, n in counts.items():
+            if n != per_step.get(name, 0) * steps:
+                fail(f"[{label}] {name} launched {n} times in {steps} "
+                     f"steps, want {per_step.get(name, 0) * steps}")
         if not all(np.isfinite(x["loss"]) for x in log):
             fail(f"[{label}] non-finite loss: {[x['loss'] for x in log]}")
         if any(x["wire_bytes"] != want_bytes for x in log):
@@ -360,6 +665,9 @@ def main() -> None:
 
     # ---- 4b. where one step's device time goes ---------------------------
     profile_step(dev, cfg, comp)
+
+    # ---- 4c. single-node CSGD-ASSS at full width through its kernels -----
+    csgd_counts = run_csgd(dev, cfg, comp, CSGD_STEPS)
 
     # ---- 5. small input: the card against the CPU's plain path ----------
     small = ["--smoke", "--steps", "2", "--seq-len", "33", "--global-batch",
@@ -372,13 +680,21 @@ def main() -> None:
             fail(f"smoke run on the card {a} disagrees with the CPU {b}")
     print(f"smoke card vs cpu: losses {[x['loss'] for x in on_card]} vs "
           f"{[x['loss'] for x in on_cpu]}", flush=True)
+    csgd_smoke(dev)
 
     # ---- 6. results -----------------------------------------------------
+    # launches: each kernel's count on the path that runs it — the
+    # trainer, single-node CSGD, or fused_ef_compress(telemetry=False)
+    launches = dict(runs["main"])
+    launches.update(block_stats=csgd_counts["block_stats"],
+                    threshold_split=csgd_counts["threshold_split"],
+                    ef_block_stats=ef_block_counts["ef_block_stats"])
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
-                    replaces=REPLACES[name], launches=runs["main"][name],
+                    replaces=REPLACES[name], launches=launches[name],
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                    bound_by=r["bound_by"], library_ms=None)
+                    bound_by=r["bound_by"],
+                    library_ms=r.get("library_ms"))
                for name, r in report.items()]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,3 +1,3 @@
 """Paper math of the port: compression, EF memory, Armijo search, gamma
-schedule, telemetry and the DCSGD-ASSS exchange (twin of
-``src/repro/core``)."""
+schedule, telemetry, single-node CSGD-ASSS with its baselines and the
+DCSGD-ASSS exchange (twin of ``src/repro/core``)."""

@@ -37,6 +37,11 @@ class ArmijoConfig:
     max_backtracks: int = 40
     alpha_min: float = 1e-8
 
+    def scale_for(self, gamma=None) -> float:
+        """The step scale a of a round at compression level ``gamma``:
+        ``a_scale`` (the JAX package's default, ``theory_safe`` off)."""
+        return self.a_scale
+
 
 class ArmijoResult(NamedTuple):
     alpha: np.float32     # accepted (unscaled) alpha_t

@@ -1,17 +1,21 @@
-"""Gradient compression operators (twin of ``src/repro/core/compression.py``,
-the parts the DCSGD-ASSS training path reads).
+"""Gradient compression operators (twin of ``src/repro/core/compression.py``).
 
-Compression is per layer (per leaf row); leaves under
-``min_compress_size`` parameters ship uncompressed; ``gamma = k/d``.
+Compression is per leaf (per layer row on the distributed path); leaves
+under ``min_compress_size`` parameters ship uncompressed; ``gamma = k/d``.
 
-* ``topk``       — exact per-layer magnitude top-k.
-* ``block_topk`` — per 1024-wide block top-k_b through the fused EF
-                   kernels (``repro_torch/kernels``).
+* ``topk``       — exact magnitude top-k.
+* ``block_topk`` — per 1024-wide block top-k_b through the hand-written
+                   kernels (``repro_torch/kernels``): the fused EF passes
+                   on the distributed path, ``block_stats`` +
+                   ``threshold_split`` in :meth:`Compressor.compress_dense`.
 
 Ties are broken toward the lower index, as ``lax.top_k`` does: selection
 uses a stable descending sort, because ``torch.topk`` leaves the order of
 equal values unspecified and the shipped indices must match the JAX
 package's bit for bit.
+
+The adaptive budget of the JAX package (``max_gamma``, per-round k_t,
+the effective-byte functions) is not ported yet.
 """
 from __future__ import annotations
 
@@ -20,6 +24,9 @@ import dataclasses
 import numpy as np
 import torch
 import torch.nn.functional as F_
+
+from repro_torch.kernels import ops
+from repro_torch.utils import tree_leaves
 
 #: Leaves smaller than this are not compressed (paper §IV-A).
 MIN_COMPRESS_SIZE = 1000
@@ -45,6 +52,37 @@ def stable_topk_indices(mag: torch.Tensor, k: int) -> torch.Tensor:
     first and the lower index first among equals (``lax.top_k``'s order)."""
     return torch.sort(mag, dim=-1, descending=True, stable=True).indices[
         ..., :k]
+
+
+@dataclasses.dataclass(frozen=True)
+class Sparse:
+    """A compressed tensor: flat values + flat int32 indices into the leaf
+    of shape ``shape``."""
+
+    values: torch.Tensor    # (k,)
+    indices: torch.Tensor   # (k,) int32
+    shape: tuple
+
+
+def topk_select(x: torch.Tensor, k: int) -> Sparse:
+    """Exact magnitude top-k of the flattened x, largest first and the
+    lower index first among equals."""
+    flat = x.reshape(-1)
+    if k >= flat.numel():
+        return Sparse(flat, torch.arange(flat.numel(), dtype=torch.int32,
+                                         device=x.device), tuple(x.shape))
+    idx = stable_topk_indices(flat.abs(), k)
+    return Sparse(flat[idx], idx.to(torch.int32), tuple(x.shape))
+
+
+def sparse_to_dense(s: Sparse, dtype=None) -> torch.Tensor:
+    """Scatter-add a Sparse back to a dense tensor of its shape."""
+    vals = s.values.reshape(-1)
+    dense = torch.zeros(int(np.prod(s.shape)), dtype=dtype or vals.dtype,
+                        device=vals.device)
+    dense.index_add_(0, s.indices.reshape(-1).to(torch.int64),
+                     vals.to(dense.dtype))
+    return dense.reshape(s.shape)
 
 
 def block_extract_sparse(x2d: torch.Tensor, comp: "Compressor"):
@@ -104,6 +142,40 @@ class Compressor:
         return (self.method == "none" or d < self.min_compress_size
                 or self.sparse_k(d) >= d)
 
+    def quantize_values(self, vals: torch.Tensor) -> torch.Tensor:
+        """Wire quantization of the values as receivers reconstruct them
+        (dequantized, vals' dtype); the scale is per row of the leading
+        dims, computed as :func:`quant_scale`."""
+        if self.value_bits >= 32:
+            return vals
+        if self.value_bits == 16:
+            return vals.to(torch.bfloat16).to(vals.dtype)
+        qmax = QMAX[self.value_bits]
+        scale = quant_scale(vals, qmax)
+        q = torch.clamp(torch.round(vals / scale), -qmax, qmax)
+        return (q * scale).to(vals.dtype)
+
+    def compress_dense(self, x: torch.Tensor):
+        """(top_k(x) as a dense tensor, residual x - top_k(x)) of one leaf,
+        flattened whole (single-node semantics).  ``block_topk`` runs the
+        ``block_stats`` and ``threshold_split`` kernels over the flat
+        leaf's 1024-wide blocks and ships values unquantized; ``topk``
+        quantizes its values when ``value_bits < 32``."""
+        d = x.numel()
+        if self.method == "none" or d < self.min_compress_size:
+            return x, torch.zeros_like(x)
+        if self.method == "block_topk":
+            flat = x.reshape(-1)
+            tau = ops.block_topk_threshold(flat, self.block_k(), self.block)
+            sent, resid = ops.threshold_split_blocks(
+                flat, tau.reshape(-1, 1), self.block)
+            return sent.reshape(x.shape), resid.reshape(x.shape)
+        s = topk_select(x, self.k_for(d))
+        if self.value_bits < 32:
+            s = Sparse(self.quantize_values(s.values), s.indices, s.shape)
+        dense = sparse_to_dense(s, x.dtype)
+        return dense, x - dense
+
     def wire_bytes(self, x_size: int, itemsize: int = 4) -> int:
         """Bytes on the wire for one leaf row: the packed payload row, or
         the dense row for uncompressed leaves."""
@@ -127,3 +199,8 @@ def leaf_geometry(shape) -> tuple[int, int]:
         return shape[0], int(np.prod(shape[1:]))
     return 1, (shape[0] if shape else 1)
 
+
+def tree_wire_bytes(tree, comp: Compressor, itemsize: int = 4) -> int:
+    """Communicated bytes per worker per step for a gradient tree."""
+    return sum(comp.leaf_wire_bytes(leaf.shape, itemsize)
+               for leaf in tree_leaves(tree))

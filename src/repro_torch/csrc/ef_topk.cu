@@ -4,17 +4,28 @@
 //   * ef_stats_telemetry (_ef_stats_telemetry_kernel + _kth_largest):
 //     per 1024-wide block row, tau = k_b-th largest |m + eta*g| and the
 //     moments [sum g^2, sum acc^2];
+//   * ef_block_stats (_ef_block_stats_kernel): the same tau, no moments;
+//   * block_stats (_block_stats_kernel): tau = k_b-th largest |x| of a
+//     single input (the single-node compress_dense path);
 //   * ef_apply (_ef_apply_kernel): acc = m + eta*g,
-//     sent = acc * [|acc| >= tau_row], m' = acc - sent.
+//     sent = acc * [|acc| >= tau_row], m' = acc - sent;
+//   * threshold_split (_threshold_split_kernel): sent = x * [|x| >= tau_row],
+//     residual = x - sent.
 //
-// Bound on an H100: both passes are memory-bound.  Pass 1 reads m and g
-// once (8 B per element) and writes 12 B per row; its selection costs
-// k_b rounds of a warp max-reduce per row, far below the byte time at
-// k_b = round(gamma * 1024) <= ~32.  Pass 2 reads 8 B and writes 8 B per
-// element.  Design: pass 1 gives each row to one warp that keeps the
-// row's 1024 |acc| values in registers (32 per lane), so the k_b rounds
-// never touch memory again; pass 2 is a streaming pass with 16-byte
-// loads and stores.
+// Bytes per element: the pass-1 kernels read m and g (8 B) or x alone
+// (4 B) once and write 4 B (12 B with moments) per row; ef_apply reads
+// 8 B and writes 8 B, threshold_split reads 4 B and writes 8 B.  The
+// three pass-1 kernels share one templated body (pass1_row) and keep
+// their own kernel names.  Design: pass 1 gives each row to one warp that
+// keeps the row's 1024 magnitudes in registers (32 per lane), so its k_b
+// rounds of a warp max-reduce never touch memory again; on an H100 these
+// rounds, not the bytes, set its time at k_b = 10 (PERF.md).  The splits
+// are streaming passes with 16-byte loads and stores.
+//
+// NaN rule: a row holding a NaN magnitude gets tau = NaN, as the TPU
+// kernel gives it (its per-round max propagates NaN and then knocks
+// nothing out); the rounds are skipped for such a row.  Infinities rank
+// like any other value.
 //
 // acc is formed with an explicit fused multiply-add, __fmaf_rn(eta, g, m):
 // the JAX reference computes m + eta*g with one rounding, and a separate
@@ -60,92 +71,138 @@ __device__ __forceinline__ void lane_best(const float (&mag)[kPerLane],
   }
 }
 
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-ef_stats_telemetry_kernel(const float* __restrict__ m,
-                          const float* __restrict__ g,
-                          const float* __restrict__ eta_ptr,
-                          float* __restrict__ tau,
-                          float* __restrict__ moments,
-                          long long rows, int k_b) {
+// The pass-1 body: one warp per block row.  kFromAcc: the magnitudes are
+// |fma(eta, g, m)| (a = m), else |x| (a = x; g and eta unused).
+// kMoments: also write [sum g^2, sum acc^2] per row.
+template <bool kFromAcc, bool kMoments>
+__device__ __forceinline__ void pass1_row(const float* __restrict__ a,
+                                          const float* __restrict__ g,
+                                          const float* __restrict__ eta_ptr,
+                                          float* __restrict__ tau,
+                                          float* __restrict__ moments,
+                                          long long rows, int k_b) {
   const int lane = threadIdx.x & 31;
   const long long row =
       (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (row >= rows) return;  // whole warps exit together
-  const float eta = *eta_ptr;
-  const float4* m4 = reinterpret_cast<const float4*>(m + row * kCols);
-  const float4* g4 = reinterpret_cast<const float4*>(g + row * kCols);
+  const float4* a4 = reinterpret_cast<const float4*>(a + row * kCols);
+  const float4* g4 = nullptr;
+  float eta = 0.f;
+  if constexpr (kFromAcc) {
+    g4 = reinterpret_cast<const float4*>(g + row * kCols);
+    eta = *eta_ptr;
+  }
 
   float mag[kPerLane];
   double sum_g = 0.0, sum_acc = 0.0;
+  bool has_nan = false;
 #pragma unroll
   for (int c = 0; c < kPerLane / 4; ++c) {
-    const float4 mv = m4[c * 32 + lane];
-    const float4 gv = g4[c * 32 + lane];
-    const float a0 = __fmaf_rn(eta, gv.x, mv.x);
-    const float a1 = __fmaf_rn(eta, gv.y, mv.y);
-    const float a2 = __fmaf_rn(eta, gv.z, mv.z);
-    const float a3 = __fmaf_rn(eta, gv.w, mv.w);
-    mag[4 * c + 0] = fabsf(a0);
-    mag[4 * c + 1] = fabsf(a1);
-    mag[4 * c + 2] = fabsf(a2);
-    mag[4 * c + 3] = fabsf(a3);
-    sum_g = fma((double)gv.x, (double)gv.x, sum_g);
-    sum_g = fma((double)gv.y, (double)gv.y, sum_g);
-    sum_g = fma((double)gv.z, (double)gv.z, sum_g);
-    sum_g = fma((double)gv.w, (double)gv.w, sum_g);
-    sum_acc = fma((double)a0, (double)a0, sum_acc);
-    sum_acc = fma((double)a1, (double)a1, sum_acc);
-    sum_acc = fma((double)a2, (double)a2, sum_acc);
-    sum_acc = fma((double)a3, (double)a3, sum_acc);
+    float4 v = a4[c * 32 + lane];
+    if constexpr (kFromAcc) {
+      const float4 gv = g4[c * 32 + lane];
+      v.x = __fmaf_rn(eta, gv.x, v.x);
+      v.y = __fmaf_rn(eta, gv.y, v.y);
+      v.z = __fmaf_rn(eta, gv.z, v.z);
+      v.w = __fmaf_rn(eta, gv.w, v.w);
+      if constexpr (kMoments) {
+        sum_g = fma((double)gv.x, (double)gv.x, sum_g);
+        sum_g = fma((double)gv.y, (double)gv.y, sum_g);
+        sum_g = fma((double)gv.z, (double)gv.z, sum_g);
+        sum_g = fma((double)gv.w, (double)gv.w, sum_g);
+        sum_acc = fma((double)v.x, (double)v.x, sum_acc);
+        sum_acc = fma((double)v.y, (double)v.y, sum_acc);
+        sum_acc = fma((double)v.z, (double)v.z, sum_acc);
+        sum_acc = fma((double)v.w, (double)v.w, sum_acc);
+      }
+    }
+    mag[4 * c + 0] = fabsf(v.x);
+    mag[4 * c + 1] = fabsf(v.y);
+    mag[4 * c + 2] = fabsf(v.z);
+    mag[4 * c + 3] = fabsf(v.w);
+    has_nan |= isnan(v.x) | isnan(v.y) | isnan(v.z) | isnan(v.w);
   }
 
-  // k_b rounds: the warp's largest remaining (value, column) pair, lowest
-  // column on ties, is knocked out -- exactly one element per round, as in
-  // _kth_largest, so duplicated magnitudes count like lax.top_k's.
-  float best;
-  int best_slot;
-  lane_best(mag, best, best_slot);
-  float kth = 0.f;
-  for (int r = 0; r < k_b; ++r) {
-    float v = best;
-    int col = slot_col(best_slot, lane);
+  float kth = NAN;
+  if (!__any_sync(kFull, has_nan)) {
+    // k_b rounds: the warp's largest remaining (value, column) pair,
+    // lowest column on ties, is knocked out -- exactly one element per
+    // round, as in _kth_largest, so duplicated magnitudes count like
+    // lax.top_k's.
+    float best;
+    int best_slot;
+    lane_best(mag, best, best_slot);
+    for (int r = 0; r < k_b; ++r) {
+      float v = best;
+      int col = slot_col(best_slot, lane);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        const float v2 = __shfl_xor_sync(kFull, v, off);
+        const int c2 = __shfl_xor_sync(kFull, col, off);
+        if (v2 > v || (v2 == v && c2 < col)) {
+          v = v2;
+          col = c2;
+        }
+      }
+      kth = v;
+      if (((col >> 2) & 31) == lane) {  // this lane owns the winner
+        const int s = (col >> 7) * 4 + (col & 3);
+#pragma unroll
+        for (int t = 0; t < kPerLane; ++t) {
+          if (t == s) mag[t] = -INFINITY;
+        }
+        lane_best(mag, best, best_slot);
+      }
+    }
+  }
+
+  if constexpr (kMoments) {
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
-      const float v2 = __shfl_xor_sync(kFull, v, off);
-      const int c2 = __shfl_xor_sync(kFull, col, off);
-      if (v2 > v || (v2 == v && c2 < col)) {
-        v = v2;
-        col = c2;
-      }
+      sum_g += __shfl_xor_sync(kFull, sum_g, off);
+      sum_acc += __shfl_xor_sync(kFull, sum_acc, off);
     }
-    kth = v;
-    if (((col >> 2) & 31) == lane) {  // this lane owns the winner
-      const int s = (col >> 7) * 4 + (col & 3);
-#pragma unroll
-      for (int t = 0; t < kPerLane; ++t) {
-        if (t == s) mag[t] = -INFINITY;
-      }
-      lane_best(mag, best, best_slot);
-    }
-  }
-
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    sum_g += __shfl_xor_sync(kFull, sum_g, off);
-    sum_acc += __shfl_xor_sync(kFull, sum_acc, off);
   }
   if (lane == 0) {
     tau[row] = kth;
-    moments[2 * row + 0] = (float)sum_g;
-    moments[2 * row + 1] = (float)sum_acc;
+    if constexpr (kMoments) {
+      moments[2 * row + 0] = (float)sum_g;
+      moments[2 * row + 1] = (float)sum_acc;
+    }
   }
 }
 
-__device__ __forceinline__ void split(float m, float g, float eta, float t,
-                                      float& sent, float& mnew) {
-  const float acc = __fmaf_rn(eta, g, m);
-  sent = fabsf(acc) >= t ? acc : 0.f;
-  mnew = __fsub_rn(acc, sent);
+// One kernel name per entry point, so that a trace names the TPU kernel
+// each one replaces.
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+ef_stats_telemetry_kernel(const float* __restrict__ m,
+                          const float* __restrict__ g,
+                          const float* __restrict__ eta,
+                          float* __restrict__ tau,
+                          float* __restrict__ moments, long long rows,
+                          int k_b) {
+  pass1_row<true, true>(m, g, eta, tau, moments, rows, k_b);
+}
+
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+ef_block_stats_kernel(const float* __restrict__ m,
+                      const float* __restrict__ g,
+                      const float* __restrict__ eta,
+                      float* __restrict__ tau, long long rows, int k_b) {
+  pass1_row<true, false>(m, g, eta, tau, nullptr, rows, k_b);
+}
+
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+block_stats_kernel(const float* __restrict__ x, float* __restrict__ tau,
+                   long long rows, int k_b) {
+  pass1_row<false, false>(x, nullptr, nullptr, tau, nullptr, rows, k_b);
+}
+
+// sent + rest == x exactly: rest is x - x or x - 0.
+__device__ __forceinline__ void split(float x, float t, float& sent,
+                                      float& rest) {
+  sent = fabsf(x) >= t ? x : 0.f;
+  rest = __fsub_rn(x, sent);
 }
 
 // One block of 256 threads per row, one float4 per thread; the row's tau
@@ -166,13 +223,45 @@ ef_apply_kernel(const float* __restrict__ m, const float* __restrict__ g,
     const float4 mv = m4[i];
     const float4 gv = g4[i];
     float4 sv, nv;
-    split(mv.x, gv.x, eta, t, sv.x, nv.x);
-    split(mv.y, gv.y, eta, t, sv.y, nv.y);
-    split(mv.z, gv.z, eta, t, sv.z, nv.z);
-    split(mv.w, gv.w, eta, t, sv.w, nv.w);
+    split(__fmaf_rn(eta, gv.x, mv.x), t, sv.x, nv.x);
+    split(__fmaf_rn(eta, gv.y, mv.y), t, sv.y, nv.y);
+    split(__fmaf_rn(eta, gv.z, mv.z), t, sv.z, nv.z);
+    split(__fmaf_rn(eta, gv.w, mv.w), t, sv.w, nv.w);
     s4[i] = sv;
     n4[i] = nv;
   }
+}
+
+// The single-input split: one block of 256 threads per row, one float4
+// per thread, the row's tau one broadcast load per block.
+__global__ void __launch_bounds__(kCols / 4)
+threshold_split_kernel(const float* __restrict__ x,
+                       const float* __restrict__ tau,
+                       float* __restrict__ sent, float* __restrict__ resid,
+                       long long rows) {
+  const float4* x4 = reinterpret_cast<const float4*>(x);
+  float4* s4 = reinterpret_cast<float4*>(sent);
+  float4* r4 = reinterpret_cast<float4*>(resid);
+  for (long long row = blockIdx.x; row < rows; row += gridDim.x) {
+    const float t = tau[row];
+    const long long i = row * (kCols / 4) + threadIdx.x;
+    const float4 xv = x4[i];
+    float4 sv, rv;
+    split(xv.x, t, sv.x, rv.x);
+    split(xv.y, t, sv.y, rv.y);
+    split(xv.z, t, sv.z, rv.z);
+    split(xv.w, t, sv.w, rv.w);
+    s4[i] = sv;
+    r4[i] = rv;
+  }
+}
+
+unsigned stats_blocks(long long rows) {
+  return (unsigned)((rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
+}
+
+unsigned split_blocks(long long rows) {
+  return (unsigned)(rows < (1LL << 20) ? rows : (1LL << 20));
 }
 
 }  // namespace
@@ -182,10 +271,29 @@ extern "C" int ef_stats_telemetry_launch(const float* m, const float* g,
                                          float* moments, long long rows,
                                          int k_b, void* stream) {
   if (rows > 0) {
-    const long long blocks = (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
-    ef_stats_telemetry_kernel<<<(unsigned)blocks, kWarpsPerBlock * 32, 0,
+    ef_stats_telemetry_kernel<<<stats_blocks(rows), kWarpsPerBlock * 32, 0,
                                 (cudaStream_t)stream>>>(m, g, eta, tau,
                                                         moments, rows, k_b);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ef_block_stats_launch(const float* m, const float* g,
+                                     const float* eta, float* tau,
+                                     long long rows, int k_b, void* stream) {
+  if (rows > 0) {
+    ef_block_stats_kernel<<<stats_blocks(rows), kWarpsPerBlock * 32, 0,
+                            (cudaStream_t)stream>>>(m, g, eta, tau, rows,
+                                                    k_b);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int block_stats_launch(const float* x, float* tau, long long rows,
+                                  int k_b, void* stream) {
+  if (rows > 0) {
+    block_stats_kernel<<<stats_blocks(rows), kWarpsPerBlock * 32, 0,
+                         (cudaStream_t)stream>>>(x, tau, rows, k_b);
   }
   return (int)cudaGetLastError();
 }
@@ -195,10 +303,20 @@ extern "C" int ef_apply_launch(const float* m, const float* g,
                                float* sent, float* mnew, long long rows,
                                void* stream) {
   if (rows > 0) {
-    const long long blocks = rows < (1LL << 20) ? rows : (1LL << 20);
-    ef_apply_kernel<<<(unsigned)blocks, kCols / 4, 0,
+    ef_apply_kernel<<<split_blocks(rows), kCols / 4, 0,
                       (cudaStream_t)stream>>>(m, g, eta, tau, sent, mnew,
                                               rows);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int threshold_split_launch(const float* x, const float* tau,
+                                      float* sent, float* resid,
+                                      long long rows, void* stream) {
+  if (rows > 0) {
+    threshold_split_kernel<<<split_blocks(rows), kCols / 4, 0,
+                             (cudaStream_t)stream>>>(x, tau, sent, resid,
+                                                     rows);
   }
   return (int)cudaGetLastError();
 }

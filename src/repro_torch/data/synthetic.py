@@ -1,9 +1,14 @@
-"""Deterministic, shard-aware synthetic LM token streams (twin of
-``TokenPipeline`` in ``src/repro/data/synthetic.py``).
+"""Deterministic synthetic data (twin of ``src/repro/data/synthetic.py``).
 
-Zipfian unigrams with an order-2 Markov mixing, deterministic per
-(seed, step, shard).  The streams are numpy, so a batch here is
-bit-identical to the JAX package's for the same arguments.
+* ``TokenPipeline`` — LM token streams: Zipfian unigrams with an order-2
+  Markov mixing, deterministic per (seed, step, shard);
+* ``interpolated_regression`` / ``regression_batch`` — the paper's Fig. 4
+  least squares with an exact interpolant;
+* ``teacher_classification`` / ``class_batch`` — 32x32x3 images (NHWC)
+  labelled by a fixed random linear teacher.
+
+Everything is drawn with numpy, so a batch here is bit-identical to the
+JAX package's for the same arguments.
 """
 from __future__ import annotations
 
@@ -46,3 +51,42 @@ class TokenPipeline:
                                   (base[:, t - 1] + base[:, t - 2]) % V,
                                   base[:, t])
         return {"tokens": torch.from_numpy(base.astype(np.int32))}
+
+
+def interpolated_regression(n: int, d: int, *, feature_std: float = 1.0,
+                            seed: int = 0):
+    """Least squares with an exact interpolant: (A (n, d), b (n,),
+    x_star (d,)) f32 with ``b = A @ x_star`` (in f64, then rounded)."""
+    rng = np.random.default_rng(seed)
+    x_star = rng.standard_normal(d)
+    A = rng.standard_normal((n, d)) * feature_std
+    b = A @ x_star
+    return tuple(torch.from_numpy(v.astype(np.float32))
+                 for v in (A, b, x_star))
+
+
+def regression_batch(A, b, batch_size: int, step: int, seed: int = 0):
+    rng = np.random.default_rng(np.random.SeedSequence([seed, step]))
+    idx = torch.from_numpy(rng.integers(0, A.shape[0], batch_size))
+    return A[idx], b[idx]
+
+
+def teacher_classification(n: int, *, n_classes: int = 100, seed: int = 0,
+                           image: bool = True):
+    """(x, y): x (n, 32, 32, 3) f32 images (or (n, 3072) vectors), y (n,)
+    int32 labels of a fixed random linear teacher, so an
+    over-parameterized net can interpolate."""
+    rng = np.random.default_rng(seed)
+    shape = (n, 32, 32, 3) if image else (n, 3072)
+    x = rng.standard_normal(shape).astype(np.float32)
+    feats = x.reshape(n, -1)
+    W = rng.standard_normal((feats.shape[1], n_classes)) / np.sqrt(
+        feats.shape[1])
+    y = np.argmax(feats @ W, axis=1)
+    return torch.from_numpy(x), torch.from_numpy(y.astype(np.int32))
+
+
+def class_batch(x, y, batch_size: int, step: int, seed: int = 0):
+    rng = np.random.default_rng(np.random.SeedSequence([seed, step]))
+    idx = torch.from_numpy(rng.integers(0, x.shape[0], batch_size))
+    return {"x": x[idx], "y": y[idx]}

@@ -33,7 +33,10 @@ _I = ctypes.c_int
 SIGNATURES = {
     "ef_topk": {
         "ef_stats_telemetry_launch": (_P, _P, _P, _P, _P, _LL, _I, _P),
+        "ef_block_stats_launch": (_P, _P, _P, _P, _LL, _I, _P),
+        "block_stats_launch": (_P, _P, _LL, _I, _P),
         "ef_apply_launch": (_P, _P, _P, _P, _P, _P, _LL, _P),
+        "threshold_split_launch": (_P, _P, _P, _P, _LL, _P),
     },
     "wire_pack": {
         "pack_words_launch": (_P, _P, _P, _LL, _LL, _I, _I, _P),

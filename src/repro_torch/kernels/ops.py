@@ -1,6 +1,6 @@
 """Public kernel ops — shape-normalising wrappers over the dispatch
-registry (twin of ``src/repro/kernels/ops.py``, the ops on the
-DCSGD-ASSS training path).
+registry (twin of ``src/repro/kernels/ops.py``, the ops of the
+single-node CSGD-ASSS and the DCSGD-ASSS training paths).
 
 A CPU tensor runs the plain version, a CUDA tensor the hand-written
 kernel (:mod:`repro_torch.kernels.dispatch`).  The launch counts of the
@@ -18,8 +18,14 @@ from . import dispatch, ef_topk, ref, wire_pack
 
 dispatch.register_op("ef_stats_telemetry", ref=ref.ef_block_stats_telemetry,
                      cuda=ef_topk.ef_stats_telemetry)
+dispatch.register_op("ef_stats", ref=ref.ef_block_stats,
+                     cuda=ef_topk.ef_block_stats)
+dispatch.register_op("block_stats", ref=ref.block_abs_topk_threshold,
+                     cuda=ef_topk.block_stats)
 dispatch.register_op("ef_update", ref=ref.ef_block_update,
                      cuda=ef_topk.ef_apply)
+dispatch.register_op("threshold_split", ref=ref.threshold_split,
+                     cuda=ef_topk.threshold_split)
 dispatch.register_op("wire_pack", ref=ref.pack_fields,
                      cuda=wire_pack.pack_words)
 dispatch.register_op("wire_unpack", ref=ref.unpack_fields,
@@ -28,7 +34,10 @@ dispatch.register_op("wire_unpack", ref=ref.unpack_fields,
 #: kernel name -> its CUDA wrapper (each carries a ``launches`` count)
 KERNELS = {
     "ef_stats_telemetry": ef_topk.ef_stats_telemetry,
+    "ef_block_stats": ef_topk.ef_block_stats,
+    "block_stats": ef_topk.block_stats,
     "ef_apply": ef_topk.ef_apply,
+    "threshold_split": ef_topk.threshold_split,
     "pack_words": wire_pack.pack_words,
     "unpack_words": wire_pack.unpack_words,
 }
@@ -69,6 +78,47 @@ def _from_blocks(blocks: torch.Tensor, meta) -> torch.Tensor:
 # EF compression (the per-step hot loop)
 # --------------------------------------------------------------------------
 
+def _eta(eta, device) -> torch.Tensor:
+    """eta (host scalar or tensor) as one f32 element on ``device``."""
+    return torch.as_tensor(eta, dtype=torch.float32).to(device).reshape(1)
+
+
+def block_topk_threshold(x: torch.Tensor, k_b: int,
+                         block: int = 1024) -> torch.Tensor:
+    """Per-block k_b-th largest |x| of the flattened x; (n_blocks,) f32."""
+    x2, _ = _to_blocks(x.reshape(-1), block)
+    return dispatch.call("block_stats", x2, k_b).reshape(-1)
+
+
+def fused_ef_compress(m, g, eta, gamma: float, block: int = 1024, *,
+                      telemetry: bool = False):
+    """The two-pass fused EF compression of one (L?, d) leaf pair: per
+    block b of ``acc = m + eta*g``, tau_b = k_b-th largest |acc_b| with
+    k_b = round(gamma*block); sent keeps |acc| >= tau_b, m' the rest.
+    Returns (sent, m', tau) — with ``telemetry`` also the (L*nb, 2)
+    moments [sum g^2, sum acc^2] of pass 1."""
+    k_b = max(1, int(round(gamma * block)))
+    m2, meta = _to_blocks(m, block)
+    g2, _ = _to_blocks(g, block)
+    eta = _eta(eta, m2.device)
+    if telemetry:
+        tau, moments = dispatch.call("ef_stats_telemetry", m2, g2, eta, k_b)
+    else:
+        tau = dispatch.call("ef_stats", m2, g2, eta, k_b)
+    sent, mnew = dispatch.call("ef_update", m2, g2, eta, tau)
+    out = (_from_blocks(sent, meta), _from_blocks(mnew, meta), tau)
+    return out + (moments,) if telemetry else out
+
+
+def threshold_split_blocks(x: torch.Tensor, tau: torch.Tensor,
+                           block: int = 1024):
+    """Dense split of x ((d,) or (L, d)) into (sent, residual) against the
+    per-block tau ((L*nb, 1)); ``sent + residual == x`` exactly."""
+    x2, meta = _to_blocks(x, block)
+    sent, res = dispatch.call("threshold_split", x2, tau)
+    return _from_blocks(sent, meta), _from_blocks(res, meta)
+
+
 def fused_ef_compress_batched(ms, gs, eta: torch.Tensor, gamma: float,
                               block: int = 1024):
     """Two-pass fused EF compression with telemetry over a LIST of
@@ -86,7 +136,7 @@ def fused_ef_compress_batched(ms, gs, eta: torch.Tensor, gamma: float,
         offs.append(offs[-1] + m2.shape[0])
     cat_m = torch.cat(blocks_m)
     cat_g = torch.cat(blocks_g)
-    eta = eta.to(device=cat_m.device, dtype=torch.float32).reshape(1)
+    eta = _eta(eta, cat_m.device)
     tau, moments = dispatch.call("ef_stats_telemetry", cat_m, cat_g, eta,
                                  k_b)
     sent, mnew = dispatch.call("ef_update", cat_m, cat_g, eta, tau)

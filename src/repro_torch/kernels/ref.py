@@ -29,11 +29,30 @@ def ef_block_update(m: torch.Tensor, g: torch.Tensor, eta: torch.Tensor,
                     tau: torch.Tensor):
     """Per-block-row EF threshold split.  m, g: (R, C); tau: (R, 1).
     Returns (sent, m') in m's dtype; ``sent + m' == m + eta*g`` exactly."""
-    acc = ef_acc(m, g, eta)
-    mask = acc.abs() >= tau.reshape(-1, 1).float()
-    sent = torch.where(mask, acc, torch.zeros((), dtype=acc.dtype,
-                                              device=acc.device))
-    return sent.to(m.dtype), (acc - sent).to(m.dtype)
+    sent, rest = threshold_split(ef_acc(m, g, eta), tau)
+    return sent.to(m.dtype), rest.to(m.dtype)
+
+
+def _kth_largest(mag: torch.Tensor, k_b: int) -> torch.Tensor:
+    """Per-row k_b-th largest of ``mag`` (R, C) -> (R, 1), NaN for a row
+    holding any NaN.  The JAX kernel knocks out one maximum per round and
+    its max propagates NaN, so such a row's tau is NaN; ``torch.topk``
+    would rank NaN as the largest value and return a finite tau."""
+    tau = torch.topk(mag, k_b, dim=-1).values[:, -1:]
+    return torch.where(mag.isnan().any(-1, keepdim=True),
+                       torch.full_like(tau, float("nan")), tau)
+
+
+def block_abs_topk_threshold(x: torch.Tensor, k_b: int) -> torch.Tensor:
+    """Per-block-row k_b-th largest |x|.  x: (R, C) block rows, computed
+    in f32 -> (R, 1) f32."""
+    return _kth_largest(x.float().abs(), k_b)
+
+
+def ef_block_stats(m: torch.Tensor, g: torch.Tensor, eta: torch.Tensor,
+                   k_b: int) -> torch.Tensor:
+    """Per-block-row k_b-th largest |m + eta*g|.  (R, C) -> (R, 1) f32."""
+    return _kth_largest(ef_acc(m, g, eta).abs(), k_b)
 
 
 def ef_block_stats_telemetry(m: torch.Tensor, g: torch.Tensor,
@@ -42,9 +61,19 @@ def ef_block_stats_telemetry(m: torch.Tensor, g: torch.Tensor,
     [sum g^2, sum acc^2].  (R, C) -> (tau (R, 1), moments (R, 2)) f32."""
     gf = g.float()
     acc = ef_acc(m, gf, eta)
-    tau = torch.topk(acc.abs(), k_b, dim=-1).values[:, -1:]
+    tau = _kth_largest(acc.abs(), k_b)
     moments = torch.stack([(gf * gf).sum(-1), (acc * acc).sum(-1)], dim=-1)
     return tau, moments
+
+
+def threshold_split(x: torch.Tensor, tau: torch.Tensor):
+    """Per-block-row dense split.  x: (R, C); tau: (R, 1).  Returns
+    (sent, residual) in x's dtype; ``sent + residual == x`` exactly."""
+    xf = x.float()
+    mask = xf.abs() >= tau.reshape(-1, 1).float()
+    sent = torch.where(mask, xf, torch.zeros((), dtype=xf.dtype,
+                                             device=xf.device))
+    return sent.to(x.dtype), (xf - sent).to(x.dtype)
 
 
 def to_i32_bits(x: torch.Tensor) -> torch.Tensor:

@@ -31,8 +31,7 @@ from repro_torch.core.error_feedback import init_ef
 from repro_torch.core.gamma import gamma_init
 from repro_torch.core.telemetry import CompressionTelemetry
 from repro_torch.models import lm
-from repro_torch.utils import tree_flatten, tree_leaves, tree_map, \
-    tree_unflatten
+from repro_torch.utils import tree_leaves, tree_map, value_and_grad
 
 f32 = np.float32
 
@@ -67,15 +66,6 @@ def init_train_state(params, run_cfg) -> TrainState:
         cum_wire_bytes=f32(0.0), steps_skipped=0)
 
 
-def value_and_grad(params, batch, cfg):
-    """(loss, grads) of the LM loss on one batch."""
-    leaves, structure = tree_flatten(params)
-    req = [p.detach().requires_grad_(True) for p in leaves]
-    loss = lm.loss_fn(tree_unflatten(structure, req), batch, cfg)
-    grads = torch.autograd.grad(loss, req)
-    return loss.detach(), tree_unflatten(structure, list(grads))
-
-
 def _all_finite(tree) -> torch.Tensor:
     ok = None
     for leaf in tree_leaves(tree):
@@ -92,7 +82,8 @@ def train_step(params, state: TrainState, batch: dict, run_cfg, group=None):
     cfg = run_cfg.model
     # the spans split a step's host time for a profiler (chip_smoke.py)
     with record_function("train_step.grad"):
-        loss, grads = value_and_grad(params, batch, cfg)
+        loss, grads = value_and_grad(
+            lambda p: lm.loss_fn(p, batch, cfg), params)
         gsq = tree_sqnorm(grads)
     with record_function("train_step.armijo"):
         res = armijo_search(lambda p: lm.loss_fn(p, batch, cfg), params,

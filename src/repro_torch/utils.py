@@ -1,16 +1,21 @@
-"""Nested-dict parameter trees (the port's stand-in for ``jax.tree``).
+"""Parameter trees of nested dicts and lists (the port's stand-in for
+``jax.tree``).
 
-Leaves are ordered like ``jax.tree.flatten`` orders a dict: keys sorted,
-depth first.  The wire payload's leaf offsets follow this order, so it is
-part of the bit-exact contract with the JAX package.
+Leaves are ordered like ``jax.tree.flatten`` orders them: dict keys
+sorted, list items in order, depth first.  The wire payload's leaf
+offsets follow this order, so it is part of the bit-exact contract with
+the JAX package.
 """
 from __future__ import annotations
 
 from typing import Any, Callable
 
+import torch
+
 
 def tree_flatten(tree) -> tuple[list, Any]:
-    """(leaves, structure) of a nested dict; non-dict values are leaves."""
+    """(leaves, structure) of a nested dict/list; other values are
+    leaves."""
     leaves: list = []
     return leaves, _flatten_into(tree, leaves)
 
@@ -21,6 +26,8 @@ def _flatten_into(t, leaves: list):
     # included) alive until Python's cycle collector happens to run
     if isinstance(t, dict):
         return {k: _flatten_into(t[k], leaves) for k in sorted(t)}
+    if isinstance(t, list):
+        return [_flatten_into(v, leaves) for v in t]
     leaves.append(t)
     return None
 
@@ -32,6 +39,8 @@ def tree_unflatten(structure, leaves) -> Any:
 def _unflatten_from(s, it):
     if isinstance(s, dict):
         return {k: _unflatten_from(v, it) for k, v in s.items()}
+    if isinstance(s, list):
+        return [_unflatten_from(v, it) for v in s]
     return next(it)
 
 
@@ -47,8 +56,22 @@ def tree_map(fn: Callable, tree, *rest):
 
 
 def tree_map_with_path(fn: Callable, tree, path: tuple = ()):
-    """``fn(path, leaf)`` over a nested dict; path is the tuple of keys."""
+    """``fn(path, leaf)`` over a nested dict/list; path is the tuple of
+    keys and list positions."""
     if isinstance(tree, dict):
         return {k: tree_map_with_path(fn, tree[k], path + (k,))
                 for k in sorted(tree)}
+    if isinstance(tree, list):
+        return [tree_map_with_path(fn, v, path + (i,))
+                for i, v in enumerate(tree)]
     return fn(path, tree)
+
+
+def value_and_grad(loss_fn: Callable, params):
+    """(loss, grads) of ``loss_fn(params) -> scalar tensor``; grads is a
+    tree shaped like params.  The loss comes back detached."""
+    leaves, structure = tree_flatten(params)
+    req = [p.detach().requires_grad_(True) for p in leaves]
+    loss = loss_fn(tree_unflatten(structure, req))
+    grads = torch.autograd.grad(loss, req)
+    return loss.detach(), tree_unflatten(structure, list(grads))

@@ -4,10 +4,10 @@ The same numpy inputs go through ``repro.kernels.ops`` (Pallas in
 interpret mode, as the JAX package's own tests run it on the CPU) and
 ``repro_torch.kernels.ops`` (the plain PyTorch versions on the CPU).
 
-Tolerances: tau, sent, m', packed words and unpacked fields are
-bit-exact.  The per-row moments [sum g^2, sum acc^2] are f32 sums whose
-reduction order differs between XLA and PyTorch; DESIGN.md §11 holds
-them to 8 ulp.
+Tolerances: tau (NaN where the TPU kernel gives NaN), sent, m', the
+dense splits, packed words and unpacked fields are bit-exact.  The
+per-row moments [sum g^2, sum acc^2] are f32 sums whose reduction order
+differs between XLA and PyTorch; DESIGN.md §11 holds them to 8 ulp.
 
 tests/test_torch_gpu.py holds each CUDA kernel against its plain version
 on the card.
@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import ef_topk as jef_topk
 from repro.kernels import ops as jops
 from repro_torch.kernels import dispatch, ops, ref
 from repro_torch.kernels import ef_topk, wire_pack
@@ -71,6 +72,91 @@ def test_fused_ef_compress_batched_matches_jax(gamma, ties):
         acc = ref.ef_acc(torch.from_numpy(m), torch.from_numpy(g),
                          torch.tensor([eta])).reshape(m.shape)
         np.testing.assert_array_equal((ts + tm).numpy(), acc.numpy())
+
+
+def _special_rows():
+    """Block rows that decide the selection's edge cases: one NaN,
+    several NaNs, +inf twice, -inf, all zeros, rounded ties, all equal."""
+    x = np.random.default_rng(21).standard_normal((8, 1024)).astype(
+        np.float32)
+    x[1, 5] = np.nan
+    x[2, [3, 700, 900]] = np.nan
+    x[3, [10, 600]] = np.inf
+    x[4, 11] = -np.inf
+    x[5] = 0.0
+    x[6] = np.round(x[6] * 2.0)
+    x[7] = -1.5
+    return x
+
+
+@pytest.mark.parametrize("k_b", [1, 10, 1024])
+def test_selection_plain_versions_follow_the_kernels_nan_rule(k_b):
+    """A row holding a NaN gets tau = NaN from the TPU kernels (their
+    per-round max propagates NaN, then knocks nothing out); the plain
+    versions give the same, and equal taus everywhere else.  Moments:
+    8 ulp on finite rows, the same NaN/inf elsewhere."""
+    x = _special_rows()
+    m = np.random.default_rng(22).standard_normal(x.shape).astype(
+        np.float32) * 0.05
+    eta = np.float32(0.37)
+    jx, jm, jeta = jnp.asarray(x), jnp.asarray(m), jnp.float32(eta)
+    tx, tm, teta = torch.from_numpy(x), torch.from_numpy(m), \
+        torch.tensor([eta])
+    jtau = np.asarray(jef_topk.block_stats(jx, k_b, interpret=True))
+    ttau = ref.block_abs_topk_threshold(tx, k_b).numpy()
+    assert np.isnan(jtau[1:3]).all()
+    np.testing.assert_array_equal(jtau, ttau)
+    np.testing.assert_array_equal(
+        np.asarray(jef_topk.ef_block_stats(jm, jx, jeta, k_b,
+                                           interpret=True)),
+        ref.ef_block_stats(tm, tx, teta, k_b).numpy())
+    jt2, jmom = jef_topk.ef_stats_telemetry(jm, jx, jeta, k_b,
+                                            interpret=True)
+    tt2, tmom = ref.ef_block_stats_telemetry(tm, tx, teta, k_b)
+    np.testing.assert_array_equal(np.asarray(jt2), tt2.numpy())
+    jmom, tmom = np.asarray(jmom), tmom.numpy()
+    fin = np.isfinite(jmom).all(1)
+    np.testing.assert_array_max_ulp(jmom[fin], tmom[fin], maxulp=8)
+    np.testing.assert_array_equal(jmom[~fin], tmom[~fin])
+    js, jr = jef_topk.threshold_split(jx, jnp.asarray(jtau), interpret=True)
+    ts, tr = ref.threshold_split(tx, torch.from_numpy(ttau))
+    np.testing.assert_array_equal(np.asarray(js), ts.numpy())
+    np.testing.assert_array_equal(np.asarray(jr), tr.numpy())
+
+
+@pytest.mark.parametrize("shape", [(5000,), (3, 2048), (2, 1500)])
+@pytest.mark.parametrize("k_b", [1, 10, 51])
+def test_dense_selection_ops_match_jax(shape, k_b):
+    """block_topk_threshold, threshold_split_blocks and fused_ef_compress
+    (with and without moments) against the JAX ops, on padded tails and a
+    zero block."""
+    rng = np.random.default_rng(k_b)
+    x = rng.standard_normal(shape).astype(np.float32)
+    x.reshape(-1)[:1024] = 0.0
+    m = (rng.standard_normal(shape) * 0.05).astype(np.float32)
+    eta = np.float32(0.37)
+    jx, jm, tx, tm = jnp.asarray(x), jnp.asarray(m), torch.from_numpy(x), \
+        torch.from_numpy(m)
+    jtau = jops.block_topk_threshold(jx, k_b, impl=INTERP)
+    ttau = ops.block_topk_threshold(tx, k_b)
+    np.testing.assert_array_equal(np.asarray(jtau), ttau.numpy())
+    js, jr = jops.threshold_split_blocks(jx.reshape(-1), jtau.reshape(-1, 1),
+                                         impl=INTERP)
+    ts, tr = ops.threshold_split_blocks(tx.reshape(-1), ttau.reshape(-1, 1))
+    np.testing.assert_array_equal(np.asarray(js), ts.numpy())
+    np.testing.assert_array_equal(np.asarray(jr), tr.numpy())
+    np.testing.assert_array_equal((ts + tr).numpy(), x.reshape(-1))
+    gamma = k_b / 1024
+    for tel in (False, True):
+        want = jops.fused_ef_compress(jm, jx, eta, gamma, telemetry=tel,
+                                      impl=INTERP)
+        got = ops.fused_ef_compress(tm, tx, eta, gamma, telemetry=tel)
+        assert len(got) == len(want) == 3 + tel
+        for j, t in zip(want[:3], got[:3]):
+            np.testing.assert_array_equal(np.asarray(j), t.numpy())
+        if tel:
+            np.testing.assert_array_max_ulp(np.asarray(want[3]),
+                                            got[3].numpy(), maxulp=8)
 
 
 def test_acc_rounds_once_like_jax():
@@ -135,8 +221,8 @@ def test_stream_shape_matches_jax():
 
 def test_dispatch_follows_device():
     reg = dispatch.registered()
-    for op in ("ef_stats_telemetry", "ef_update", "wire_pack",
-               "wire_unpack"):
+    for op in ("ef_stats_telemetry", "ef_stats", "block_stats",
+               "ef_update", "threshold_split", "wire_pack", "wire_unpack"):
         assert reg[op] == ("ref", "cuda")
     assert dispatch.resolve(torch.zeros(1)) == "ref"
     with pytest.raises(ValueError, match="no kernel"):
@@ -151,7 +237,13 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         ef_topk.ef_stats_telemetry(m, m, eta, 10)
     with pytest.raises(ValueError, match="CUDA"):
+        ef_topk.ef_block_stats(m, m, eta, 10)
+    with pytest.raises(ValueError, match="CUDA"):
+        ef_topk.block_stats(m, 10)
+    with pytest.raises(ValueError, match="CUDA"):
         ef_topk.ef_apply(m, m, eta, torch.zeros(2, 1))
+    with pytest.raises(ValueError, match="CUDA"):
+        ef_topk.threshold_split(m, torch.zeros(2, 1))
     w = torch.zeros(2, 8, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         wire_pack.pack_words(w, 8)
