@@ -9,14 +9,24 @@ Phases, each fatal on failure (no phase catches and continues):
    CUDA versions;
 2. build every CUDA kernel from ``src/repro_torch/csrc`` with ``nvcc``
    for ``sm_90a``, one compiler per source, all started together;
-3. hold each of the 7 kernels against its plain PyTorch version on the
-   card at the shapes paper-lm-100m's two training paths give it
-   (bit-exact; the pass-1 moments within 8 ulp), plus a block of rows
-   with NaN, +-inf, zeros and ties through every pass-1 kernel, and time
-   both with CUDA events (median of 25 runs) beside the kernel's byte
-   bound at the H100's 3.35 TB/s; ``ef_block_stats`` runs through its
+3. hold each of the 10 kernels against its plain PyTorch version on the
+   card and time both with CUDA events (median of 25 runs) beside the
+   kernel's bound (bytes at the H100's 3.35 TB/s or operations at its
+   peak for their type): the 7 training kernels at the shapes
+   paper-lm-100m's two training paths give them (bit-exact; the pass-1
+   moments within 8 ulp), plus a block of rows with NaN, +-inf, zeros
+   and ties through every pass-1 kernel, ``ef_block_stats`` through its
    only path, ``ops.fused_ef_compress(telemetry=False)``, with the launch
-   counts set to 0 just before and read just after;
+   counts set to 0 just before and read just after; the 3 serving
+   kernels at the shapes serving gives them (flash attention at
+   qwen1.5-4b's prefill, (4, 20, 2048, 128) bf16 causal, and small f32
+   cases with a window, without causality, with Sq < Sk and at D 32:
+   within 1 bf16 ulp of the plain value plus 1e-5 in bf16, atol 3e-5 in
+   f32; RMSNorm at (8192, 2560),
+   (4, 2560) and (4096, 2048) bf16 within 1 bf16 ulp and (4096, 2048) f32
+   within 1e-5; WKV at (4, 1024, 32, 64) and at S = 1 within 2e-5),
+   beside the library calls ``F.scaled_dot_product_attention`` and
+   ``F.rms_norm`` (timed only; the port never calls them);
 4. run the DCSGD-ASSS trainer (``repro_torch.launch.train``) on
    paper-lm-100m at full width — 12 layers, d_model 768, vocab 16384,
    seq 256, global batch 8, ``--compress-method block_topk`` — for 4
@@ -30,9 +40,21 @@ Phases, each fatal on failure (no phase catches and continues):
    launches per step, none of the other kernels, finite losses, the EF
    identity sent + residual == acc on the largest leaf, exact wire bytes;
    then profile one more step as in 4b;
-5. run the 2-layer smoke variant on the card and on the CPU (the plain
+4d. serve at full width through ``repro_torch.launch.serve --full``,
+   random weights from seed 0, batch 4, 16 tokens each (a prefill and
+   15 decode steps), with the counts set to 0 just before each run and
+   read just after: qwen1.5-4b at ctx 2048 (40 flash-attention and
+   81 x 16 = 1296 RMSNorm launches, no other kernel), then rwkv6-1.6b at
+   ctx 1024 (24 x 16 = 384 WKV and 49 x 16 = 784 RMSNorm launches);
+   finite logits; prefill seconds, decode ms per step, tokens per second
+   and peak memory; then one profiled prefill and one profiled decode
+   step of each, with device time under each kernel's own name and the
+   idle share (fatal if a path's kernels are missing from its trace);
+5. run the 2-layer smoke variants on the card and on the CPU (the plain
    versions, which the CPU tests hold against the JAX package), through
-   the trainer for 2 steps and through CSGD-ASSS for 3, and compare;
+   the trainer for 2 steps, through CSGD-ASSS for 3 and through serving
+   (qwen1.5-4b and rwkv6-1.6b, ctx 96, 4 tokens), and compare: equal
+   greedy tokens and logits within 1e-4 of max|logits| for serving;
 6. print the kernels as one JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -54,6 +76,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 F32_OPS_PER_S = 67e12            # H100 SXM, f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12          # H100 SXM, dense bf16 tensor cores
 MAIN_STEPS, VB8_STEPS, CSGD_STEPS = 4, 2, 4
 MAIN_ARGS = ["--arch", "paper-lm-100m", "--compress-method", "block_topk",
              "--seq-len", "256", "--global-batch", "8", "--log-every", "1"]
@@ -65,6 +88,9 @@ REPLACES = {
     "threshold_split": "src/repro/kernels/ef_topk.py:243",
     "pack_words": "src/repro/kernels/wire_pack.py:109",
     "unpack_words": "src/repro/kernels/wire_pack.py:154",
+    "flash_attention": "src/repro/kernels/flash_attention.py:83",
+    "rmsnorm": "src/repro/kernels/rmsnorm.py:30",
+    "wkv_forward": "src/repro/kernels/rwkv_wkv.py:58",
 }
 SOURCES = {
     "ef_stats_telemetry": "src/repro_torch/csrc/ef_topk.cu",
@@ -74,7 +100,16 @@ SOURCES = {
     "threshold_split": "src/repro_torch/csrc/ef_topk.cu",
     "pack_words": "src/repro_torch/csrc/wire_pack.cu",
     "unpack_words": "src/repro_torch/csrc/wire_pack.cu",
+    "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+    "rmsnorm": "src/repro_torch/csrc/rmsnorm.cu",
+    "wkv_forward": "src/repro_torch/csrc/rwkv_wkv.cu",
 }
+#: serving at full width: (arch, ctx, launches of one run of 16 tokens)
+SERVE_RUNS = (("qwen1.5-4b", 2048, dict(flash_attention=40,
+                                        rmsnorm=81 * 16)),
+              ("rwkv6-1.6b", 1024, dict(wkv_forward=24 * 16,
+                                        rmsnorm=49 * 16)))
+SERVE_BATCH, SERVE_GEN = 4, 16
 
 
 def fail(msg: str) -> None:
@@ -108,18 +143,20 @@ def max_ulp(a, b) -> int:
 #: the ``__global__`` names of the port's kernels, one per kernel
 PORTED = ("ef_stats_telemetry_kernel", "ef_block_stats_kernel",
           "block_stats_kernel", "ef_apply_kernel", "threshold_split_kernel",
-          "pack_words_kernel", "unpack_words_kernel")
+          "pack_words_kernel", "unpack_words_kernel",
+          "flash_attention_kernel", "rmsnorm_kernel", "wkv_forward_kernel")
 
 
 def kernel_group(name: str) -> str:
     """A port kernel's own name, else a coarse group of library kernels.
-    The function name is the first identifier before a ``(`` (or the end)
-    of the profiler's key, e.g. ``(anonymous namespace)::block_stats_kernel
-    (...)``, so ``block_stats_kernel`` never matches
+    A port kernel's name must stand as a whole identifier in the
+    profiler's key (``(anonymous namespace)::block_stats_kernel(...)``,
+    or ``void (anonymous namespace)::rmsnorm_kernel<float, float>(...)``
+    for a template), so ``block_stats_kernel`` never matches
     ``ef_block_stats_kernel``."""
-    fn = re.search(r"(\w+)\s*(?:\(|$)", name)
-    if fn and fn.group(1) in PORTED:
-        return fn.group(1)
+    for kernel in PORTED:
+        if re.search(rf"\b{kernel}\b", name):
+            return kernel
     low = name.lower()
     if any(s in low for s in ("gemm", "cutlass", "sm90_xmma", "cublas",
                               "nvjet")):
@@ -206,7 +243,8 @@ def report_profile(label, prof, wall_ms, kernels_of_path) -> dict:
         fail(f"the profiler saw no {missing} in the {label} step")
     print(f"profile [{label}]: one step {wall_ms:.2f} ms wall (profiler "
           f"on), device busy {busy:.2f} ms, idle share "
-          f"{1 - busy / wall_ms:.3f}")
+          f"{1 - busy / wall_ms:.3f}, {sum(n for _, n, _ in kernels)} "
+          "device kernels and copies")
     for name, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"  {name}: {ms:.3f} ms ({ms / busy:.3f} of device time)")
     # host time in each phase of train_step: launches plus any wait for
@@ -451,6 +489,212 @@ def csgd_smoke(dev, steps: int = 3) -> None:
           f"{runs[1]}", flush=True)
 
 
+def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest distance in bf16 steps between two bf16 tensors of one
+    sign pattern (their int16 bit patterns are monotone per sign)."""
+    return int((a.view(torch.int16).int() - b.view(torch.int16).int())
+               .abs().max())
+
+
+def bf16_ulp_err(got: torch.Tensor, want: torch.Tensor, atol: float) -> float:
+    """Largest |got - want| in bf16 ulps of |want|, once ``atol`` is taken
+    off (the two sum in f32 in different orders, so a value near zero may
+    differ by that much before rounding)."""
+    w = want.float()
+    ulp = torch.ldexp(torch.ones_like(w),
+                      torch.frexp(w.abs().clamp(min=atol)).exponent - 8)
+    return float(((got.float() - w).abs() - atol).clamp(min=0).div(ulp)
+                 .max())
+
+
+def check_serving_kernels(dev, report) -> None:
+    """Phase 3 for the serving kernels: each against its plain version on
+    the card at the shapes serving gives it, timed beside its bound and,
+    where one exists, the library call computing the same function."""
+    import torch.nn.functional as F_
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.rwkv_wkv import wkv_forward
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(dtype)
+
+    # flash attention: qwen1.5-4b prefill, the transposed (B, S, H, D)
+    # views the model hands over
+    B, H, S, D = 4, 20, 2048, 128
+    q, k, v = (randn(B, S, H, D, dtype=torch.bfloat16).transpose(1, 2)
+               for _ in range(3))
+    got = flash_attention(q, k, v, causal=True)
+    want = ref.mha_reference(q, k, v, causal=True)
+    err = float((got.float() - want.float()).abs().max())
+    ulps = bf16_ulp_err(got, want, 1e-5)
+    if not ulps <= 1:
+        fail(f"flash_attention (4, 20, 2048, 128) bf16 is {ulps} bf16 ulp "
+             "(beyond 1e-5) from the plain version (limit 1)")
+    small_errs = []
+    for (b, h, sq, sk, d), causal, window in (
+            ((2, 3, 300, 300, 128), True, 64),
+            ((2, 3, 300, 300, 64), False, None),
+            ((1, 4, 77, 333, 128), True, None),
+            ((2, 2, 150, 150, 32), True, None),
+            ((2, 2, 1, 150, 64), False, 64)):
+        qs = randn(b, h, sq, d, scale=0.5)
+        ks, vs = randn(b, h, sk, d, scale=0.5), randn(b, h, sk, d)
+        e = float((flash_attention(qs, ks, vs, causal=causal, window=window)
+                   - ref.mha_reference(qs, ks, vs, causal=causal,
+                                       window=window)).abs().max())
+        small_errs.append(e)
+        if not e <= 3e-5:
+            fail(f"flash_attention f32 {(b, h, sq, sk, d)} causal={causal} "
+                 f"window={window} is {e} from the plain version (3e-5)")
+    pairs = B * H * S * (S + 1) // 2
+    report["flash_attention"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: flash_attention(q, k, v, causal=True)),
+        plain_ms=time_ms(lambda: ref.mha_reference(q, k, v, causal=True)),
+        library_ms=time_ms(lambda: F_.scaled_dot_product_attention(
+            q, k, v, is_causal=True)),
+        bytes=4 * B * H * S * D * 2, ops=4 * D * pairs,
+        ops_per_s=BF16_OPS_PER_S,
+        note=f"(4, 20, 2048, 128) bf16 causal, {ulps:.3f} bf16 ulp; f32 "
+             f"cases max err {max(small_errs):.2e}")
+    del q, k, v, got, want
+
+    # RMSNorm: qwen1.5-4b prefill and decode rows, rwkv6-1.6b prefill rows
+    errs = {}
+    for rows, d, dt in ((8192, 2560, torch.bfloat16),
+                        (4, 2560, torch.bfloat16),
+                        (4096, 2048, torch.bfloat16),
+                        (4096, 2048, torch.float32)):
+        x, w = randn(rows, d, dtype=dt), randn(d, dtype=dt)
+        got, want = rmsnorm(x, w, 1e-5), ref.rmsnorm_reference(x, w, 1e-5)
+        if dt == torch.bfloat16:
+            ulps = bf16_ulps(got, want)
+            if ulps > 1:
+                fail(f"rmsnorm ({rows}, {d}) bf16 is {ulps} bf16 ulp from "
+                     "the plain version (limit 1)")
+            errs[(rows, d, "bf16")] = float((got.float()
+                                             - want.float()).abs().max())
+        else:
+            e = float((got - want).abs().max())
+            if not e <= 1e-5:
+                fail(f"rmsnorm ({rows}, {d}) f32 is {e} from the plain "
+                     "version (atol 1e-5)")
+    x, w = randn(8192, 2560, dtype=torch.bfloat16), \
+        randn(2560, dtype=torch.bfloat16)
+    report["rmsnorm"] = dict(
+        max_abs_err=errs[(8192, 2560, "bf16")],
+        ms=time_ms(lambda: rmsnorm(x, w, 1e-5)),
+        plain_ms=time_ms(lambda: ref.rmsnorm_reference(x, w, 1e-5)),
+        library_ms=time_ms(lambda: F_.rms_norm(x, (2560,), w, 1e-5)),
+        bytes=2 * 8192 * 2560 * 2 + 2560 * 2, ops=8192 * 2560 * 4,
+        note="(8192, 2560) bf16, qwen1.5-4b prefill; within 1 bf16 ulp "
+             "at every shape")
+    del x, w
+
+    # WKV: rwkv6-1.6b prefill and one decode step
+    B, S, H, K = 4, 1024, 32, 64
+
+    def wkv_inputs(s):
+        return (randn(B, s, H, K, scale=0.3), randn(B, s, H, K, scale=0.3),
+                randn(B, s, H, K), torch.sigmoid(randn(B, s, H, K)),
+                randn(H, K, scale=0.1), randn(B, H, K, K, scale=0.1))
+    for s_len in (1, S):
+        args = wkv_inputs(s_len)
+        y, sT = wkv_forward(*args)
+        ry, rsT = ref.wkv_reference(*args)
+        e = max(float((y - ry).abs().max()), float((sT - rsT).abs().max()))
+        if not e <= 2e-5:
+            fail(f"wkv_forward at S={s_len} is {e} from the plain version "
+                 "(atol 2e-5)")
+    report["wkv_forward"] = dict(
+        max_abs_err=e, ms=time_ms(lambda: wkv_forward(*args)),
+        plain_ms=time_ms(lambda: ref.wkv_reference(*args)),
+        library_ms=None,
+        bytes=(5 * B * S * H * K + 2 * B * H * K * K + H * K) * 4,
+        # per (b, t, h): r.S and w*S + k^T v, 5 per state element; the
+        # u term, (sum_k r u k) v, 3K + 2V
+        ops=B * S * H * (5 * K * K + 5 * K),
+        note="(4, 1024, 32, 64) f32, rwkv6-1.6b prefill; also S = 1")
+
+
+def profile_serving(dev, arch, ctx, kernels_of_path) -> None:
+    """One profiled prefill and one profiled decode step at full width."""
+    from repro_torch.launch import serve
+    model, params, prompt = serve.load(arch, False, SERVE_BATCH, ctx, dev)
+    with torch.inference_mode():
+        model.prefill(params, {"tokens": prompt},
+                      capacity=ctx + SERVE_GEN)       # warm
+        holder = {}
+        prof, wall = profiled(dev, lambda: holder.update(out=model.prefill(
+            params, {"tokens": prompt}, capacity=ctx + SERVE_GEN)))
+        report_profile(f"{arch} prefill", prof, wall, kernels_of_path)
+        logits, cache = holder.pop("out")
+        tok = logits[:, -1:, :model.cfg.vocab_size].argmax(-1)
+        model.decode_step(params, tok, cache, ctx)    # warm
+        prof, wall = profiled(dev, lambda: model.decode_step(
+            params, tok, cache, ctx + 1))
+        report_profile(f"{arch} decode", prof, wall,
+                       [k for k in kernels_of_path
+                        if k != "flash_attention_kernel"])
+    del model, params, prompt, logits, cache
+    torch.cuda.empty_cache()
+
+
+def run_serving(dev) -> dict:
+    """Phase 4d: both serving paths at full width through the launcher;
+    returns each path's launch counts."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    counts_of = {}
+    for arch, ctx, want in SERVE_RUNS:
+        ops.reset_launch_counts()
+        res = serve.main(["--arch", arch, "--full", "--batch",
+                          str(SERVE_BATCH), "--ctx", str(ctx), "--gen",
+                          str(SERVE_GEN)])
+        counts = ops.launch_counts()
+        counts_of[arch] = counts
+        print(f"serve [{arch}]: launches {counts}; prefill "
+              f"{res['prefill_s']:.4f} s, decode "
+              f"{res['decode_ms_per_step']:.3f} ms/step "
+              f"({res['decode_tokens_per_s']:.1f} tokens/s), peak memory "
+              f"{res['peak_memory_bytes'] / 2**30:.2f} GiB", flush=True)
+        for name, n in counts.items():
+            if n != want.get(name, 0):
+                fail(f"[serve {arch}] {name} launched {n} times, want "
+                     f"{want.get(name, 0)}")
+        if tuple(res["tokens"].shape) != (SERVE_BATCH, SERVE_GEN) \
+                or not torch.isfinite(res["logits"]).all():
+            fail(f"[serve {arch}] tokens {tuple(res['tokens'].shape)} or "
+                 "non-finite logits")
+        del res
+        torch.cuda.empty_cache()
+        profile_serving(dev, arch, ctx, [f"{k}_kernel" for k in want])
+    return counts_of
+
+
+def serve_smoke(dev) -> None:
+    """Phase 5c: both smoke serve configs on the card (kernels) and on the
+    CPU (plain versions): equal tokens, logits within 1e-4 of max."""
+    from repro_torch.launch import serve
+    for arch, _, _ in SERVE_RUNS:
+        args = ["--arch", arch, "--smoke", "--batch", "2", "--ctx", "96",
+                "--gen", "4"]
+        card, cpu = serve.main(args), serve.main(args + ["--device", "cpu"])
+        err = float((card["logits"] - cpu["logits"]).abs().max())
+        tol = 1e-4 * float(cpu["logits"].abs().max())
+        if not torch.equal(card["tokens"], cpu["tokens"]) or not err <= tol:
+            fail(f"serve smoke {arch} on the card (tokens "
+                 f"{card['tokens'].tolist()}) disagrees with the CPU "
+                 f"({cpu['tokens'].tolist()}): logits {err} > {tol}")
+        print(f"serve smoke {arch} card vs cpu: tokens "
+              f"{card['tokens'].tolist()} equal, logits max diff {err:.3e} "
+              f"(limit {tol:.3e})", flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script runs only on "
@@ -618,9 +862,10 @@ def main() -> None:
     csgd_rows = [-(-int(np.prod(sh)) // comp.block) for sh in shapes
                  if int(np.prod(sh)) >= comp.min_compress_size]
     check_dense_selection(dev, gen, csgd_rows, k_b, report)
+    check_serving_kernels(dev, report)
     for name, r in report.items():
         byte_ms = r["bytes"] / HBM_BYTES_PER_S * 1e3
-        ops_ms = r["ops"] / F32_OPS_PER_S * 1e3
+        ops_ms = r["ops"] / r.get("ops_per_s", F32_OPS_PER_S) * 1e3
         r["bound_ms"] = max(byte_ms, ops_ms)
         r["bound_by"] = "bytes" if byte_ms >= ops_ms else "operations"
         lib = (f", library {r['library_ms']:.4f} ms"
@@ -669,6 +914,9 @@ def main() -> None:
     # ---- 4c. single-node CSGD-ASSS at full width through its kernels -----
     csgd_counts = run_csgd(dev, cfg, comp, CSGD_STEPS)
 
+    # ---- 4d. serving at full width through its kernels -------------------
+    serve_counts = run_serving(dev)
+
     # ---- 5. small input: the card against the CPU's plain path ----------
     small = ["--smoke", "--steps", "2", "--seq-len", "33", "--global-batch",
              "4", "--compress-method", "block_topk", "--log-every", "1"]
@@ -681,14 +929,21 @@ def main() -> None:
     print(f"smoke card vs cpu: losses {[x['loss'] for x in on_card]} vs "
           f"{[x['loss'] for x in on_cpu]}", flush=True)
     csgd_smoke(dev)
+    serve_smoke(dev)
 
     # ---- 6. results -----------------------------------------------------
     # launches: each kernel's count on the path that runs it — the
-    # trainer, single-node CSGD, or fused_ef_compress(telemetry=False)
+    # trainer, single-node CSGD, fused_ef_compress(telemetry=False), the
+    # qwen1.5-4b serve run (flash attention, RMSNorm) or the rwkv6-1.6b
+    # one (WKV)
     launches = dict(runs["main"])
     launches.update(block_stats=csgd_counts["block_stats"],
                     threshold_split=csgd_counts["threshold_split"],
-                    ef_block_stats=ef_block_counts["ef_block_stats"])
+                    ef_block_stats=ef_block_counts["ef_block_stats"],
+                    flash_attention=serve_counts["qwen1.5-4b"][
+                        "flash_attention"],
+                    rmsnorm=serve_counts["qwen1.5-4b"]["rmsnorm"],
+                    wkv_forward=serve_counts["rwkv6-1.6b"]["wkv_forward"])
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name],
                     max_abs_err=r["max_abs_err"], ms=r["ms"],

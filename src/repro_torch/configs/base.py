@@ -1,5 +1,6 @@
 """Config system (twin of ``src/repro/configs/base.py``): the fields the
-DCSGD-ASSS training path of the dense LM family reads."""
+training paths of the dense LM and the serving paths of the dense LM and
+RWKV-6 read."""
 from __future__ import annotations
 
 import dataclasses
@@ -11,7 +12,7 @@ from repro_torch.core.compression import Compressor
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                   # the port has the dense family
+    family: str                   # dense | ssm (RWKV-6 only, by name)
     n_layers: int
     d_model: int
     n_heads: int
@@ -19,16 +20,34 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: int = 0             # 0 -> d_model // n_heads
+    qkv_bias: bool = False
     rope_theta: float = 500000.0
     norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    rwkv_lora_rank: int = 64
+    sliding_window: int = 0       # 0 = full attention
+    # the int8 KV cache and rematerialisation are not ported: only the
+    # defaults are accepted (remat changes memory, never values)
+    kv_cache_dtype: str = ""      # "" = compute dtype
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
+    attn_chunk: int = 1024        # query-chunked attention above this seq len
+    remat: bool = True
+    # JAX: "flip on real TPU".  In the port: take the hand-written CUDA
+    # kernels (flash attention, RMSNorm, WKV) for CUDA tensors; False
+    # computes what the JAX package's jnp path computes on any device.
+    use_pallas: bool = False
     citation: str = ""
 
     def __post_init__(self):
-        if self.family != "dense":
-            raise ValueError(f"model family {self.family!r} is not ported "
-                             "(the port has 'dense')")
+        if not (self.family == "dense"
+                or (self.family == "ssm" and self.name.startswith("rwkv"))):
+            raise ValueError(f"model family {self.family!r} of "
+                             f"{self.name!r} is not ported (the port has "
+                             "'dense' and the RWKV-6 'ssm' models)")
+        if self.kv_cache_dtype != "" or not self.remat:
+            raise ValueError("kv_cache_dtype and remat: the port takes only "
+                             "their defaults ('' and True)")
 
     @property
     def hd(self) -> int:
@@ -62,9 +81,15 @@ class RunConfig:
 
 
 def smoke_variant(cfg: ModelConfig) -> ModelConfig:
-    """Reduced same-family config for CPU tests: 2 layers, d_model 128."""
-    return dataclasses.replace(
-        cfg, n_layers=2, d_model=128, n_heads=4,
-        n_kv_heads=min(cfg.n_kv_heads, 4) if cfg.n_kv_heads else 0,
-        d_ff=256, vocab_size=512, head_dim=32, param_dtype="float32",
-        compute_dtype="float32")
+    """Reduced same-family config for CPU tests: 2 layers, d_model 128,
+    query chunks of 64, LoRA rank 8 for RWKV (JAX's ``smoke_variant``
+    less the fields the port does not read)."""
+    kw = dict(n_layers=2, d_model=128, n_heads=4,
+              n_kv_heads=min(cfg.n_kv_heads, 4) if cfg.n_kv_heads else 0,
+              d_ff=256, vocab_size=512, head_dim=32, param_dtype="float32",
+              compute_dtype="float32", attn_chunk=64)
+    if cfg.name.startswith("rwkv"):
+        kw.update(rwkv_lora_rank=8)
+    if cfg.sliding_window:
+        kw.update(sliding_window=32)
+    return dataclasses.replace(cfg, **kw)

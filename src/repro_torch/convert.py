@@ -1,11 +1,18 @@
 """Carry the JAX package's parameters and optimizer state into the port.
 
 The JAX side hands over trees of numpy arrays (``jax.tree.map(np.asarray,
-tree)``, nested dicts and lists); the port gets the same tree of tensors,
-with the same keys, shapes, dtypes and bits, so both packages compute
-from the same weights.  The paper nets need no transposition: the port
-keeps their JAX layouts (NHWC images, HWIO kernels; see
-``configs/paper_models.py``).  Nothing here imports JAX.
+tree)``, nested dicts, lists and named tuples); the port gets the same
+tree of tensors, with the same keys, shapes, dtypes and bits, so both
+packages compute from the same weights.  The paper nets need no
+transposition: the port keeps their JAX layouts (NHWC images, HWIO
+kernels; see ``configs/paper_models.py``).  Nothing here imports JAX.
+
+bf16 leaves: ``np.asarray`` of a JAX bf16 array has the ``ml_dtypes``
+bfloat16 dtype, which ``torch.from_numpy`` refuses; such a leaf is
+recognised by its dtype's name and carried over as its 16-bit pattern
+(``.view(np.uint16)``, then ``.view(torch.bfloat16)``), bits unchanged.
+The serving caches (``DecodeCache``, ``KVCache``, ``RWKVState``) become
+the port's named tuples of the same name and fields.
 """
 from __future__ import annotations
 
@@ -19,6 +26,10 @@ def to_torch(tree, device="cpu"):
     and ``shape``) becomes the port's ``QuantizedEF``, bits unchanged."""
     if isinstance(tree, dict):
         return {k: to_torch(v, device) for k, v in tree.items()}
+    if hasattr(tree, "_fields") and type(tree).__name__ in _CACHES:
+        return _cache_twin(tree, device)
+    if isinstance(tree, tuple) and not tree:
+        return ()                        # an unused cache field
     if isinstance(tree, (list, tuple)):
         return [to_torch(v, device) for v in tree]
     if hasattr(tree, "q") and hasattr(tree, "scale"):
@@ -26,7 +37,29 @@ def to_torch(tree, device="cpu"):
         return QuantizedEF(q=to_torch(tree.q, device),
                            scale=to_torch(tree.scale, device),
                            shape=tuple(tree.shape))
-    return torch.from_numpy(np.array(tree, copy=True)).to(device)
+    arr = np.asarray(tree)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(arr, copy=True)).to(device)
+
+
+_CACHES = ("DecodeCache", "KVCache", "RWKVState")
+
+
+def _cache_twin(tree, device):
+    """A JAX cache named tuple -> the port's twin, field by field (the
+    port's KVCache has no int8 scales: the int8 cache is not ported)."""
+    from repro_torch.models import attention, lm, rwkv
+    cls = {"DecodeCache": lm.DecodeCache, "KVCache": attention.KVCache,
+           "RWKVState": rwkv.RWKVState}[type(tree).__name__]
+    extra = [f for f in tree._fields if f not in cls._fields
+             and not (isinstance(getattr(tree, f), tuple)
+                      and not getattr(tree, f))]
+    if extra:
+        raise ValueError(f"{type(tree).__name__} fields {extra} have no "
+                         "twin in the port")
+    return cls(*(to_torch(getattr(tree, f), device) for f in cls._fields))
 
 
 def to_numpy(tree):

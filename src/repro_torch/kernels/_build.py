@@ -18,16 +18,20 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("ef_topk", "wire_pack")
+SOURCES = ("ef_topk", "wire_pack", "flash_attention", "rmsnorm",
+           "rwkv_wkv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
+_F = ctypes.c_float
 # argtypes of each exported launcher: pointers and the stream as void*,
 # so ctypes never truncates a 64-bit address to a 32-bit int
 SIGNATURES = {
@@ -41,6 +45,17 @@ SIGNATURES = {
     "wire_pack": {
         "pack_words_launch": (_P, _P, _P, _LL, _LL, _I, _I, _P),
         "unpack_words_launch": (_P, _P, _P, _LL, _LL, _I, _I, _P),
+    },
+    "flash_attention": {
+        "flash_attention_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   _F, _I, _I, _I, _P),
+    },
+    "rmsnorm": {
+        "rmsnorm_launch": (_P, _P, _P, _LL, _I, _F, _I, _I, _P),
+    },
+    "rwkv_wkv": {
+        "wkv_forward_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                               _I, _I, _P),
     },
 }
 
@@ -115,3 +130,18 @@ def check(err: int, what: str) -> None:
     """Raise when a launcher reports a CUDA error (its cudaGetLastError)."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def stream(t: torch.Tensor) -> int:
+    """The handle of the current CUDA stream on ``t``'s device."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_no_grad(name: str, *ts: torch.Tensor) -> None:
+    """Raise when an input needs a gradient: the serving kernels, like the
+    TPU kernels they replace, have no backward, so they must never sit
+    silently inside autograd."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise RuntimeError(f"{name}: the kernel is forward-only and an "
+                           "input requires a gradient (run under "
+                           "torch.inference_mode() or torch.no_grad())")

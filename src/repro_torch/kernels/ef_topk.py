@@ -56,10 +56,6 @@ def _check_tau(name: str, tau: torch.Tensor, like: torch.Tensor) -> None:
                          f"{like.device}, got {tau.dtype} {tuple(tau.shape)}")
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def ef_stats_telemetry(m: torch.Tensor, g: torch.Tensor, eta: torch.Tensor,
                        k_b: int):
     """Pass 1 with moments.  m, g: (R, 1024) f32; eta: one f32 element on
@@ -73,7 +69,7 @@ def ef_stats_telemetry(m: torch.Tensor, g: torch.Tensor, eta: torch.Tensor,
     eta = eta.contiguous()
     err = _build.load("ef_topk").ef_stats_telemetry_launch(
         m.data_ptr(), g.data_ptr(), eta.data_ptr(), tau.data_ptr(),
-        moments.data_ptr(), R, k_b, _stream(m))
+        moments.data_ptr(), R, k_b, _build.stream(m))
     _build.check(err, "ef_stats_telemetry")
     ef_stats_telemetry.launches += 1
     return tau, moments
@@ -93,7 +89,7 @@ def ef_block_stats(m: torch.Tensor, g: torch.Tensor, eta: torch.Tensor,
     eta = eta.contiguous()
     err = _build.load("ef_topk").ef_block_stats_launch(
         m.data_ptr(), g.data_ptr(), eta.data_ptr(), tau.data_ptr(),
-        m.shape[0], k_b, _stream(m))
+        m.shape[0], k_b, _build.stream(m))
     _build.check(err, "ef_block_stats")
     ef_block_stats.launches += 1
     return tau
@@ -109,7 +105,7 @@ def block_stats(x: torch.Tensor, k_b: int) -> torch.Tensor:
     _check_k("block_stats", k_b)
     tau = torch.empty((x.shape[0], 1), dtype=torch.float32, device=x.device)
     err = _build.load("ef_topk").block_stats_launch(
-        x.data_ptr(), tau.data_ptr(), x.shape[0], k_b, _stream(x))
+        x.data_ptr(), tau.data_ptr(), x.shape[0], k_b, _build.stream(x))
     _build.check(err, "block_stats")
     block_stats.launches += 1
     return tau
@@ -131,7 +127,7 @@ def ef_apply(m: torch.Tensor, g: torch.Tensor, eta: torch.Tensor,
     mnew = torch.empty_like(m)
     err = _build.load("ef_topk").ef_apply_launch(
         m.data_ptr(), g.data_ptr(), eta.data_ptr(), tau.data_ptr(),
-        sent.data_ptr(), mnew.data_ptr(), m.shape[0], _stream(m))
+        sent.data_ptr(), mnew.data_ptr(), m.shape[0], _build.stream(m))
     _build.check(err, "ef_apply")
     ef_apply.launches += 1
     return sent, mnew
@@ -150,7 +146,7 @@ def threshold_split(x: torch.Tensor, tau: torch.Tensor):
     resid = torch.empty_like(x)
     err = _build.load("ef_topk").threshold_split_launch(
         x.data_ptr(), tau.data_ptr(), sent.data_ptr(), resid.data_ptr(),
-        x.shape[0], _stream(x))
+        x.shape[0], _build.stream(x))
     _build.check(err, "threshold_split")
     threshold_split.launches += 1
     return sent, resid

@@ -1,9 +1,12 @@
 """Public kernel ops — shape-normalising wrappers over the dispatch
-registry (twin of ``src/repro/kernels/ops.py``, the ops of the
-single-node CSGD-ASSS and the DCSGD-ASSS training paths).
+registry (twin of ``src/repro/kernels/ops.py``: the ops of the
+single-node CSGD-ASSS and DCSGD-ASSS training paths and of serving).
 
 A CPU tensor runs the plain version, a CUDA tensor the hand-written
-kernel (:mod:`repro_torch.kernels.dispatch`).  The launch counts of the
+kernel (:mod:`repro_torch.kernels.dispatch`).  The model-side ops
+(``attention``, ``rms_norm``, ``wkv``) also take ``use_kernel``: False
+is the JAX package's ``impl="ref"`` (its ``use_pallas=False`` path) and
+runs the plain version on any device.  The launch counts of the
 CUDA wrappers are read and reset through :func:`launch_counts` /
 :func:`reset_launch_counts`.
 """
@@ -14,7 +17,8 @@ import math
 import torch
 import torch.nn.functional as F_
 
-from . import dispatch, ef_topk, ref, wire_pack
+from . import dispatch, ef_topk, ref, rmsnorm, rwkv_wkv, wire_pack
+from .flash_attention import flash_attention
 
 dispatch.register_op("ef_stats_telemetry", ref=ref.ef_block_stats_telemetry,
                      cuda=ef_topk.ef_stats_telemetry)
@@ -31,6 +35,21 @@ dispatch.register_op("wire_pack", ref=ref.pack_fields,
 dispatch.register_op("wire_unpack", ref=ref.unpack_fields,
                      cuda=wire_pack.unpack_words)
 
+
+def _rmsnorm_rows(x, w, eps):
+    """The kernel over x's rows: (..., D) -> (rows, D) and back."""
+    D = x.shape[-1]
+    return rmsnorm.rmsnorm(x.reshape(-1, D).contiguous(), w.contiguous(),
+                           eps).reshape(x.shape)
+
+
+dispatch.register_op("attention", ref=ref.mha_reference,
+                     cuda=flash_attention)
+dispatch.register_op("rmsnorm", ref=ref.rmsnorm_reference,
+                     cuda=_rmsnorm_rows)
+dispatch.register_op("wkv", ref=ref.wkv_reference,
+                     cuda=rwkv_wkv.wkv_forward)
+
 #: kernel name -> its CUDA wrapper (each carries a ``launches`` count)
 KERNELS = {
     "ef_stats_telemetry": ef_topk.ef_stats_telemetry,
@@ -40,6 +59,9 @@ KERNELS = {
     "threshold_split": ef_topk.threshold_split,
     "pack_words": wire_pack.pack_words,
     "unpack_words": wire_pack.unpack_words,
+    "flash_attention": flash_attention,
+    "rmsnorm": rmsnorm.rmsnorm,
+    "wkv_forward": rwkv_wkv.wkv_forward,
 }
 
 
@@ -219,3 +241,31 @@ def unpack_fields_stream(words: torch.Tensor, bits: int) -> torch.Tensor:
         words = F_.pad(words, (0, pad))
     fields = dispatch.call("wire_unpack", words.reshape(R, C), bits, None, 0)
     return fields.reshape(-1)[:W * F]
+
+
+# --------------------------------------------------------------------------
+# serving: attention, RMSNorm, the RWKV-6 recurrence
+# --------------------------------------------------------------------------
+
+def attention(q, k, v, *, causal: bool = True, window: int | None = None,
+              use_kernel: bool = True):
+    """Attention over (B, H, S, D) q, k, v (GQA heads broadcast by the
+    caller), scaled by 1/sqrt(D), the queries at the trailing positions."""
+    if not use_kernel:
+        return ref.mha_reference(q, k, v, causal=causal, window=window)
+    return dispatch.call("attention", q, k, v, causal=causal, window=window)
+
+
+def rms_norm(x, w, *, eps: float = 1e-6, use_kernel: bool = True):
+    """RMSNorm over the last axis of x with weight w (D,)."""
+    if not use_kernel:
+        return ref.rmsnorm_reference(x, w, eps)
+    return dispatch.call("rmsnorm", x, w, eps)
+
+
+def wkv(r, k, v, w, u, s0, *, use_kernel: bool = True):
+    """The RWKV-6 WKV recurrence (``kernels/rwkv_wkv.py``); returns
+    (y, final state)."""
+    if not use_kernel:
+        return ref.wkv_reference(r, k, v, w, u, s0)
+    return dispatch.call("wkv", r, k, v, w, u, s0)

@@ -131,3 +131,61 @@ def unpack_fields(words: torch.Tensor, bits: int,
         fields = torch.where(
             _count_mask(R, fields.shape[1], counts, period), fields, 0)
     return fields
+
+
+# --------------------------- flash attention -------------------------------
+
+def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True, window: int | None = None,
+                  scale: float | None = None,
+                  q_offset: int | None = None) -> torch.Tensor:
+    """Multi-head attention.  q: (B, H, Sq, D); k, v: (B, H, Sk, D).
+    ``window``: sliding-window size (None = full); ``q_offset``: absolute
+    position of the first query (default Sk - Sq, the trailing
+    positions).  Logits and softmax in f32, the product scaled after it;
+    returns (B, H, Sq, D) in q.dtype."""
+    Sq, D = q.shape[-2:]
+    Sk = k.shape[-2]
+    scale = scale if scale is not None else 1.0 / (D ** 0.5)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if q_offset is None:
+        q_offset = Sk - Sq
+    qpos = torch.arange(Sq, device=q.device)[:, None] + q_offset
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+# --------------------------- rmsnorm ----------------------------------------
+
+def rmsnorm_reference(x: torch.Tensor, w: torch.Tensor,
+                      eps: float = 1e-6) -> torch.Tensor:
+    """(x * rsqrt(mean(x^2) + eps)) * w over the last axis, in f32;
+    returns x.dtype."""
+    xf = x.float()
+    var = (xf * xf).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
+
+
+# --------------------------- rwkv wkv ---------------------------------------
+
+def wkv_reference(r, k, v, w, u, s0):
+    """The RWKV-6 WKV recurrence, one step at a time, in f32.
+    r, k, w: (B, S, H, K); v: (B, S, H, V); u: (H, K); s0: (B, H, K, V).
+    Per step: y_t = r_t (S + diag(u) k_t^T v_t), S <- diag(w_t) S +
+    k_t^T v_t.  Returns (y (B, S, H, V), sT (B, H, K, V))."""
+    S_state = s0.float()
+    uf = u.float()[None, :, :, None]
+    ys = []
+    for t in range(r.shape[1]):
+        kv = torch.einsum("bhk,bhv->bhkv", k[:, t].float(), v[:, t].float())
+        ys.append(torch.einsum("bhk,bhkv->bhv", r[:, t].float(),
+                               S_state + uf * kv))
+        S_state = w[:, t].float()[..., None] * S_state + kv
+    return torch.stack(ys, dim=1), S_state

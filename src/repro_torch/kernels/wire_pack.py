@@ -43,10 +43,6 @@ def _check(name: str, x: torch.Tensor, bits: int, counts, period: int):
     return counts
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def pack_words(fields: torch.Tensor, bits: int,
                counts: torch.Tensor | None = None,
                period: int = 0) -> torch.Tensor:
@@ -60,7 +56,7 @@ def pack_words(fields: torch.Tensor, bits: int,
     out = torch.empty((R, n // F), dtype=torch.int32, device=fields.device)
     err = _build.load("wire_pack").pack_words_launch(
         fields.data_ptr(), 0 if counts is None else counts.data_ptr(),
-        out.data_ptr(), R, n // F, bits, period, _stream(fields))
+        out.data_ptr(), R, n // F, bits, period, _build.stream(fields))
     _build.check(err, "pack_words")
     pack_words.launches += 1
     return out
@@ -79,7 +75,7 @@ def unpack_words(words: torch.Tensor, bits: int,
                       device=words.device)
     err = _build.load("wire_pack").unpack_words_launch(
         words.data_ptr(), 0 if counts is None else counts.data_ptr(),
-        out.data_ptr(), R, W, bits, period, _stream(words))
+        out.data_ptr(), R, W, bits, period, _build.stream(words))
     _build.check(err, "unpack_words")
     unpack_words.launches += 1
     return out

@@ -1,0 +1,126 @@
+"""Serving entry point of the port: batched prefill, then greedy decode
+(twin of ``src/repro/launch/serve.py``, its flags less ``--mesh`` and
+``--params-2d``, plus ``--device``).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-4b \\
+        --full --batch 4 --ctx 2048 --gen 16
+
+runs qwen1.5-4b at full width on the GPU; ``--smoke --device cpu`` runs
+the 2-layer variant on the CPU with the kernels' plain versions.  The
+config is built with ``use_pallas=True``: on the card that takes the
+flash-attention, RMSNorm and WKV kernels; on the CPU it resolves to their
+plain versions, which compute what the JAX package's ``use_pallas=False``
+path computes (the JAX launcher never sets the flag).  Without CUDA and
+without ``--device cpu`` it raises: it never falls back.
+
+Weights are random, from seed 0.  Smoke sizes are drawn on the CPU, so
+the seed gives the same weights on every device; ``--full`` draws them
+with the card's generator, since drawing 3.9 B values on the host would
+take longer than serving them.  The prompt is drawn from seed 7 on the
+CPU.  Everything runs under ``torch.inference_mode()``.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import torch
+
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.launch.train import resolve_device
+from repro_torch.models import build_model
+
+ARCHS = ("qwen1.5-4b", "rwkv6-1.6b")
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen1.5-4b", choices=ARCHS)
+    ap.add_argument("--smoke", action="store_true", default=True,
+                    help="the reduced 2-layer variant of --arch (default)")
+    ap.add_argument("--full", dest="smoke", action="store_false",
+                    help="the published widths and depth of --arch")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--ctx", type=int, default=64)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    return ap.parse_args(argv)
+
+
+def load(arch: str, smoke: bool, batch: int, ctx: int, device):
+    """(model, params, prompt (batch, ctx) on ``device``) for serving."""
+    cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    model = build_model(dataclasses.replace(cfg, use_pallas=True))
+    draw = "cpu" if smoke else device
+    params = model.init(0, device=device, draw_device=draw)
+    gen = torch.Generator().manual_seed(7)
+    prompt = torch.randint(0, cfg.vocab_size, (batch, ctx), generator=gen)
+    return model, params, prompt.to(device)
+
+
+def sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def generate(model, params, prompt: torch.Tensor, gen: int) -> dict:
+    """Prefill the prompt into caches of capacity ctx + gen, then ``gen -
+    1`` greedy decode steps.  Returns the tokens (batch, gen), the logits
+    of each step (gen, batch, vocab) f32 (the prefill's last position
+    first), prefill seconds and decode ms per step (host clock, each
+    ending in a device synchronise)."""
+    B, ctx = prompt.shape
+    dev = prompt.device
+    vocab = model.cfg.vocab_size
+    with torch.inference_mode():
+        sync(dev)
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, {"tokens": prompt},
+                                      capacity=ctx + gen)
+        tok = logits[:, -1:, :vocab].argmax(-1)
+        sync(dev)
+        prefill_s = time.perf_counter() - t0
+        toks, step_logits = [tok], [logits[:, -1, :vocab]]
+        t0 = time.perf_counter()
+        for i in range(gen - 1):
+            logits, cache = model.decode_step(params, tok, cache, ctx + i)
+            tok = logits[:, -1:, :vocab].argmax(-1)
+            toks.append(tok)
+            step_logits.append(logits[:, -1, :vocab])
+        sync(dev)
+        decode_s = time.perf_counter() - t0
+    steps = max(gen - 1, 1)
+    return dict(tokens=torch.cat(toks, dim=1).cpu(),
+                logits=torch.stack(step_logits).float().cpu(),
+                prefill_s=prefill_s, decode_ms_per_step=decode_s / steps * 1e3,
+                decode_tokens_per_s=B * steps / decode_s if decode_s else 0.0)
+
+
+def main(argv=None) -> dict:
+    """Run the CLI; returns the result dict of :func:`generate` with the
+    arch, shapes, device and peak device memory (bytes; 0 on the CPU)."""
+    args = parse_args(argv)
+    dev = resolve_device(args.device)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    model, params, prompt = load(args.arch, args.smoke, args.batch,
+                                 args.ctx, dev)
+    res = generate(model, params, prompt, args.gen)
+    del params
+    res.update(arch=args.arch, smoke=args.smoke, batch=args.batch,
+               ctx=args.ctx, gen=args.gen, device=str(dev),
+               peak_memory_bytes=torch.cuda.max_memory_allocated(dev)
+               if dev.type == "cuda" else 0)
+    print(f"[{args.arch}{' smoke' if args.smoke else ''}] prefill "
+          f"{args.batch}x{args.ctx} on {dev}: {res['prefill_s']:.4f} s; "
+          f"decode {res['decode_ms_per_step']:.3f} ms/step "
+          f"({res['decode_tokens_per_s']:.1f} tokens/s); peak memory "
+          f"{res['peak_memory_bytes'] / 2**30:.2f} GiB", flush=True)
+    for i in range(min(args.batch, 4)):
+        print(f"  req{i}: {res['tokens'][i].tolist()[:16]}")
+    return res
+
+
+if __name__ == "__main__":
+    main()

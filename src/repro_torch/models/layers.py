@@ -1,13 +1,17 @@
 """Basic layers (twin of ``src/repro/models/layers.py``): init helpers,
 RMSNorm, rotary embeddings, SwiGLU MLP, embeddings, LM head and the
 cross-entropy.  Functional: params are nested dicts of tensors in the JAX
-package's layout; each function takes ``(params, x, ...)``."""
+package's layout; each function takes ``(params, x, ...)``.  Params may
+be bf16: each product casts the weight to the activation's type, as the
+JAX package does."""
 from __future__ import annotations
 
 import math
 
 import torch
 import torch.nn.functional as F_
+
+from repro_torch.kernels import ops
 
 
 def he_init(gen: torch.Generator, shape, dtype, fan_in=None, lead=()):
@@ -19,14 +23,17 @@ def he_init(gen: torch.Generator, shape, dtype, fan_in=None, lead=()):
 
 
 def dense(p, x):
-    return x @ p["w"].to(x.dtype)
+    """x @ w (+ b)."""
+    y = x @ p["w"].to(x.dtype)
+    if "b" in p:
+        y = y + p["b"].to(x.dtype)
+    return y
 
 
-def rms_norm(p, x, eps: float):
-    """x * rsqrt(mean(x^2) + eps) * w, f32 accumulation."""
-    xf = x.float()
-    var = (xf * xf).mean(-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * p["w"].float()).to(x.dtype)
+def rms_norm(p, x, eps: float, use_pallas: bool = False):
+    """x * rsqrt(mean(x^2) + eps) * w, f32 accumulation; ``use_pallas``
+    takes the RMSNorm kernel for a CUDA tensor."""
+    return ops.rms_norm(x, p["w"], eps=eps, use_kernel=use_pallas)
 
 
 def init_rms_norm(d, dtype, device, lead=()):

@@ -1,0 +1,37 @@
+"""Model registry (twin of ``src/repro/models/registry.py``): one uniform
+API over the port's decoder-only families.
+
+``build_model(cfg)`` returns a ``Model`` with ``init / loss / prefill /
+decode_step / init_cache / stacked_mask``; the serving launcher and the
+tests go through this object.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+from . import lm
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: Any
+    init: Callable[..., Any]
+    loss: Callable[..., Any]
+    prefill: Callable[..., tuple]
+    decode_step: Callable[..., tuple]
+    init_cache: Callable[..., Any]
+    stacked_mask: Callable[[Any], Any]
+
+
+def build_model(cfg) -> Model:
+    return Model(
+        cfg=cfg,
+        init=lambda seed=0, **kw: lm.init_params(cfg, seed, **kw),
+        loss=lambda p, b: lm.loss_fn(p, b, cfg),
+        prefill=lambda p, b, **kw: lm.prefill(p, b, cfg, **kw),
+        decode_step=lambda p, t, c, n: lm.decode_step(p, t, c, n, cfg),
+        init_cache=lambda B, capacity, device="cpu":
+            lm.init_cache(cfg, B, capacity, device),
+        stacked_mask=lm.stacked_mask,
+    )

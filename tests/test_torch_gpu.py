@@ -6,13 +6,20 @@ without one; the file imports no JAX, so on the GPU machine it runs as
 
 Tolerances: bit-exact (tau NaN where the plain version gives NaN),
 except the pass-1 moments (8 ulp: the kernel sums in f64 and rounds once,
-the plain version sums in f32).
+the plain version sums in f32) and the serving kernels, which sum in
+another order than their plain versions: flash attention atol 3e-5 in
+f32 and, in bf16, 1 bf16 ulp of the plain value plus 1e-5 (the f32
+sums' difference near zero), RMSNorm atol 1e-5 in f32 and 1 bf16 ulp,
+the WKV recurrence atol 2e-5.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import ef_topk, ref, wire_pack
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.rmsnorm import rmsnorm
+from repro_torch.kernels.rwkv_wkv import wkv_forward
 
 
 def _leaves(seed, shape, ties):
@@ -123,3 +130,124 @@ def test_wire_kernels_match_plain_on_card(cuda, bits, ragged):
     torch.testing.assert_close(back, ref.unpack_fields(words, bits, counts,
                                                        period),
                                rtol=0, atol=0)
+
+
+def _bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest distance in bf16 steps between two bf16 tensors of one
+    sign pattern (the int16 bit patterns are monotone per sign)."""
+    ia = a.view(torch.int16).to(torch.int32)
+    ib = b.view(torch.int16).to(torch.int32)
+    return int((ia - ib).abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(8, 128), (200, 256), (21, 512),
+                                   (4, 2560)])
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("wdt", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_matches_plain_on_card(cuda, shape, xdt, wdt):
+    rng = np.random.default_rng(shape[0])
+    x = torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(cuda, xdt)
+    w = torch.from_numpy(rng.standard_normal(shape[-1]).astype(
+        np.float32)).to(cuda, wdt)
+    got = rmsnorm(x, w, 1e-5)
+    want = ref.rmsnorm_reference(x, w, 1e-5)
+    assert got.dtype == xdt
+    if xdt == torch.float32:
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    else:
+        assert _bf16_ulps(got, want) <= 1
+
+
+def _bf16_ulp_err(got: torch.Tensor, want: torch.Tensor,
+                  atol: float) -> float:
+    """Largest |got - want| in bf16 ulps of |want|, once ``atol`` is
+    taken off."""
+    w = want.float()
+    ulp = torch.ldexp(torch.ones_like(w),
+                      torch.frexp(w.abs().clamp(min=atol)).exponent - 8)
+    return float(((got.float() - w).abs() - atol).clamp(min=0).div(ulp)
+                 .max())
+
+
+def _qkv(seed, B, H, Sq, Sk, D, dtype, cuda):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, H, Sq, D)).astype(np.float32) * 0.5
+    k = rng.standard_normal((B, H, Sk, D)).astype(np.float32) * 0.5
+    v = rng.standard_normal((B, H, Sk, D)).astype(np.float32)
+    return [torch.from_numpy(t).to(cuda, dtype) for t in (q, k, v)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,Sq,Sk,D", [(1, 2, 128, 128, 32),
+                                         (2, 3, 100, 100, 64),
+                                         (1, 2, 37, 150, 128),
+                                         (2, 2, 1, 70, 64)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("window", [None, 64])
+def test_flash_attention_kernel_matches_plain_on_card(cuda, B, H, Sq, Sk, D,
+                                                      causal, window):
+    q, k, v = _qkv(Sq + Sk, B, H, Sq, Sk, D, torch.float32, cuda)
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.mha_reference(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got, want, rtol=0, atol=3e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_flash_attention_kernel_bf16_strided_on_card(cuda, D):
+    """bf16 through the transposed (B, S, H, D) views the model passes."""
+    B, S, H = 2, 200, 3
+    rng = np.random.default_rng(D)
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, S, H, D)).astype(
+        np.float32)).to(cuda, torch.bfloat16).transpose(1, 2)
+        for _ in range(3))
+    assert not q.is_contiguous()
+    got = flash_attention(q, k, v, causal=True)
+    want = ref.mha_reference(q, k, v, causal=True)
+    assert _bf16_ulp_err(got, want, 1e-5) <= 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [1, 8, 33, 70])
+@pytest.mark.parametrize("K", [32, 64])
+def test_wkv_kernel_matches_plain_on_card(cuda, S, K):
+    B, H = 2, 3
+    rng = np.random.default_rng(S * K)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)
+    r, k = f(B, S, H, K) * 0.3, f(B, S, H, K) * 0.3
+    v = f(B, S, H, K)
+    w = 1.0 / (1.0 + np.exp(-f(B, S, H, K)))
+    u, s0 = f(H, K) * 0.1, f(B, H, K, K) * 0.1
+    args = [torch.from_numpy(np.ascontiguousarray(t, np.float32)).to(cuda)
+            for t in (r, k, v, w, u, s0)]
+    y, sT = wkv_forward(*args)
+    ry, rsT = ref.wkv_reference(*args)
+    torch.testing.assert_close(y, ry, rtol=0, atol=2e-5)
+    torch.testing.assert_close(sT, rsT, rtol=0, atol=2e-5)
+
+
+@pytest.mark.gpu
+def test_serving_wrappers_refuse_cpu_tensors_and_gradients(cuda):
+    q = torch.zeros((1, 1, 8, 32))
+    with pytest.raises(ValueError):
+        flash_attention(q, q, q)
+    with pytest.raises(ValueError):
+        rmsnorm(torch.zeros((2, 8)), torch.ones(8))
+    z = torch.zeros((1, 2, 1, 32))
+    with pytest.raises(ValueError):
+        wkv_forward(z, z, z, z, torch.zeros((1, 32)),
+                    torch.zeros((1, 1, 32, 32)))
+    qc = q.to(cuda).requires_grad_(True)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        flash_attention(qc, qc, qc)
+    x = torch.zeros((2, 8), device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        rmsnorm(x, torch.ones(8, device=cuda))
+    zc = z.to(cuda).requires_grad_(True)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        wkv_forward(zc, zc, zc, zc, torch.zeros((1, 32), device=cuda),
+                    torch.zeros((1, 1, 32, 32), device=cuda))
+    with torch.inference_mode():        # the serving path's mode
+        assert flash_attention(qc, qc, qc).shape == q.shape

@@ -9,9 +9,17 @@ dense splits, packed words and unpacked fields are bit-exact.  The
 per-row moments [sum g^2, sum acc^2] are f32 sums whose reduction order
 differs between XLA and PyTorch; DESIGN.md §11 holds them to 8 ulp.
 
+The serving kernels' plain versions (RMSNorm, attention, the RWKV-6 WKV
+recurrence) go against the JAX package's: RMSNorm against its Pallas
+kernel in interpret mode, attention and WKV against its jnp oracles
+(its Pallas flash-attention and WKV kernels do not run on this JAX;
+ROADMAP queue 3).  f32: atol 1e-5 (RMSNorm, attention; JAX's own RMSNorm
+bound) and 2e-5 (WKV); bf16: at most 1 bf16 ulp.
+
 tests/test_torch_gpu.py holds each CUDA kernel against its plain version
 on the card.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,6 +27,7 @@ import torch
 
 from repro.kernels import ef_topk as jef_topk
 from repro.kernels import ops as jops
+from repro.kernels import ref as jref
 from repro_torch.kernels import dispatch, ops, ref
 from repro_torch.kernels import ef_topk, wire_pack
 
@@ -250,3 +259,122 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         wire_pack.unpack_words(w, 8)
     assert all(v == 0 for v in ops.launch_counts().values())
+
+
+# --------------------------------------------------------------------------
+# serving: RMSNorm, attention, WKV
+# --------------------------------------------------------------------------
+
+def _bf16_bits(a) -> np.ndarray:
+    """int32 bit patterns of a bf16 array (JAX) or tensor (torch)."""
+    if isinstance(a, torch.Tensor):
+        return a.view(torch.int16).numpy().astype(np.int32)
+    return np.asarray(a).view(np.int16).astype(np.int32)
+
+
+def _assert_bf16_within_1ulp(jax_out, torch_out):
+    assert torch_out.dtype == torch.bfloat16
+    diff = np.abs(_bf16_bits(jax_out) - _bf16_bits(torch_out))
+    assert diff.max() <= 1, diff.max()
+
+
+@pytest.mark.parametrize("shape", [(8, 128), (2, 100, 256), (3, 7, 512)])
+@pytest.mark.parametrize("xdt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("wdt", ["float32", "bfloat16"])
+def test_rmsnorm_plain_matches_jax_pallas_interpret(shape, xdt, wdt):
+    rng = np.random.default_rng(len(shape) * shape[-1])
+    x = rng.standard_normal(shape).astype(np.float32)
+    w = rng.standard_normal(shape[-1]).astype(np.float32)
+    jx, jw = jnp.asarray(x, xdt), jnp.asarray(w, wdt)
+    want = jops.rms_norm(jx, jw, eps=1e-6, impl=INTERP)
+    tx = torch.from_numpy(x).to(getattr(torch, xdt))
+    tw = torch.from_numpy(w).to(getattr(torch, wdt))
+    got = ref.rmsnorm_reference(tx, tw, 1e-6)
+    assert torch.equal(ops.rms_norm(tx, tw, eps=1e-6), got)   # CPU: plain
+    if xdt == "float32":
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=1e-5)
+    else:
+        _assert_bf16_within_1ulp(want, got)
+
+
+def _qkv(seed, shape_q, shape_k, dtype="float32"):
+    rng = np.random.default_rng(seed)
+    q = (rng.standard_normal(shape_q) * 0.1).astype(np.float32)
+    k = (rng.standard_normal(shape_k) * 0.1).astype(np.float32)
+    v = rng.standard_normal(shape_k).astype(np.float32)
+    return ([jnp.asarray(t, dtype) for t in (q, k, v)],
+            [torch.from_numpy(t).to(getattr(torch, dtype))
+             for t in (q, k, v)])
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 128, 32), (2, 4, 256, 64),
+                                   (1, 8, 512, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("window", [None, 64])
+def test_attention_plain_matches_jax_oracle(shape, causal, window):
+    (jq, jk, jv), (tq, tk, tv) = _qkv(shape[2], shape, shape)
+    want = jref.mha_reference(jq, jk, jv, causal=causal, window=window)
+    got = ops.attention(tq, tk, tv, causal=causal, window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("q_offset", [None, 64])
+def test_attention_plain_rectangular_and_offset_match_jax(q_offset):
+    """Sq < Sk: queries at the trailing positions, or at an explicit
+    offset (a query chunk of the CPU prefill)."""
+    (jq, jk, jv), (tq, tk, tv) = _qkv(5, (2, 2, 128, 64), (2, 2, 256, 64))
+    want = jref.mha_reference(jq, jk, jv, causal=True, q_offset=q_offset)
+    got = ref.mha_reference(tq, tk, tv, causal=True, q_offset=q_offset)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-5)
+
+
+def test_attention_plain_bf16_matches_jax_oracle():
+    shape = (1, 2, 256, 64)
+    (jq, jk, jv), (tq, tk, tv) = _qkv(6, shape, shape, "bfloat16")
+    want = jref.mha_reference(jq, jk, jv)
+    got = ops.attention(tq, tk, tv)
+    _assert_bf16_within_1ulp(want, got)
+
+
+@pytest.mark.parametrize("S", [1, 8, 33])
+@pytest.mark.parametrize("K", [8, 64])
+def test_wkv_plain_matches_jax_oracle(S, K):
+    B, H = 2, 2
+    rng = np.random.default_rng(S * 100 + K)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)
+    r, k, v = f(B, S, H, K) * 0.3, f(B, S, H, K) * 0.3, f(B, S, H, K)
+    w = (1.0 / (1.0 + np.exp(-f(B, S, H, K)))).astype(np.float32)
+    u, s0 = f(H, K) * 0.1, f(B, H, K, K) * 0.1
+    args = (r, k, v, w, u, s0)
+    jy, jsT = jax.jit(jref.wkv_reference)(*map(jnp.asarray, args))
+    ty, tsT = ops.wkv(*map(torch.from_numpy, args))
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), rtol=0, atol=2e-5)
+    np.testing.assert_allclose(tsT.numpy(), np.asarray(jsT), rtol=0,
+                               atol=2e-5)
+
+
+def test_serving_ops_dispatch_by_device():
+    """Registered like the training ops: CPU tensors take the plain
+    version whatever ``use_kernel`` says; the CUDA wrappers refuse CPU
+    tensors (tests/test_torch_gpu.py checks them on the card)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.rwkv_wkv import wkv_forward
+    for op in ("attention", "rmsnorm", "wkv"):
+        assert dispatch.registered()[op] == ("ref", "cuda")
+    q = torch.randn(1, 2, 8, 32)
+    assert torch.equal(ops.attention(q, q, q),
+                       ops.attention(q, q, q, use_kernel=False))
+    z = torch.zeros(1, 2, 1, 32)
+    for call in (lambda: flash_attention(q, q, q),
+                 lambda: rmsnorm(torch.zeros(2, 8), torch.ones(8)),
+                 lambda: wkv_forward(z, z, z, z, torch.zeros(1, 32),
+                                     torch.zeros(1, 1, 32, 32))):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+    assert {k: v for k, v in ops.launch_counts().items()
+            if k in ("flash_attention", "rmsnorm", "wkv_forward")} == \
+        dict(flash_attention=0, rmsnorm=0, wkv_forward=0)
