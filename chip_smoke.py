@@ -18,13 +18,17 @@ Phases, each fatal on failure (no phase catches and continues):
    and ties through every pass-1 kernel, ``ef_block_stats`` through its
    only path, ``ops.fused_ef_compress(telemetry=False)``, with the launch
    counts set to 0 just before and read just after; the 3 serving
-   kernels at the shapes serving gives them (flash attention at
-   qwen1.5-4b's prefill, (4, 20, 2048, 128) bf16 causal, and small f32
-   cases with a window, without causality, with Sq < Sk and at D 32:
-   within 1 bf16 ulp of the plain value plus 1e-5 in bf16, atol 3e-5 in
-   f32; RMSNorm at (8192, 2560),
+   kernels at the shapes serving gives them (flash attention's bf16
+   tensor-core route at qwen1.5-4b's prefill, (4, 20, 2048, 128) causal,
+   and at 20 edge cases that cross every tile edge, through strided
+   (B, S, H, D) views, within 1 bf16 ulp of the plain value plus 1e-5,
+   with its ptxas line (registers, shared memory, spills: none allowed);
+   its f32 CUDA-core route at small cases with a window, without
+   causality, with Sq < Sk and at D 32, atol 3e-5, and timed at the qwen
+   shape on an earlier line; RMSNorm at (8192, 2560),
    (4, 2560) and (4096, 2048) bf16 within 1 bf16 ulp and (4096, 2048) f32
-   within 1e-5; WKV at (4, 1024, 32, 64) and at S = 1 within 2e-5),
+   within 1e-5, its ptxas spills none; WKV at (4, 1024, 32, 64) and at
+   S = 1 within 2e-5),
    beside the library calls ``F.scaled_dot_product_attention`` and
    ``F.rms_norm`` (timed only; the port never calls them);
 4. run the DCSGD-ASSS trainer (``repro_torch.launch.train``) on
@@ -43,8 +47,9 @@ Phases, each fatal on failure (no phase catches and continues):
 4d. serve at full width through ``repro_torch.launch.serve --full``,
    random weights from seed 0, batch 4, 16 tokens each (a prefill and
    15 decode steps), with the counts set to 0 just before each run and
-   read just after: qwen1.5-4b at ctx 2048 (40 flash-attention and
-   81 x 16 = 1296 RMSNorm launches, no other kernel), then rwkv6-1.6b at
+   read just after: qwen1.5-4b at ctx 2048 (40 flash-attention launches,
+   all through the bf16 tensor-core kernel, and 81 x 16 = 1296 RMSNorm
+   launches, no other kernel), then rwkv6-1.6b at
    ctx 1024 (24 x 16 = 384 WKV and 49 x 16 = 784 RMSNorm launches);
    finite logits; prefill seconds, decode ms per step, tokens per second
    and peak memory; then one profiled prefill and one profiled decode
@@ -100,15 +105,20 @@ SOURCES = {
     "threshold_split": "src/repro_torch/csrc/ef_topk.cu",
     "pack_words": "src/repro_torch/csrc/wire_pack.cu",
     "unpack_words": "src/repro_torch/csrc/wire_pack.cu",
-    "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+    # the bf16 route, the one serving takes and the kernels line times;
+    # f32 inputs take src/repro_torch/csrc/flash_attention.cu
+    "flash_attention": "src/repro_torch/csrc/flash_attention_sm90.cu",
     "rmsnorm": "src/repro_torch/csrc/rmsnorm.cu",
     "wkv_forward": "src/repro_torch/csrc/rwkv_wkv.cu",
 }
-#: serving at full width: (arch, ctx, launches of one run of 16 tokens)
+#: serving at full width: (arch, ctx, launches of one run of 16 tokens,
+#: the ``__global__`` names its prefill's trace must show)
 SERVE_RUNS = (("qwen1.5-4b", 2048, dict(flash_attention=40,
-                                        rmsnorm=81 * 16)),
+                                        rmsnorm=81 * 16),
+               ("flash_attention_sm90_kernel", "rmsnorm_kernel")),
               ("rwkv6-1.6b", 1024, dict(wkv_forward=24 * 16,
-                                        rmsnorm=49 * 16)))
+                                        rmsnorm=49 * 16),
+               ("wkv_forward_kernel", "rmsnorm_kernel")))
 SERVE_BATCH, SERVE_GEN = 4, 16
 
 
@@ -134,6 +144,21 @@ def time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, reps: int = 20) -> float:
+    """Device time of one call, from the profiler's kernel times over
+    ``reps`` calls: without the host's time before each launch, which
+    ``time_ms`` keeps (and a host-bound decode pays)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(getattr(e, "self_device_time_total", 0)
+               for e in prof.key_averages()) / reps / 1e3
+
+
 def max_ulp(a, b) -> int:
     ia = a.astype(np.float32).view(np.int32).astype(np.int64)
     ib = b.astype(np.float32).view(np.int32).astype(np.int64)
@@ -144,7 +169,8 @@ def max_ulp(a, b) -> int:
 PORTED = ("ef_stats_telemetry_kernel", "ef_block_stats_kernel",
           "block_stats_kernel", "ef_apply_kernel", "threshold_split_kernel",
           "pack_words_kernel", "unpack_words_kernel",
-          "flash_attention_kernel", "rmsnorm_kernel", "wkv_forward_kernel")
+          "flash_attention_kernel", "flash_attention_sm90_kernel",
+          "rmsnorm_kernel", "wkv_forward_kernel")
 
 
 def kernel_group(name: str) -> str:
@@ -489,6 +515,30 @@ def csgd_smoke(dev, steps: int = 3) -> None:
           f"{runs[1]}", flush=True)
 
 
+def ptxas_entries(name: str, kernels) -> list[tuple[str, int, int]]:
+    """(entry, registers, spill bytes) of each of the named kernels that
+    ``nvcc -Xptxas -v`` reported when it built ``csrc/<name>.cu``; entry
+    is the kernel's name and its template integers, e.g.
+    ``rmsnorm_kernel 10``."""
+    from repro_torch.kernels import _build
+    out, entry, spill = [], None, 0
+    for line in _build.build_log(name).splitlines():
+        m = re.search(rf"Compiling entry function '\w*?({'|'.join(kernels)})"
+                      r"(\w*)'", line)
+        if m:
+            entry = " ".join([m.group(1)] + re.findall(r"Li(\d+)E",
+                                                        m.group(2)))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            out.append((entry, int(m.group(1)), spill))
+            entry, spill = None, 0
+    return out
+
+
 def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
     """Largest distance in bf16 steps between two bf16 tensors of one
     sign pattern (their int16 bit patterns are monotone per sign)."""
@@ -512,7 +562,7 @@ def check_serving_kernels(dev, report) -> None:
     the card at the shapes serving gives it, timed beside its bound and,
     where one exists, the library call computing the same function."""
     import torch.nn.functional as F_
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import _build, ref
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.rmsnorm import rmsnorm
     from repro_torch.kernels.rwkv_wkv import wkv_forward
@@ -522,11 +572,49 @@ def check_serving_kernels(dev, report) -> None:
         return (torch.randn(shape, generator=gen, device=dev)
                 * scale).to(dtype)
 
-    # flash attention: qwen1.5-4b prefill, the transposed (B, S, H, D)
-    # views the model hands over
+    # flash attention, bf16 (the tensor-core route): qwen1.5-4b prefill
+    # and the edge cases, through the transposed (B, S, H, D) views the
+    # model hands over
+    flash = ptxas_entries("flash_attention_sm90",
+                          ["flash_attention_sm90_kernel"])
+    norm = ptxas_entries("rmsnorm", ["rmsnorm_stream_kernel",
+                                     "rmsnorm_kernel"])
+    for name, entries in (("flash_attention_sm90", flash), ("rmsnorm", norm)):
+        if not entries or any(spill for _, _, spill in entries):
+            fail(f"csrc/{name}.cu: ptxas reported spills, or no kernel: "
+                 f"{entries}")
+    smem = _build.load("flash_attention_sm90").flash_attention_sm90_smem_bytes
+    for entry, regs, _ in flash:
+        print(f"ptxas {entry}: {regs} registers, "
+              f"{smem(int(entry.split()[-1]))} bytes of dynamic shared "
+              "memory, no spills", flush=True)
+    print(f"ptxas rmsnorm: {len(norm)} kernels, no spills, "
+          f"{min(r for _, r, _ in norm)}-{max(r for _, r, _ in norm)} "
+          f"registers; {[r for e, r, _ in norm if e == 'rmsnorm_kernel 10']}"
+          " at 10 chunks a lane (D 2560)", flush=True)
+
+    def bshd(b, h, s, d):
+        return randn(b, s, h, d, dtype=torch.bfloat16).transpose(1, 2)
+
+    edge_ulps = []
+    for (b, h, sq, sk, d) in ((1, 2, 1, 70, 64), (2, 3, 100, 100, 64),
+                              (1, 2, 37, 150, 128), (2, 2, 300, 300, 32),
+                              (1, 4, 77, 333, 128)):
+        qs, ks, vs = bshd(b, h, sq, d), bshd(b, h, sk, d), bshd(b, h, sk, d)
+        for causal in (True, False):
+            for window in (None, 64):
+                e = bf16_ulp_err(
+                    flash_attention(qs, ks, vs, causal=causal,
+                                    window=window),
+                    ref.mha_reference(qs, ks, vs, causal=causal,
+                                      window=window), 1e-5)
+                edge_ulps.append(e)
+                if not e <= 1:
+                    fail(f"flash_attention bf16 {(b, h, sq, sk, d)} causal="
+                         f"{causal} window={window} is {e} bf16 ulp (beyond"
+                         " 1e-5) from the plain version (limit 1)")
     B, H, S, D = 4, 20, 2048, 128
-    q, k, v = (randn(B, S, H, D, dtype=torch.bfloat16).transpose(1, 2)
-               for _ in range(3))
+    q, k, v = bshd(B, H, S, D), bshd(B, H, S, D), bshd(B, H, S, D)
     got = flash_attention(q, k, v, causal=True)
     want = ref.mha_reference(q, k, v, causal=True)
     err = float((got.float() - want.float()).abs().max())
@@ -534,6 +622,9 @@ def check_serving_kernels(dev, report) -> None:
     if not ulps <= 1:
         fail(f"flash_attention (4, 20, 2048, 128) bf16 is {ulps} bf16 ulp "
              "(beyond 1e-5) from the plain version (limit 1)")
+    print(f"flash_attention bf16: {len(edge_ulps)} edge cases within "
+          f"{max(edge_ulps):.3f} bf16 ulp, (4, 20, 2048, 128) causal "
+          f"{ulps:.3f}", flush=True)
     small_errs = []
     for (b, h, sq, sk, d), causal, window in (
             ((2, 3, 300, 300, 128), True, 64),
@@ -551,6 +642,13 @@ def check_serving_kernels(dev, report) -> None:
             fail(f"flash_attention f32 {(b, h, sq, sk, d)} causal={causal} "
                  f"window={window} is {e} from the plain version (3e-5)")
     pairs = B * H * S * (S + 1) // 2
+    qf, kf, vf = q.float(), k.float(), v.float()
+    f32_ms = time_ms(lambda: flash_attention(qf, kf, vf, causal=True), reps=5)
+    print(f"flash_attention f32 route (CUDA cores) at (4, 20, 2048, 128) "
+          f"causal: {f32_ms:.4f} ms (bound "
+          f"{4 * D * pairs / F32_OPS_PER_S * 1e3:.4f} ms at 67 TFLOP/s)",
+          flush=True)
+    del qf, kf, vf
     report["flash_attention"] = dict(
         max_abs_err=err,
         ms=time_ms(lambda: flash_attention(q, k, v, causal=True)),
@@ -561,6 +659,14 @@ def check_serving_kernels(dev, report) -> None:
         ops_per_s=BF16_OPS_PER_S,
         note=f"(4, 20, 2048, 128) bf16 causal, {ulps:.3f} bf16 ulp; f32 "
              f"cases max err {max(small_errs):.2e}")
+    r = report["flash_attention"]
+    dev_ms = device_ms(lambda: flash_attention(q, k, v, causal=True))
+    dev_lib = device_ms(lambda: F_.scaled_dot_product_attention(
+        q, k, v, is_causal=True))
+    print(f"flash_attention bf16 {r['ms']:.4f} ms is "
+          f"{r['ms'] / r['library_ms']:.2f}x F.scaled_dot_product_attention's"
+          f" {r['library_ms']:.4f} ms; device only (profiler) {dev_ms:.4f} "
+          f"and {dev_lib:.4f} ms", flush=True)
     del q, k, v, got, want
 
     # RMSNorm: qwen1.5-4b prefill and decode rows, rwkv6-1.6b prefill rows
@@ -585,6 +691,10 @@ def check_serving_kernels(dev, report) -> None:
                      "version (atol 1e-5)")
     x, w = randn(8192, 2560, dtype=torch.bfloat16), \
         randn(2560, dtype=torch.bfloat16)
+    print(f"rmsnorm (8192, 2560) bf16 device only (profiler): "
+          f"{device_ms(lambda: rmsnorm(x, w, 1e-5)):.4f} ms, F.rms_norm "
+          f"{device_ms(lambda: F_.rms_norm(x, (2560,), w, 1e-5)):.4f} ms",
+          flush=True)
     report["rmsnorm"] = dict(
         max_abs_err=errs[(8192, 2560, "bf16")],
         ms=time_ms(lambda: rmsnorm(x, w, 1e-5)),
@@ -639,7 +749,7 @@ def profile_serving(dev, arch, ctx, kernels_of_path) -> None:
             params, tok, cache, ctx + 1))
         report_profile(f"{arch} decode", prof, wall,
                        [k for k in kernels_of_path
-                        if k != "flash_attention_kernel"])
+                        if not k.startswith("flash_attention")])
     del model, params, prompt, logits, cache
     torch.cuda.empty_cache()
 
@@ -650,7 +760,7 @@ def run_serving(dev) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     counts_of = {}
-    for arch, ctx, want in SERVE_RUNS:
+    for arch, ctx, want, traced in SERVE_RUNS:
         ops.reset_launch_counts()
         res = serve.main(["--arch", arch, "--full", "--batch",
                           str(SERVE_BATCH), "--ctx", str(ctx), "--gen",
@@ -672,7 +782,7 @@ def run_serving(dev) -> dict:
                  "non-finite logits")
         del res
         torch.cuda.empty_cache()
-        profile_serving(dev, arch, ctx, [f"{k}_kernel" for k in want])
+        profile_serving(dev, arch, ctx, traced)
     return counts_of
 
 
@@ -680,7 +790,7 @@ def serve_smoke(dev) -> None:
     """Phase 5c: both smoke serve configs on the card (kernels) and on the
     CPU (plain versions): equal tokens, logits within 1e-4 of max."""
     from repro_torch.launch import serve
-    for arch, _, _ in SERVE_RUNS:
+    for arch, _, _, _ in SERVE_RUNS:
         args = ["--arch", arch, "--smoke", "--batch", "2", "--ctx", "96",
                 "--gen", "4"]
         card, cpu = serve.main(args), serve.main(args + ["--device", "cpu"])

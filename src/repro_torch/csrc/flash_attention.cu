@@ -1,26 +1,23 @@
-// Flash-attention forward for Hopper (sm_90a).
+// Flash-attention forward for f32 on Hopper's CUDA cores (sm_90a).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
-// (flash_attention, body _flash_kernel): for q (B, H, Sq, D) and k, v
-// (B, H, Sk, D), queries at absolute positions q_offset + i with
-// q_offset = Sk - Sq,
+// (flash_attention, body _flash_kernel) for f32 inputs: for q (B, H, Sq,
+// D) and k, v (B, H, Sk, D), queries at absolute positions q_offset + i
+// with q_offset = Sk - Sq,
 //     o = softmax(mask((q * scale) k^T)) v
 // with an online softmax over KV tiles: running max m, denominator l and
 // a (BQ, D) accumulator in f32, o = acc / max(l, 1e-30).  Masking is the
 // TPU kernel's: kpos < Sk, causal kpos <= qpos, window kpos > qpos -
 // window, masked logits set to NEG_INF = -1e30; KV tiles wholly outside
 // the causal/window band of a query tile are skipped by the loop bounds.
-// q * scale is formed in f32 before the product, as on the TPU.  Inputs
-// are f32 or bf16; all arithmetic is f32; o is written in q's type.
+// q * scale is formed in f32 before the product, as on the TPU.  bf16
+// inputs take flash_attention_sm90.cu (tensor cores); f32 stays here,
+// because no tensor-core format holds f32 operands exactly, and the f32
+// smoke serving runs compare the card's greedy tokens with the CPU's.
 //
-// Bound: at qwen1.5-4b prefill (4, 20, 2048, 128) bf16 causal the work
-// is 86 GFLOP of products (4 D FLOPs for each of the Sq (Sq + 1) / 2
-// query-key pairs of the causal band, per (b, h)) against 168 MB of q,
-// k, v and o: 0.087 ms at the 989 TFLOP/s of the bf16 tensor cores,
-// 0.050 ms at 3.35 TB/s, so it is bound by operations.  This first
-// kernel does not reach the tensor cores: it computes in f32 on the CUDA
-// cores (67 TFLOP/s peak), so it cannot come within 15x of that bound;
-// wgmma tiles are the later redesign.
+// Bound: operations.  At the f32 check shape (2, 3, 300, 300, 128)
+// causal the products are 4 D FLOPs for each query-key pair of the band
+// on the CUDA cores, at most 67 TFLOP/s.
 //
 // Design: one block of 128 threads per (b*h, tile of BQ = 64 queries).
 // Each query row belongs to two lanes of one warp (lanes l and l ^ 16),
@@ -28,15 +25,13 @@
 // memory, its half of the accumulator in registers, and the two partial
 // dot products of a logit are summed with one shuffle, so both lanes
 // hold identical logits and softmax state.  K and V tiles of BK = 32
-// rows are converted to f32 in shared memory once per block.  The
-// layout is read through strides: q, k, v and o may be transposed views
-// of (B, S, H, D) tensors, as the model hands them over, with the last
-// axis contiguous.  Heavy causal tiles (late queries) are scheduled
-// first.
+// rows are copied to shared memory once per block.  The layout is read
+// through strides: q, k, v and o may be transposed views of (B, S, H,
+// D) tensors, as the model hands them over, with the last axis
+// contiguous.  Heavy causal tiles (late queries) are scheduled first.
 //
 // The entry point returns cudaGetLastError() after its launch.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -52,24 +47,8 @@ __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-  const float2 a = __bfloat1622float2(h[0]);
-  const float2 b = __bfloat1622float2(h[1]);
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  uint2 raw;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
-  h[0] = __floats2bfloat162_rn(v.x, v.y);
-  h[1] = __floats2bfloat162_rn(v.z, v.w);
-  *reinterpret_cast<uint2*>(p) = raw;
 }
 
 struct Strides {
@@ -247,18 +226,15 @@ extern "C" {
 
 // q, o: (B, H, Sq, D); k, v: (B, H, Sk, D); strides: 12 element strides,
 // (b, h, s) of q, k, v and o in turn (the last axis contiguous).  D is
-// 32, 64 or 128; window 0 means no window.  bf16: 1 for bf16, 0 for f32.
+// 32, 64 or 128; window 0 means no window.  All four are f32.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, const long long* strides, int batch,
                            int n_heads, int sq, int sk, int d, float scale,
-                           int causal, int window, int bf16, void* stream) {
+                           int causal, int window, void* stream) {
   if (batch <= 0 || n_heads <= 0 || sq <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_d<__nv_bfloat16>(d, q, k, v, o, strides, batch,
-                                        n_heads, sq, sk, scale, causal,
-                                        window, s)
-              : launch_d<float>(d, q, k, v, o, strides, batch, n_heads, sq,
-                                sk, scale, causal, window, s);
+  return launch_d<float>(d, q, k, v, o, strides, batch, n_heads, sq, sk,
+                         scale, causal, window,
+                         static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -23,8 +23,8 @@ import torch
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("ef_topk", "wire_pack", "flash_attention", "rmsnorm",
-           "rwkv_wkv")
+SOURCES = ("ef_topk", "wire_pack", "flash_attention",
+           "flash_attention_sm90", "rmsnorm", "rwkv_wkv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -48,7 +48,12 @@ SIGNATURES = {
     },
     "flash_attention": {
         "flash_attention_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                   _F, _I, _I, _I, _P),
+                                   _F, _I, _I, _P),
+    },
+    "flash_attention_sm90": {
+        "flash_attention_sm90_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                        _I, _F, _I, _I, _P),
+        "flash_attention_sm90_smem_bytes": (_I,),
     },
     "rmsnorm": {
         "rmsnorm_launch": (_P, _P, _P, _LL, _I, _F, _I, _I, _P),
@@ -134,7 +139,16 @@ def check(err: int, what: str) -> None:
 
 def stream(t: torch.Tensor) -> int:
     """The handle of the current CUDA stream on ``t``'s device."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return raw_stream(t.get_device())
+
+
+def raw_stream(device_index: int) -> int:
+    """The handle of the current CUDA stream on a device, read through
+    the raw getter that PyTorch's own Triton launchers use:
+    ``torch.cuda.current_stream`` builds a Stream object first, about ten
+    times the host time, and serving's decode is bound by the host's
+    launches."""
+    return torch._C._cuda_getCurrentRawStream(device_index)
 
 
 def check_no_grad(name: str, *ts: torch.Tensor) -> None:

@@ -1,17 +1,21 @@
-"""Wrapper of the flash-attention forward CUDA kernel
-(``csrc/flash_attention.cu``).
+"""Wrapper of the flash-attention forward CUDA kernels.
 
 Twin of ``src/repro/kernels/flash_attention.py``: online-softmax attention
 over KV tiles, causal and/or sliding window, queries at the trailing
-positions (offset Sk - Sq), f32 accumulation, ``q * scale`` formed before
-the product, output in q's type.  The kernel reads q, k and v through
-their strides, so the transposed (B, S, H, D) views the model hands over
-are taken as they are, without a copy; only the last axis must be
-contiguous.  The output is allocated in the (B, Sq, H, D) layout and
-returned as its (B, H, Sq, D) view, so the model's transpose back is
-free too.  The wrapper checks its tensors, launches on the current
-stream without synchronising, raises on a launch error and counts its
-launches in ``flash_attention.launches``.  The plain version is
+positions (offset Sk - Sq), f32 accumulation, output in q's type.  The
+route is chosen by dtype, explicitly: bf16 takes the tensor-core kernel
+(``csrc/flash_attention_sm90.cu``: wgmma products, TMA loads, the scale
+applied to the f32 logits), f32 the CUDA-core kernel
+(``csrc/flash_attention.cu``: exact f32 products, ``q * scale`` formed
+before them).  Both count in ``flash_attention.launches``; a failure to
+build or launch either raises, with no fallback.  The kernels read q, k
+and v through their strides, so the transposed (B, S, H, D) views the
+model hands over are taken as they are, without a copy; only the last
+axis must be contiguous.  The output is allocated in the (B, Sq, H, D)
+layout and returned as its (B, H, Sq, D) view, so the model's transpose
+back is free too.  The wrapper checks its tensors, launches on the
+current stream without synchronising and raises on a launch error.  The
+plain version is
 :func:`repro_torch.kernels.ref.mha_reference`.
 """
 from __future__ import annotations
@@ -65,10 +69,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       device=q.device).transpose(1, 2)
     strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out)
                                          for s in t.stride()[:3]))
-    err = _build.load("flash_attention").flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
-        B, H, Sq, Sk, D, 1.0 / (D ** 0.5), int(causal), int(window or 0),
-        int(q.dtype == torch.bfloat16), _build.stream(q))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            strides, B, H, Sq, Sk, D, 1.0 / (D ** 0.5), int(causal),
+            int(window or 0))
+    if q.dtype == torch.bfloat16:
+        err = _build.load("flash_attention_sm90").flash_attention_sm90_launch(
+            *args, _build.stream(q))
+    else:                                   # f32, as _check leaves it
+        err = _build.load("flash_attention").flash_attention_launch(
+            *args, _build.stream(q))
     _build.check(err, "flash_attention")
     flash_attention.launches += 1
     return out

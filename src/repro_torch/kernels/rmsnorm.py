@@ -18,28 +18,31 @@ _DTYPES = (torch.float32, torch.bfloat16)
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6):
     """x: (rows, D) contiguous f32/bf16 CUDA tensor, D a multiple of 8;
-    w: (D,) f32/bf16 on the same card.  Returns y like x."""
-    if x.device.type != "cuda" or x.dtype not in _DTYPES or x.dim() != 2 \
-            or not x.is_contiguous() or x.shape[1] % 8 \
-            or x.data_ptr() % 16:
+    w: (D,) f32/bf16 on the same card.  Returns y like x.  Each tensor
+    property is read once: at decode the host's time per launch is the
+    step's time."""
+    x_ptr, w_ptr, xdt, wdt, shape = (x.data_ptr(), w.data_ptr(), x.dtype,
+                                     w.dtype, x.shape)
+    dev = x.get_device()
+    if not x.is_cuda or xdt not in _DTYPES or len(shape) != 2 \
+            or shape[1] % 8 or x_ptr % 16 or not x.is_contiguous():
         raise ValueError(f"rmsnorm: want a contiguous 16-byte aligned "
                          f"f32/bf16 CUDA (rows, D) tensor with D a multiple "
-                         f"of 8, got {x.dtype} {tuple(x.shape)} on "
-                         f"{x.device}")
-    D = x.shape[1]
-    if w.device != x.device or w.dtype not in _DTYPES \
-            or tuple(w.shape) != (D,) or not w.is_contiguous() \
-            or w.data_ptr() % 16:
+                         f"of 8, got {xdt} {tuple(shape)} on {x.device}")
+    rows, D = shape
+    if not w.is_cuda or w.get_device() != dev or wdt not in _DTYPES \
+            or w.shape != (D,) or w_ptr % 16 or not w.is_contiguous():
         raise ValueError(f"rmsnorm: w must be a contiguous ({D},) f32/bf16 "
-                         f"tensor on {x.device}, got {w.dtype} "
+                         f"tensor on {x.device}, got {wdt} "
                          f"{tuple(w.shape)} on {w.device}")
-    _build.check_no_grad("rmsnorm", x, w)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        _build.check_no_grad("rmsnorm", x, w)      # raises
     y = torch.empty_like(x)
     err = _build.load("rmsnorm").rmsnorm_launch(
-        x.data_ptr(), w.data_ptr(), y.data_ptr(), x.shape[0], D, float(eps),
-        int(x.dtype == torch.bfloat16), int(w.dtype == torch.bfloat16),
-        _build.stream(x))
-    _build.check(err, "rmsnorm")
+        x_ptr, w_ptr, y.data_ptr(), rows, D, eps, xdt is torch.bfloat16,
+        wdt is torch.bfloat16, _build.raw_stream(dev))
+    if err:
+        _build.check(err, "rmsnorm")               # raises
     rmsnorm.launches += 1
     return y
 

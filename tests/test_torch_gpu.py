@@ -8,10 +8,12 @@ Tolerances: bit-exact (tau NaN where the plain version gives NaN),
 except the pass-1 moments (8 ulp: the kernel sums in f64 and rounds once,
 the plain version sums in f32) and the serving kernels, which sum in
 another order than their plain versions: flash attention atol 3e-5 in
-f32 and, in bf16, 1 bf16 ulp of the plain value plus 1e-5 (the f32
-sums' difference near zero), RMSNorm atol 1e-5 in f32 and 1 bf16 ulp,
-the WKV recurrence atol 2e-5.
+f32 (the CUDA-core kernel) and, in bf16 (the tensor-core kernel), 1 bf16
+ulp of the plain value plus 1e-5 (the f32 sums' difference near zero),
+RMSNorm atol 1e-5 in f32 and 1 bf16 ulp, the WKV recurrence atol 2e-5.
 """
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -140,12 +142,7 @@ def _bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((ia - ib).abs().max())
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(8, 128), (200, 256), (21, 512),
-                                   (4, 2560)])
-@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("wdt", [torch.float32, torch.bfloat16])
-def test_rmsnorm_kernel_matches_plain_on_card(cuda, shape, xdt, wdt):
+def _check_rmsnorm(cuda, shape, xdt, wdt):
     rng = np.random.default_rng(shape[0])
     x = torch.from_numpy(rng.standard_normal(shape).astype(
         np.float32)).to(cuda, xdt)
@@ -158,6 +155,15 @@ def test_rmsnorm_kernel_matches_plain_on_card(cuda, shape, xdt, wdt):
         torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
     else:
         assert _bf16_ulps(got, want) <= 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(8, 128), (200, 256), (21, 512),
+                                   (4, 2560)])
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("wdt", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_matches_plain_on_card(cuda, shape, xdt, wdt):
+    _check_rmsnorm(cuda, shape, xdt, wdt)
 
 
 def _bf16_ulp_err(got: torch.Tensor, want: torch.Tensor,
@@ -207,6 +213,78 @@ def test_flash_attention_kernel_bf16_strided_on_card(cuda, D):
     got = flash_attention(q, k, v, causal=True)
     want = ref.mha_reference(q, k, v, causal=True)
     assert _bf16_ulp_err(got, want, 1e-5) <= 1
+
+
+def _bshd_views(seed, B, H, Sq, Sk, D, cuda):
+    """bf16 q, k, v as the model hands them over: (B, H, S, D) views of
+    (B, S, H, D) tensors."""
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal((B, S, H, D)).astype(
+        np.float32)).to(cuda, torch.bfloat16).transpose(1, 2)
+        for S in (Sq, Sk, Sk)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,Sq,Sk,D", [(1, 2, 1, 70, 64),
+                                         (2, 3, 100, 100, 64),
+                                         (1, 2, 37, 150, 128),
+                                         (2, 2, 300, 300, 32),
+                                         (1, 4, 77, 333, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("window", [None, 64])
+def test_flash_attention_tensor_core_route_matches_plain_on_card(
+        cuda, B, H, Sq, Sk, D, causal, window):
+    """The bf16 route (wgmma, TMA) at shapes that cross every tile edge:
+    Sq and Sk off the 128-query and 64-key tiles, Sq < Sk, one query."""
+    q, k, v = _bshd_views(Sq * 7 + Sk, B, H, Sq, Sk, D, cuda)
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.mha_reference(q, k, v, causal=causal, window=window)
+    assert got.dtype == torch.bfloat16
+    assert _bf16_ulp_err(got, want, 1e-5) <= 1
+
+
+@pytest.mark.gpu
+def test_flash_attention_tensor_core_route_takes_broadcast_heads(cuda):
+    """k and v broadcast over heads (head stride 0) and over a size-1
+    batch: the tensor maps read those axes at coordinate 0."""
+    q, k, v = _bshd_views(5, 2, 4, 90, 90, 128, cuda)
+    kb, vb = (t[:1, :1].expand(2, 4, 90, 128) for t in (k, v))
+    assert kb.stride(1) == 0 and kb.stride(0) == 0
+    got = flash_attention(q, kb, vb, causal=True)
+    want = ref.mha_reference(q, kb, vb, causal=True)
+    assert _bf16_ulp_err(got, want, 1e-5) <= 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,kernel", [
+    (torch.float32, "flash_attention_kernel"),
+    (torch.bfloat16, "flash_attention_sm90_kernel")])
+def test_flash_attention_route_follows_dtype_on_card(cuda, dtype, kernel):
+    """f32 launches the CUDA-core kernel, bf16 the tensor-core one; both
+    count in flash_attention.launches."""
+    q, k, v = _qkv(3, 1, 2, 64, 64, 64, dtype, cuda)
+    flash_attention(q, k, v)                    # built and loaded
+    before = flash_attention.launches
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        flash_attention(q, k, v)
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages()}
+    ran = {n for n in ("flash_attention_kernel", "flash_attention_sm90_kernel")
+           if any(re.search(rf"\b{n}\b", key) for key in names)}
+    assert ran == {kernel}, names
+    assert flash_attention.launches == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [2056, 5120])
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("wdt", [torch.float32, torch.bfloat16])
+def test_rmsnorm_wide_rows_match_plain_on_card(cuda, d, xdt, wdt):
+    """D = 2056 (a multiple of 8, not of 256: lanes hold unequal chunk
+    counts) in registers, and D = 5120, past the register path's 4096,
+    through the streaming kernel."""
+    _check_rmsnorm(cuda, (37, d), xdt, wdt)
 
 
 @pytest.mark.gpu

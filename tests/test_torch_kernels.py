@@ -339,6 +339,65 @@ def test_attention_plain_bf16_matches_jax_oracle():
     _assert_bf16_within_1ulp(want, got)
 
 
+def _emulate_tensor_core_flash(q, k, v, causal, split_p, tile=64):
+    """The bf16 tensor-core kernel's rounding in plain torch: f32 logits
+    of the bf16 products, scaled after the product (times log2 e, for
+    exp2), an online softmax over 64-key tiles, P rounded to bf16 once
+    (P_hi) or as P_hi + P_lo, f32 accumulation, o = acc / l in bf16."""
+    D, Sq, Sk = q.shape[-1], q.shape[2], k.shape[2]
+    s_all = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (
+        D ** -0.5 * 1.4426950408889634)
+    if causal:
+        qpos = torch.arange(Sq)[:, None] + (Sk - Sq)
+        s_all = torch.where(torch.arange(Sk)[None] <= qpos, s_all,
+                            torch.tensor(-1e30))
+    m = torch.full(s_all.shape[:-1], -1e30)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(*s_all.shape[:-1], D)
+    for t0 in range(0, Sk, tile):
+        s, vt = s_all[..., t0:t0 + tile], v[:, :, t0:t0 + tile].float()
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        p_hi = p.bfloat16().float()
+        acc = acc * alpha[..., None] + p_hi @ vt
+        if split_p:
+            acc = acc + (p - p_hi).bfloat16().float() @ vt
+        m = m_new
+    return (acc / l.clamp(min=1e-30)[..., None]).bfloat16()
+
+
+def _bf16_ulp_err(got, want, atol):
+    """Largest |got - want| in bf16 ulps of |want|, once atol is taken
+    off (the check chip_smoke.py and test_torch_gpu.py apply)."""
+    w = want.float()
+    ulp = torch.ldexp(torch.ones_like(w),
+                      torch.frexp(w.abs().clamp(min=atol)).exponent - 8)
+    return float(((got.float() - w).abs() - atol).clamp(min=0).div(ulp)
+                 .max())
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_split_p_rounding_holds_the_bf16_flash_check(causal):
+    """Why the bf16 flash kernel splits P: with P = P_hi + P_lo its
+    rounding stays within 1 bf16 ulp + 1e-5 of the plain version at
+    (1, 2, 512, 512, 128); rounding P once is reported, not asserted
+    (thousands of ulps for outputs near zero)."""
+    rng = np.random.default_rng(15)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, 512, 128))
+                                .astype(np.float32)).bfloat16()
+               for _ in range(3))
+    want = ref.mha_reference(q, k, v, causal=causal)
+    split = _bf16_ulp_err(_emulate_tensor_core_flash(q, k, v, causal, True),
+                          want, 1e-5)
+    once = _bf16_ulp_err(_emulate_tensor_core_flash(q, k, v, causal, False),
+                         want, 1e-5)
+    print(f"causal={causal}: P split {split:.3f} bf16 ulp, P rounded once "
+          f"{once:.1f} bf16 ulp (beyond 1e-5)")
+    assert split <= 1
+
+
 @pytest.mark.parametrize("S", [1, 8, 33])
 @pytest.mark.parametrize("K", [8, 64])
 def test_wkv_plain_matches_jax_oracle(S, K):
