@@ -28,7 +28,7 @@ Phases, each fatal on failure (no phase catches and continues):
    shape on an earlier line; RMSNorm at (8192, 2560),
    (4, 2560) and (4096, 2048) bf16 within 1 bf16 ulp and (4096, 2048) f32
    within 1e-5, its ptxas spills none; WKV at (4, 1024, 32, 64) and at
-   S = 1 within 2e-5),
+   S = 1 within 2e-5, timed at both, its ptxas spills none),
    beside the library calls ``F.scaled_dot_product_attention`` and
    ``F.rms_norm`` (timed only; the port never calls them);
 4. run the DCSGD-ASSS trainer (``repro_torch.launch.train``) on
@@ -706,12 +706,21 @@ def check_serving_kernels(dev, report) -> None:
     del x, w
 
     # WKV: rwkv6-1.6b prefill and one decode step
+    wkv = ptxas_entries("rwkv_wkv", ["wkv_forward_kernel"])
+    if not wkv or any(spill for _, _, spill in wkv):
+        fail(f"csrc/rwkv_wkv.cu: ptxas reported spills, or no kernel: {wkv}")
+    smem = _build.load("rwkv_wkv").wkv_forward_smem_bytes
+    for entry, regs, _ in wkv:
+        print(f"ptxas {entry}: {regs} registers, "
+              f"{smem(int(entry.split()[-1]))} bytes of dynamic shared "
+              "memory, no spills", flush=True)
     B, S, H, K = 4, 1024, 32, 64
 
     def wkv_inputs(s):
         return (randn(B, s, H, K, scale=0.3), randn(B, s, H, K, scale=0.3),
                 randn(B, s, H, K), torch.sigmoid(randn(B, s, H, K)),
                 randn(H, K, scale=0.1), randn(B, H, K, K, scale=0.1))
+    wkv_ms, wkv_err = {}, {}
     for s_len in (1, S):
         args = wkv_inputs(s_len)
         y, sT = wkv_forward(*args)
@@ -720,8 +729,15 @@ def check_serving_kernels(dev, report) -> None:
         if not e <= 2e-5:
             fail(f"wkv_forward at S={s_len} is {e} from the plain version "
                  "(atol 2e-5)")
+        wkv_ms[s_len], wkv_err[s_len] = time_ms(
+            lambda: wkv_forward(*args)), e
+    print(f"wkv_forward (4, S, 32, 64) f32: S = 1 (a decode step) "
+          f"{wkv_ms[1]:.4f} ms (max err {wkv_err[1]:.2e}), S = 1024 "
+          f"{wkv_ms[S]:.4f} ms (max err {wkv_err[S]:.2e}), device only "
+          f"(profiler) {device_ms(lambda: wkv_forward(*args)):.4f} ms",
+          flush=True)
     report["wkv_forward"] = dict(
-        max_abs_err=e, ms=time_ms(lambda: wkv_forward(*args)),
+        max_abs_err=e, ms=wkv_ms[S],
         plain_ms=time_ms(lambda: ref.wkv_reference(*args)),
         library_ms=None,
         bytes=(5 * B * S * H * K + 2 * B * H * K * K + H * K) * 4,

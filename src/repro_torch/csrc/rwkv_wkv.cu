@@ -14,20 +14,42 @@
 // state element per step (r S, one multiply-add; w S + k^T v, a multiply
 // and a multiply-add), the u term being a scalar per step, (sum_k r u
 // k) v: 2.73 GFLOP, 0.041 ms at the 67 TFLOP/s of f32, so bytes bound
-// it.  The recurrence is serial in t, so the card runs only B x H =
-// 128 blocks of 64 threads on its 132 SMs, one short dependent chain per
-// step: the kernel is bound by that latency, far from either bound, and
-// a chunked (parallel-in-t) form is the later redesign.
+// it.  The recurrence is serial in t, so what is left to spread over the
+// card is the state: B x H x K x V elements (524,288 at that shape),
+// each updated independently of the others once a step.
 //
-// Design: one block per (b, h), one thread per value column v, holding
-// the state column S[:, v] (K values) in registers.  Chunks of 32 steps
-// of r, k, w and v are staged in shared memory with coalesced loads, so
-// the walk over t reads them as broadcasts; y_t is written by the V
-// threads together (one coalesced row per step).  The sum over k of y_t
-// runs in four interleaved partial sums to shorten the dependent chain;
-// it is another order than the plain version's, so the two agree to
-// rounding, not bit for bit.  Each state update is one fused
-// multiply-add.
+// Design: parallel over the state, serial in t.
+// - A thread owns a kRows x kVpt tile of one head's state (8 rows of 2
+//   value columns), in registers with its slice of u.  Its
+//   rows are those of the 16-byte chunks p, p + P, p + 2P, ... of a row
+//   of r, k, w (lane p of the P = K / kRows lanes that share a column).
+//   Each state value is updated by one fmaf(w, S, k v) a step.
+// - A block holds kCols value columns of one head, P x kCols / kVpt
+//   threads; the grid is (B x H, ceil(V / kCols)).  At (4, 1024, 32, 64)
+//   that is 128 blocks of 256 threads, one on each of 128 SMs.  A warp
+//   holds 32 column tiles of one lane, so each of its loads of r, k and
+//   w is one address read by every thread (a broadcast), and the lanes
+//   of a column sit in different warps.
+// - The r, k and w of kChunk steps (kChunk x K each) and v (kChunk x
+//   kCols) are staged in shared memory by cp.async 16-byte copies (4-byte
+//   ones when a pointer or V is not 16-byte aligned), double-buffered:
+//   chunk c + 1 is in flight while chunk c is computed.  Within a chunk a
+//   thread reads step t + 1's inputs into registers while it computes
+//   step t.
+// - Per step a thread forms its partial y of each column (four partial
+//   sums, one per row of a chunk, added pairwise) and leaves it in shared
+//   memory, so the walk over t waits on nothing but the state.  At the
+//   chunk's end the block adds the lanes' partials as a tree (lanes p
+//   and p + P / 2 first, down to neighbours) and writes y as coalesced
+//   rows.  Adding them per step with __shfl_xor_sync would put the
+//   shuffles' latency on every step, and would need a column's lanes
+//   side by side in a warp, whose loads then read P addresses, not one.
+// - No tensor cores: a chunked, parallel-in-t form needs decay products
+//   over a chunk (with w = sigmoid(N(0, 1)) they under- and overflow f32
+//   within 32 steps), and TF32 products carry ~5e-4 relative error
+//   against the check's atol of 2e-5.
+// The y sum runs in another order than the plain version's, so the two
+// agree to rounding, not bit for bit.
 //
 // The entry point returns cudaGetLastError() after its launch.
 
@@ -36,94 +58,265 @@
 
 namespace {
 
-constexpr int kChunk = 32;      // time steps staged per pass
+constexpr int kRows = 8;                   // state rows a thread owns
+constexpr int kVpt = 2;                    // value columns a thread owns
+constexpr int kCols = 64;                  // value columns per block
+constexpr int kChunk = 32;                 // time steps per stage
+constexpr int kUnroll = 4;                 // steps unrolled in the walk
 constexpr int kMaxV = 1024;
+static_assert(kRows % 4 == 0, "rows in 16-byte chunks");
+static_assert(kVpt == 2 && kCols % 4 == 0,
+              "float2 tiles of v, 16-byte rows of v");
+
+// lanes that share a value column, and threads per block, at key width K
+template <int K>
+__host__ __device__ constexpr int lanes() { return K / kRows; }
+template <int K>
+__host__ __device__ constexpr int threads() {
+  return lanes<K>() * (kCols / kVpt);
+}
+
+// floats of one stage: r, k, w (kChunk x K each), v (kChunk x kCols)
+template <int K>
+__host__ __device__ constexpr int stage_floats() {
+  return kChunk * (3 * K + kCols);
+}
+
+// two stages, then each lane's partial y of a chunk: [kChunk][lanes][kCols]
+template <int K>
+constexpr int smem_bytes() {
+  return (2 * stage_floats<K>() + kChunk * kCols * lanes<K>()) *
+         (int)sizeof(float);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+// 4 floats, in one 16-byte copy or four 4-byte ones
+__device__ __forceinline__ void copy4(float* dst, const float* src,
+                                      bool vec) {
+  if (vec) {
+    cp_async16(dst, src);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) cp_async4(dst + e, src + e);
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 template <int K>
-__global__ void wkv_forward_kernel(const float* __restrict__ r,
-                                   const float* __restrict__ k,
-                                   const float* __restrict__ v,
-                                   const float* __restrict__ w,
-                                   const float* __restrict__ u,
-                                   const float* __restrict__ s0,
-                                   float* __restrict__ y,
-                                   float* __restrict__ sT, int seq,
-                                   int n_heads, int V) {
-  extern __shared__ float smem[];
-  float* r_s = smem;                     // [kChunk][K]
-  float* k_s = r_s + kChunk * K;
-  float* w_s = k_s + kChunk * K;
-  float* u_s = w_s + kChunk * K;         // [K]
-  float* v_s = u_s + K;                  // [kChunk][V]
+__global__ void __launch_bounds__(threads<K>())
+    wkv_forward_kernel(const float* __restrict__ r,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v,
+                       const float* __restrict__ w,
+                       const float* __restrict__ u,
+                       const float* __restrict__ s0,
+                       float* __restrict__ y, float* __restrict__ sT,
+                       int seq, int n_heads, int V, int vec) {
+  constexpr int kLanes = lanes<K>();
+  constexpr int kThreads = threads<K>();
+  constexpr int kQuads = K / 4;              // 16-byte chunks of a row
+  constexpr int kMine = kRows / 4;           // chunks a lane owns
+  constexpr int kGroups = kCols / kVpt;      // column groups a lane serves
+  static_assert(K % kRows == 0, "a column's rows split evenly over lanes");
+  static_assert(kThreads % 32 == 0 && kThreads <= 1024, "whole warps");
+  extern __shared__ float4 smem4[];
+  float* const smem = reinterpret_cast<float*>(smem4);
+  float* const p_s = smem + 2 * stage_floats<K>();  // [kChunk][lanes][kCols]
 
   const int bh = blockIdx.x;
   const int b = bh / n_heads, h = bh % n_heads;
-  const int col = threadIdx.x;
-  const bool active = col < V;
+  const int j0 = blockIdx.y * kCols;
+  // consecutive threads hold consecutive column tiles of one lane
+  const int lane = threadIdx.x / kGroups;
+  const int jg = threadIdx.x % kGroups * kVpt;       // first column in block
   const long long step = (long long)n_heads * K;     // t stride of r, k, w
   const long long vstep = (long long)n_heads * V;    // t stride of v, y
-  const float* rb = r + (long long)b * seq * step + h * K;
-  const float* kb = k + (long long)b * seq * step + h * K;
-  const float* wb = w + (long long)b * seq * step + h * K;
-  const float* vb = v + (long long)b * seq * vstep + h * V;
-  float* yb = y + (long long)b * seq * vstep + h * V;
+  const long long tk0 = (long long)b * seq * step + h * K;
+  const long long tv0 = (long long)b * seq * vstep + h * V;
   const long long state0 = (long long)bh * K * V;
 
-  float S[K];
+  // this lane's rows: 4 q + e for the chunks q = i kLanes + lane; its
+  // columns j0 + jg + c
+  float S[kMine][4][kVpt], uu[kMine][4];
 #pragma unroll
-  for (int i = 0; i < K; ++i)
-    S[i] = active ? s0[state0 + (long long)i * V + col] : 0.f;
-  for (int i = threadIdx.x; i < K; i += blockDim.x) u_s[i] = u[h * K + i];
-
-  for (int t0 = 0; t0 < seq; t0 += kChunk) {
-    const int n = min(kChunk, seq - t0);
-    __syncthreads();                     // the previous chunk is consumed
-    for (int c = threadIdx.x; c < n * K; c += blockDim.x) {
-      const int t = c / K, i = c % K;
-      const long long off = (long long)(t0 + t) * step + i;
-      r_s[c] = rb[off];
-      k_s[c] = kb[off];
-      w_s[c] = wb[off];
-    }
-    for (int c = threadIdx.x; c < n * V; c += blockDim.x) {
-      const int t = c / V, j = c % V;
-      v_s[c] = vb[(long long)(t0 + t) * vstep + j];
-    }
-    __syncthreads();
-    if (!active) continue;
-    for (int t = 0; t < n; ++t) {
-      const float vt = v_s[t * V + col];
-      const float* rt = r_s + t * K;
-      const float* kt = k_s + t * K;
-      const float* wt = w_s + t * K;
-      float part[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int i = 0; i < kMine; ++i) {
 #pragma unroll
-      for (int i = 0; i < K; ++i) {
-        const float kv = kt[i] * vt;
-        part[i & 3] = fmaf(rt[i], fmaf(u_s[i], kv, S[i]), part[i & 3]);
-        S[i] = fmaf(wt[i], S[i], kv);
+    for (int e = 0; e < 4; ++e) {
+      const int row = 4 * (i * kLanes + lane) + e;
+      uu[i][e] = u[h * K + row];
+#pragma unroll
+      for (int c = 0; c < kVpt; ++c) {
+        const int col = j0 + jg + c;
+        S[i][e][c] = col < V ? s0[state0 + (long long)row * V + col] : 0.f;
       }
-      yb[(long long)(t0 + t) * vstep + col] =
-          (part[0] + part[1]) + (part[2] + part[3]);
     }
   }
-  if (!active) return;
+
+  // stage chunk c (steps c kChunk .. + n - 1) into buffer c & 1
+  auto stage = [&](int c) {
+    float* const buf = smem + (c & 1) * stage_floats<K>();
+    const int t0 = c * kChunk;
+    const int n = min(kChunk, seq - t0);
+    for (int idx = threadIdx.x; idx < kChunk * kQuads; idx += kThreads) {
+      const int t = idx / kQuads, q = idx % kQuads;
+      if (t >= n) break;
+      const long long off = tk0 + (long long)(t0 + t) * step + 4 * q;
+      copy4(buf + t * K + 4 * q, r + off, vec);
+      copy4(buf + kChunk * K + t * K + 4 * q, k + off, vec);
+      copy4(buf + 2 * kChunk * K + t * K + 4 * q, w + off, vec);
+    }
+    float* const v_s = buf + 3 * kChunk * K;
+    for (int idx = threadIdx.x; idx < kChunk * kCols / 4; idx += kThreads) {
+      const int t = idx / (kCols / 4), c4 = 4 * (idx % (kCols / 4));
+      if (t >= n) break;
+      const float* src = v + tv0 + (long long)(t0 + t) * vstep + j0 + c4;
+      float* dst = v_s + t * kCols + c4;
+      if (j0 + c4 + 4 <= V) {
+        copy4(dst, src, vec);
+      } else {                          // the ragged edge of V: zeros past it
 #pragma unroll
-  for (int i = 0; i < K; ++i) sT[state0 + (long long)i * V + col] = S[i];
+        for (int e = 0; e < 4; ++e) {
+          if (j0 + c4 + e < V) cp_async4(dst + e, src + e);
+          else dst[e] = 0.f;
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  const int n_chunks = (seq + kChunk - 1) / kChunk;
+  if (n_chunks > 0) stage(0);
+  for (int c = 0; c < n_chunks; ++c) {
+    if (c + 1 < n_chunks) {
+      stage(c + 1);                     // into the other buffer
+      cp_async_wait<1>();               // chunk c has landed
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* const buf = smem + (c & 1) * stage_floats<K>();
+    const float4* const r4 = reinterpret_cast<const float4*>(buf);
+    const float4* const k4 = r4 + kChunk * kQuads;
+    const float4* const w4 = k4 + kChunk * kQuads;
+    const float* const v_s = buf + 3 * kChunk * K;
+    const int n = min(kChunk, seq - c * kChunk);
+    // one step's inputs in registers: the next step's are read from
+    // shared memory while this one's are in use
+    struct Step {
+      float4 r[kMine], k[kMine], w[kMine];
+      float2 v;
+    };
+    auto fetch = [&](int t, Step& x) {
+      x.v = *reinterpret_cast<const float2*>(v_s + t * kCols + jg);
+#pragma unroll
+      for (int i = 0; i < kMine; ++i) {
+        const int q = t * kQuads + i * kLanes + lane;
+        x.r[i] = r4[q];
+        x.k[i] = k4[q];
+        x.w[i] = w4[q];
+      }
+    };
+    Step cur;
+    fetch(0, cur);
+#pragma unroll kUnroll
+    for (int t = 0; t < n; ++t) {
+      Step nxt;
+      fetch(min(t + 1, n - 1), nxt);
+      float part[4][kVpt] = {};
+#pragma unroll
+      for (int i = 0; i < kMine; ++i) {
+        const float rr[4] = {cur.r[i].x, cur.r[i].y, cur.r[i].z, cur.r[i].w};
+        const float kk[4] = {cur.k[i].x, cur.k[i].y, cur.k[i].z, cur.k[i].w};
+        const float ww[4] = {cur.w[i].x, cur.w[i].y, cur.w[i].z, cur.w[i].w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+#pragma unroll
+          for (int j = 0; j < kVpt; ++j) {
+            const float kv = kk[e] * (j == 0 ? cur.v.x : cur.v.y);
+            part[e][j] = fmaf(rr[e], fmaf(uu[i][e], kv, S[i][e][j]),
+                              part[e][j]);
+            S[i][e][j] = fmaf(ww[e], S[i][e][j], kv);
+          }
+        }
+      }
+      // the lane's sum over its rows, left for the reduction below: the
+      // walk over t waits on nothing but the state
+      *reinterpret_cast<float2*>(p_s + (t * kLanes + lane) * kCols + jg) =
+          make_float2((part[0][0] + part[1][0]) + (part[2][0] + part[3][0]),
+                      (part[0][1] + part[1][1]) + (part[2][1] + part[3][1]));
+      cur = nxt;
+    }
+    __syncthreads();                    // p_s is whole; buffer c & 1 is free
+    // y of the chunk: add each (t, column)'s lane sums as a tree (lanes p
+    // and p + kLanes / 2 first, down to neighbours), write coalesced rows
+    float* const yc = y + tv0 + (long long)c * kChunk * vstep + j0;
+    for (int idx = threadIdx.x; idx < n * kCols; idx += kThreads) {
+      const int t = idx / kCols, jj = idx % kCols;
+      float a[kLanes];
+#pragma unroll
+      for (int p = 0; p < kLanes; ++p)
+        a[p] = p_s[(t * kLanes + p) * kCols + jj];
+#pragma unroll
+      for (int lvl = 1; lvl < kLanes; lvl *= 2) {
+#pragma unroll
+        for (int p = 0; p < kLanes / (2 * lvl); ++p)
+          a[p] += a[p + kLanes / (2 * lvl)];
+      }
+      if (j0 + jj < V) yc[(long long)t * vstep + jj] = a[0];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kMine; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = 4 * (i * kLanes + lane) + e;
+#pragma unroll
+      for (int c = 0; c < kVpt; ++c) {
+        const int col = j0 + jg + c;
+        if (col < V) sT[state0 + (long long)row * V + col] = S[i][e][c];
+      }
+    }
+  }
 }
 
 template <int K>
 int launch(const float* r, const float* k, const float* v, const float* w,
            const float* u, const float* s0, float* y, float* sT, int batch,
            int seq, int n_heads, int V, cudaStream_t stream) {
-  const int threads = (V + 31) / 32 * 32;
-  const int smem = (3 * kChunk * K + K + kChunk * V) * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
+  const int smem = smem_bytes<K>();
+  const cudaError_t err = cudaFuncSetAttribute(
       wkv_forward_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return (int)err;
-  wkv_forward_kernel<K><<<batch * n_heads, threads, smem, stream>>>(
-      r, k, v, w, u, s0, y, sT, seq, n_heads, V);
+  const uintptr_t any = reinterpret_cast<uintptr_t>(r) |
+                        reinterpret_cast<uintptr_t>(k) |
+                        reinterpret_cast<uintptr_t>(v) |
+                        reinterpret_cast<uintptr_t>(w);
+  const int vec = (any % 16 == 0) && (V % 4 == 0);
+  const dim3 grid(batch * n_heads, (V + kCols - 1) / kCols);
+  wkv_forward_kernel<K><<<grid, threads<K>(), smem, stream>>>(
+      r, k, v, w, u, s0, y, sT, seq, n_heads, V, vec);
   return (int)cudaGetLastError();
 }
 
@@ -157,6 +350,11 @@ int wkv_forward_launch(const void* r, const void* k, const void* v,
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// Dynamic shared memory of one block at key width K (0 for another K).
+int wkv_forward_smem_bytes(int K) {
+  return K == 32 ? smem_bytes<32>() : K == 64 ? smem_bytes<64>() : 0;
 }
 
 }  // extern "C"

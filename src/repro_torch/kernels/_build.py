@@ -61,6 +61,7 @@ SIGNATURES = {
     "rwkv_wkv": {
         "wkv_forward_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _I, _I, _P),
+        "wkv_forward_smem_bytes": (_I,),
     },
 }
 

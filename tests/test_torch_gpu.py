@@ -287,23 +287,75 @@ def test_rmsnorm_wide_rows_match_plain_on_card(cuda, d, xdt, wdt):
     _check_rmsnorm(cuda, (37, d), xdt, wdt)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("S", [1, 8, 33, 70])
-@pytest.mark.parametrize("K", [32, 64])
-def test_wkv_kernel_matches_plain_on_card(cuda, S, K):
-    B, H = 2, 3
-    rng = np.random.default_rng(S * K)
-    f = lambda *s: rng.standard_normal(s).astype(np.float32)
+def _wkv_args(cuda, seed, B, S, H, K, V, offset=0):
+    """Inputs drawn as the model draws them; ``offset`` > 0 puts r, k, v
+    and w that many floats into their storage, off 16-byte alignment."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
     r, k = f(B, S, H, K) * 0.3, f(B, S, H, K) * 0.3
-    v = f(B, S, H, K)
+    v = f(B, S, H, V)
     w = 1.0 / (1.0 + np.exp(-f(B, S, H, K)))
-    u, s0 = f(H, K) * 0.1, f(B, H, K, K) * 0.1
-    args = [torch.from_numpy(np.ascontiguousarray(t, np.float32)).to(cuda)
-            for t in (r, k, v, w, u, s0)]
+    u, s0 = f(H, K) * 0.1, f(B, H, K, V) * 0.1
+
+    def put(t, off):
+        t = np.ascontiguousarray(t, np.float32).reshape(-1)
+        base = torch.zeros(t.size + off, device=cuda)
+        base[off:] = torch.from_numpy(t).to(cuda)
+        return base[off:]
+    shapes = ((B, S, H, K), (B, S, H, K), (B, S, H, V), (B, S, H, K),
+              (H, K), (B, H, K, V))
+    return [put(t, offset if i < 4 else 0).view(shape)
+            for i, (t, shape) in enumerate(zip((r, k, v, w, u, s0),
+                                               shapes))]
+
+
+def _check_wkv(args):
     y, sT = wkv_forward(*args)
     ry, rsT = ref.wkv_reference(*args)
     torch.testing.assert_close(y, ry, rtol=0, atol=2e-5)
     torch.testing.assert_close(sT, rsT, rtol=0, atol=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [1, 8, 31, 32, 33, 65, 70, 1024])
+@pytest.mark.parametrize("K", [32, 64])
+def test_wkv_kernel_matches_plain_on_card(cuda, S, K):
+    """S around the 32-step staging chunk (31, 32, 33: one partial, one
+    full and a full plus one step; 65: both buffers and a partial third
+    chunk) and 1024 steps, rwkv6-1.6b's prefill length."""
+    _check_wkv(_wkv_args(cuda, S * K, 2, S, 3, K, K))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("V", [16, 50, 100])
+@pytest.mark.parametrize("K", [32, 64])
+def test_wkv_kernel_value_width_on_card(cuda, V, K):
+    """V != K and not a multiple of the 64 columns a block holds: 16
+    leaves most of a block idle, 100 a ragged second block, 50 (not a
+    multiple of 4) takes the 4-byte copies."""
+    _check_wkv(_wkv_args(cuda, V + K, 2, 65, 3, K, V))
+
+
+@pytest.mark.gpu
+def test_wkv_kernel_unaligned_inputs_on_card(cuda):
+    """r, k, v and w one float off 16-byte alignment take the 4-byte
+    copies."""
+    args = _wkv_args(cuda, 5, 2, 40, 3, 64, 64, offset=1)
+    assert args[0].data_ptr() % 16 != 0
+    _check_wkv(args)
+
+
+@pytest.mark.gpu
+def test_wkv_kernel_empty_sequence_on_card(cuda):
+    """seq = 0 gives sT == s0 and writes neither s0 nor the inputs."""
+    args = _wkv_args(cuda, 6, 2, 0, 3, 64, 64)
+    before = [t.clone() for t in args]
+    y, sT = wkv_forward(*args)
+    torch.cuda.synchronize()
+    assert y.shape == (2, 0, 3, 64)
+    assert torch.equal(sT, args[5])
+    for t, b in zip(args, before):
+        assert torch.equal(t, b)
 
 
 @pytest.mark.gpu

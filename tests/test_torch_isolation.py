@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX or anything of the JAX package ``repro``
-(a ``repro_torch`` import is the port's own)."""
+"""The port stands alone: no module of ``src/repro_torch``, not
+``chip_smoke.py`` and no script under ``tools/`` imports JAX or anything
+of the JAX package ``repro`` (a ``repro_torch`` import is the port's
+own)."""
 import ast
 import os
 from pathlib import Path
@@ -9,7 +10,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
-    [REPO / "chip_smoke.py"]
+    [REPO / "chip_smoke.py"] + sorted((REPO / "tools").glob("*.py"))
 BANNED = ("jax", "jaxlib", "repro")
 
 

@@ -19,6 +19,9 @@ bound) and 2e-5 (WKV); bf16: at most 1 bf16 ulp.
 tests/test_torch_gpu.py holds each CUDA kernel against its plain version
 on the card.
 """
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -413,6 +416,72 @@ def test_wkv_plain_matches_jax_oracle(S, K):
     np.testing.assert_allclose(ty.numpy(), np.asarray(jy), rtol=0, atol=2e-5)
     np.testing.assert_allclose(tsT.numpy(), np.asarray(jsT), rtol=0,
                                atol=2e-5)
+
+
+def _shipped_wkv_rows() -> int:
+    """The state rows a thread owns in csrc/rwkv_wkv.cu as it ships."""
+    src = (Path(ref.__file__).parents[1] / "csrc" / "rwkv_wkv.cu").read_text()
+    return int(re.search(r"constexpr int kRows = (\d+);", src).group(1))
+
+
+def _emulate_wkv_kernel(r, k, v, w, u, s0, rows):
+    """The WKV kernel's order of operations in plain torch: K split into
+    16-byte chunks over K / rows lanes, lane p owning chunks p, p +
+    lanes, ...; per step kv = k v in f32, each multiply-add fused (f64,
+    rounded once to f32), the lane's four partial sums of y (one per row
+    of a chunk) added pairwise, then the lanes' sums added as the
+    shuffles do: lanes p and p + lanes / 2 first, down to neighbours."""
+    def fma(a, b, c):
+        return (a.double() * b.double() + c.double()).float()
+
+    B, S, H, K = r.shape
+    V = v.shape[3]
+    lanes = K // rows
+    split = lambda x: x.reshape(*x.shape[:-1], rows // 4, lanes, 4)  # noqa
+    st = split(s0.transpose(2, 3)).movedim(-3, -1)     # (B, H, V, l, 4, i)
+    uu = split(u)[None, :, None].movedim(-3, -1)       # (1, H, 1, l, 4, i)
+    ys = []
+    for t in range(S):
+        rt, kt, wt = (split(x[:, t])[:, :, None].movedim(-3, -1)
+                      for x in (r, k, w))              # (B, H, 1, l, 4, i)
+        kv = kt * v[:, t, :, :, None, None, None]
+        tmp = fma(uu, kv, st)
+        part = torch.zeros(st.shape[:-1])
+        for i in range(rows // 4):
+            part = fma(rt[..., i], tmp[..., i], part)
+        x = (part[..., 0] + part[..., 1]) + (part[..., 2] + part[..., 3])
+        while x.shape[-1] > 1:
+            half = x.shape[-1] // 2
+            x = x[..., :half] + x[..., half:]
+        ys.append(x[..., 0])
+        st = fma(wt, st, kv)
+    sT = st.movedim(-1, -3).reshape(B, H, V, K).transpose(2, 3)
+    return torch.stack(ys, dim=1), sT
+
+
+@pytest.mark.parametrize("shape", [(1, 1024, 2, 64), (2, 70, 3, 32)])
+@pytest.mark.parametrize("which", ["shipped", "other"])
+def test_wkv_kernel_order_holds_the_check(shape, which):
+    """The order in which the CUDA WKV kernel sums (row slices per lane,
+    fused multiply-adds, a shuffle tree for y) stays within atol 2e-5 of
+    both plain versions, torch's and JAX's, at S = 1024 too: for the
+    rows per thread the kernel ships with and for one other choice."""
+    shipped = _shipped_wkv_rows()
+    rows = shipped if which == "shipped" else (16 if shipped != 16 else 8)
+    B, S, H, K = shape
+    rng = np.random.default_rng(S * 100 + K)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    r, k, v = f(B, S, H, K) * 0.3, f(B, S, H, K) * 0.3, f(B, S, H, K)
+    w = (1.0 / (1.0 + np.exp(-f(B, S, H, K)))).astype(np.float32)
+    u, s0 = f(H, K) * 0.1, f(B, H, K, K) * 0.1
+    args = (r, k, v, w, u, s0)
+    ey, esT = _emulate_wkv_kernel(*map(torch.from_numpy, args), rows)
+    ty, tsT = ref.wkv_reference(*map(torch.from_numpy, args))
+    jy, jsT = jref.wkv_reference(*map(jnp.asarray, args))
+    for want_y, want_sT in ((ty.numpy(), tsT.numpy()),
+                            (np.asarray(jy), np.asarray(jsT))):
+        np.testing.assert_allclose(ey.numpy(), want_y, rtol=0, atol=2e-5)
+        np.testing.assert_allclose(esT.numpy(), want_sT, rtol=0, atol=2e-5)
 
 
 def test_serving_ops_dispatch_by_device():
