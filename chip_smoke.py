@@ -15,9 +15,15 @@ Phases, each fatal on failure (no phase catches and continues):
    peak for their type): the 7 training kernels at the shapes
    paper-lm-100m's two training paths give them (bit-exact; the pass-1
    moments within 8 ulp), plus a block of rows with NaN, +-inf, zeros
-   and ties through every pass-1 kernel, ``ef_block_stats`` through its
-   only path, ``ops.fused_ef_compress(telemetry=False)``, with the launch
-   counts set to 0 just before and read just after; the 3 serving
+   and ties through every pass-1 kernel at k_b 1, 10, 41, 102 and 1024,
+   ``ef_block_stats`` through its only path,
+   ``ops.fused_ef_compress(telemetry=False)``, with the launch counts set
+   to 0 just before and read just after; ``block_stats`` also checked
+   and timed at the largest CSGD leaf at k_b 10, 41 and 102 (gamma 1%,
+   4%, 10%) beside ``torch.topk`` (timed only), host launch included and
+   on the device alone, and the device-only times of the EF pass-1
+   kernels at k_b 41 and 102 and of the codec kernels; ptxas spills in
+   ``ef_topk.cu`` are fatal; the 3 serving
    kernels at the shapes serving gives them (flash attention's bf16
    tensor-core route at qwen1.5-4b's prefill, (4, 20, 2048, 128) causal,
    and at 20 edge cases that cross every tile edge, through strided
@@ -312,13 +318,23 @@ def same(a, b) -> bool:
     return torch.equal(na, nb) and torch.equal(a[~na], b[~nb])
 
 
-def check_dense_selection(dev, gen, leaf_rows, k_b, report) -> None:
+def check_dense_selection(dev, gen, leaf_rows, k_b, paper_ks,
+                          report) -> None:
     """block_stats and threshold_split (the single-node compress_dense
     path) against their plain versions: at the largest flat leaf, at a
     padded 9-row leaf through the public ops, and on the edge-case rows
-    (with ef_block_stats and ef_stats_telemetry too); timed at the
-    largest leaf and summed over one step's leaves."""
+    (with ef_block_stats and ef_stats_telemetry too); block_stats timed
+    at the largest leaf at each of the paper's k_b beside torch.topk, and
+    summed over one step's leaves."""
     from repro_torch.kernels import ef_topk, ops, ref
+    entries = ptxas_entries("ef_topk", [
+        "ef_stats_telemetry_kernel", "ef_block_stats_kernel",
+        "block_stats_kernel", "ef_apply_kernel", "threshold_split_kernel"])
+    if len(entries) != 5 or any(spill for _, _, spill in entries):
+        fail(f"csrc/ef_topk.cu: ptxas reported spills, or not 5 kernels: "
+             f"{entries}")
+    print("ptxas ef_topk: no spills; registers "
+          + ", ".join(f"{e} {r}" for e, r, _ in entries), flush=True)
     big = max(leaf_rows)
     x = torch.randn((big, 1024), generator=gen, device=dev) * 1e-2
     tau = ef_topk.block_stats(x, k_b)
@@ -347,7 +363,8 @@ def check_dense_selection(dev, gen, leaf_rows, k_b, report) -> None:
     sp = special_rows(dev)
     zeros = torch.zeros_like(sp)
     eta = torch.tensor([0.5], device=dev)
-    for kb in (1, k_b, 1024):
+    edge_ks = sorted({1, *paper_ks, 1024})
+    for kb in edge_ks:
         pairs = {
             "block_stats": (ef_topk.block_stats(sp, kb),
                             ref.block_abs_topk_threshold(sp, kb)),
@@ -371,19 +388,39 @@ def check_dense_selection(dev, gen, leaf_rows, k_b, report) -> None:
     if not same(mom[~fin], rmom[~fin]) or max_ulp(
             mom[fin].cpu().numpy(), rmom[fin].cpu().numpy()) > 8:
         fail("ef_stats_telemetry moments differ on the NaN/inf rows")
-    print(f"edge-case rows (NaN, +-inf, zeros, ties) at k_b 1, {k_b}, 1024: "
+    print(f"edge-case rows (NaN, +-inf, zeros, ties) at k_b {edge_ks}: "
           f"tau {ef_topk.block_stats(sp, k_b).ravel().tolist()}", flush=True)
 
-    per_step = {"block_stats": 0.0, "threshold_split": 0.0}
+    # the paper's 1%, 4% and 10% at the largest leaf: each k_b checked,
+    # then timed beside torch.topk at the same k_b (timed only)
+    for kb in paper_ks:
+        t = ef_topk.block_stats(x, kb)
+        if not same(t, ref.block_abs_topk_threshold(x, kb)):
+            fail(f"block_stats at k_b={kb} differs from the plain version "
+                 f"at the largest leaf")
+
+        def topk(kb=kb):
+            return torch.topk(x.abs(), kb, dim=1).values[:, -1:]
+        print(f"block_stats ({big}, 1024) k_b={kb}: "
+              f"{time_ms(lambda: ef_topk.block_stats(x, kb)):.4f} ms, device "
+              f"only {device_ms(lambda: ef_topk.block_stats(x, kb)):.4f} ms; "
+              f"torch.topk {time_ms(topk):.4f} ms, device only "
+              f"{device_ms(topk):.4f} ms", flush=True)
+
+    per_step = {"block_stats": 0.0, "block_stats device": 0.0,
+                "threshold_split": 0.0}
     for r in sorted(set(leaf_rows)):
         xr, tr_ = x[:r], tau[:r]
         n = leaf_rows.count(r)
         per_step["block_stats"] += n * time_ms(
             lambda: ef_topk.block_stats(xr, k_b))
+        per_step["block_stats device"] += n * device_ms(
+            lambda: ef_topk.block_stats(xr, k_b))
         per_step["threshold_split"] += n * time_ms(
             lambda: ef_topk.threshold_split(xr, tr_))
     print(f"one CSGD step's {len(leaf_rows)} leaves ({sum(leaf_rows)} block "
-          f"rows): block_stats {per_step['block_stats']:.4f} ms, "
+          f"rows): block_stats {per_step['block_stats']:.4f} ms (device only "
+          f"{per_step['block_stats device']:.4f} ms), "
           f"threshold_split {per_step['threshold_split']:.4f} ms summed "
           f"(bounds {sum(leaf_rows) * 1028 * 4 / HBM_BYTES_PER_S * 1e3:.4f}"
           f" and {sum(leaf_rows) * 1024 * 12 / HBM_BYTES_PER_S * 1e3:.4f} "
@@ -394,9 +431,8 @@ def check_dense_selection(dev, gen, leaf_rows, k_b, report) -> None:
         plain_ms=time_ms(lambda: ref.block_abs_topk_threshold(x, k_b)),
         library_ms=time_ms(
             lambda: torch.topk(x.abs(), k_b, dim=1).values[:, -1:]),
-        bytes=big * 1024 * 4 + big * 4,
-        # per element |x|; per row k_b rounds of a 5-step warp max-reduce
-        ops=big * 1024 + big * k_b * 32 * 5 * 2,
+        # the function's work, whatever the kernel: each |x| once
+        bytes=big * 1024 * 4 + big * 4, ops=big * 1024,
         note=f"largest leaf, {big} block rows")
     report["threshold_split"] = dict(
         max_abs_err=max(float((sent - rsent).abs().max()),
@@ -874,6 +910,9 @@ def main() -> None:
     index_words = sum(ln.L * ln.spec.index_words for ln in plan.leaves
                       if not ln.dense)
     k_b = comp.block_k()
+    # k_b at the paper's gamma of 1%, 4% and 10%: 10, 41 and 102
+    paper_ks = [Compressor(gamma=gm, method="block_topk").block_k()
+                for gm in (0.01, 0.04, 0.1)]
     gen = torch.Generator(device=dev).manual_seed(1)
     m = torch.randn((rows, 1024), generator=gen, device=dev) * 1e-3
     g = torch.randn((rows, 1024), generator=gen, device=dev) * 1e-2
@@ -896,10 +935,9 @@ def main() -> None:
         plain_ms=time_ms(lambda: ref.ef_block_stats_telemetry(m, g, eta,
                                                               k_b)),
         bytes=rows * 1024 * 8 + rows * 12,
-        # per element: the fma forming acc, |acc| and the two squares
-        # (done in f64 here, counted as f32); per row: k_b rounds of a
-        # 5-step warp max-reduce over 32 lanes
-        ops=rows * 1024 * 6 + rows * k_b * 32 * 5 * 2,
+        # the function's work per element: the fma forming acc, |acc| and
+        # the two squares (done in f64 here, counted as f32)
+        ops=rows * 1024 * 6,
         note=f"moments max {ulp} ulp")
 
     sent, mnew = ef_topk.ef_apply(m, g, eta, tau)
@@ -940,9 +978,16 @@ def main() -> None:
         max_abs_err=float((btau - rbtau).abs().max()),
         ms=time_ms(lambda: ef_topk.ef_block_stats(m, g, eta, k_b)),
         plain_ms=time_ms(lambda: ref.ef_block_stats(m, g, eta, k_b)),
-        bytes=rows * 1024 * 8 + rows * 4,
-        ops=rows * 1024 * 3 + rows * k_b * 32 * 5 * 2,
+        bytes=rows * 1024 * 8 + rows * 4, ops=rows * 1024 * 3,
         note="through ops.fused_ef_compress(telemetry=False)")
+    # the EF pass-1 kernels' rounds grow with k_b: their device time at
+    # the paper's 4% and 10%
+    print("device only (profiler) at the main path's rows: " + "; ".join(
+        f"k_b={kb} ef_stats_telemetry "
+        f"{device_ms(lambda: ef_topk.ef_stats_telemetry(m, g, eta, kb)):.4f}"
+        f" ms, ef_block_stats "
+        f"{device_ms(lambda: ef_topk.ef_block_stats(m, g, eta, kb)):.4f} ms"
+        for kb in paper_ks), flush=True)
     del m, g, sent, mnew, rsent, rmnew, tau, rtau, mom, rmom, btau, rbtau
 
     W = index_words
@@ -983,11 +1028,16 @@ def main() -> None:
         plain_ms=time_ms(lambda: ref.unpack_fields(words, 16)),
         bytes=srows * scols * 4 * 3, ops=srows * scols * 2 * 3,
         note=f"16-bit index stream {W} words")
+    print(f"device only (profiler), {W}-word index stream: pack_words "
+          f"{device_ms(lambda: wire_pack.pack_words(fields, 16)):.4f} ms, "
+          f"unpack_words "
+          f"{device_ms(lambda: wire_pack.unpack_words(words, 16)):.4f} ms",
+          flush=True)
     del fields, words, rwords, back, rback
 
     csgd_rows = [-(-int(np.prod(sh)) // comp.block) for sh in shapes
                  if int(np.prod(sh)) >= comp.min_compress_size]
-    check_dense_selection(dev, gen, csgd_rows, k_b, report)
+    check_dense_selection(dev, gen, csgd_rows, k_b, paper_ks, report)
     check_serving_kernels(dev, report)
     for name, r in report.items():
         byte_ms = r["bytes"] / HBM_BYTES_PER_S * 1e3

@@ -60,17 +60,23 @@ def test_ef_kernels_match_plain_on_card(cuda, ties):
     torch.testing.assert_close(mnew, rmnew, rtol=0, atol=0)
 
 
+#: k_b at the edges of block_stats' filter widths (32, 64, 128 lane
+#: values), the paper's 1%, 4% and 10% (10, 41, 102) and the whole row
+SELECT_KS = [1, 10, 32, 33, 41, 102, 1024]
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("k_b", SELECT_KS)
 @pytest.mark.parametrize("ties", [False, True])
-def test_dense_selection_kernels_match_plain_on_card(cuda, ties):
+def test_dense_selection_kernels_match_plain_on_card(cuda, ties, k_b):
     m, x = (torch.from_numpy(v).to(cuda)
             for v in _leaves(12, (300, 1024), ties))
     eta = torch.tensor([0.37], device=cuda)
-    tau = ef_topk.block_stats(x, 10)
-    torch.testing.assert_close(tau, ref.block_abs_topk_threshold(x, 10),
+    tau = ef_topk.block_stats(x, k_b)
+    torch.testing.assert_close(tau, ref.block_abs_topk_threshold(x, k_b),
                                rtol=0, atol=0)
-    torch.testing.assert_close(ef_topk.ef_block_stats(m, x, eta, 10),
-                               ref.ef_block_stats(m, x, eta, 10),
+    torch.testing.assert_close(ef_topk.ef_block_stats(m, x, eta, k_b),
+                               ref.ef_block_stats(m, x, eta, k_b),
                                rtol=0, atol=0)
     sent, res = ef_topk.threshold_split(x, tau)
     rsent, rres = ref.threshold_split(x, tau)
@@ -94,8 +100,64 @@ def _special_rows():
     return x
 
 
+def selection_rows(k_b):
+    """(kinds, rows): block rows that reach each path of block_stats'
+    select at k_b (tests/test_torch_kernels.py emulates it): Gaussian
+    x 1e-2 and subnormal rows (the filter for k_b <= 128); all equal, all
+    zero, +0 and -0 mixed, and 300 equal maxima (more candidates than the
+    filter keeps: the general path); 200 equal maxima (the filter's
+    widest candidate select); 1, k_b and k_b + 3 infinities of both
+    signs; NaN rows, one with an infinity; rounded ties."""
+    rng = np.random.default_rng(1000 + k_b)
+
+    def gauss():
+        return (rng.standard_normal(1024) * 1e-2).astype(np.float32)
+
+    def signs(n):
+        return np.where(rng.random(n) < 0.5, 1.0, -1.0).astype(np.float32)
+    rows = [("gauss", gauss()),
+            ("subnormal", rng.integers(1, 1 << 23, 1024).astype(
+                np.uint32).view(np.float32) * signs(1024)),
+            ("equal", np.full(1024, -1.5, np.float32)),
+            ("zeros", np.zeros(1024, np.float32)),
+            ("signed_zeros", np.where(rng.random(1024) < 0.5, 0.0,
+                                      -0.0).astype(np.float32)),
+            ("rounded", np.round(gauss() * 200.0))]
+    for kind, n in (("ties_under_cap", 200), ("ties_over_cap", 300)):
+        x = gauss()
+        x[rng.choice(1024, n, replace=False)] = signs(n)
+        rows.append((kind, x))
+    for n in (1, k_b, min(k_b + 3, 1024)):
+        x = gauss()
+        x[rng.choice(1024, n, replace=False)] = np.inf * signs(n)
+        rows.append((f"inf{n}", x))
+    x = gauss()
+    x[rng.integers(1024)] = np.nan
+    rows.append(("nan", x))
+    x = gauss()
+    x[[3, 700]] = np.nan
+    x[10] = -np.inf
+    rows.append(("nan_inf", x))
+    return [k for k, _ in rows], np.stack([r for _, r in rows]).astype(
+        np.float32)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("k_b", [1, 10, 1024])
+@pytest.mark.parametrize("rows", [1, 7, 9, 300])
+@pytest.mark.parametrize("k_b", [1, 10, 31, 32, 33, 41, 102, 1023, 1024])
+def test_block_stats_select_paths_on_card(cuda, k_b, rows):
+    """The rows that reach each path of the select, cycled to a row count
+    ragged against the kernel's 8 warps a block: bit-exact, NaN where the
+    plain version gives NaN."""
+    kinds, x = selection_rows(k_b)
+    x = torch.from_numpy(np.resize(x, (rows, 1024))).to(cuda)
+    torch.testing.assert_close(ef_topk.block_stats(x, k_b),
+                               ref.block_abs_topk_threshold(x, k_b),
+                               rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k_b", SELECT_KS)
 def test_pass1_kernels_nan_rule_on_card(cuda, k_b):
     x = torch.from_numpy(_special_rows()).to(cuda)
     m = torch.zeros_like(x)

@@ -27,12 +27,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from repro.kernels import ef_topk as jef_topk
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import dispatch, ops, ref
 from repro_torch.kernels import ef_topk, wire_pack
+from test_torch_gpu import selection_rows
 
 torch.set_num_threads(2)
 
@@ -134,6 +137,116 @@ def test_selection_plain_versions_follow_the_kernels_nan_rule(k_b):
     ts, tr = ref.threshold_split(tx, torch.from_numpy(ttau))
     np.testing.assert_array_equal(np.asarray(js), ts.numpy())
     np.testing.assert_array_equal(np.asarray(jr), tr.numpy())
+
+
+# block_stats' select in csrc/ef_topk.cu, emulated on the uint32 patterns
+# of |x| in the kernel's lane layout: slot s of lane l holds column
+# ((s >> 2) * 32 + l) * 4 + (s & 3).
+_SLOT = np.arange(32)
+_LANE_COLS = ((_SLOT[None, :] >> 2) * 32 + np.arange(32)[:, None]) * 4 \
+    + (_SLOT[None, :] & 3)                       # (lane, slot) -> column
+_CAP = 256                                       # the kernel's kCap
+
+
+def _kth_by_bits(v, k, lo, hi, stop=0):
+    """kth_by_bits: the largest t, a multiple of 2^stop, with
+    #{v >= t} >= k, its bits set from the highest one where lo and hi
+    differ, one warp count a bit."""
+    if lo == hi:
+        return lo
+    top = (lo ^ hi).bit_length() - 1
+    t = lo & ~((2 << top) - 1)
+    for b in range(top, stop - 1, -1):
+        if np.count_nonzero(v >= (t | 1 << b)) >= k:
+            t |= 1 << b
+    return t
+
+
+def _emulate_block_stats(x, k_b):
+    """(tau (R, 1) f32, the path of each row: 'nan', 'filter' or
+    'general') as block_stats_kernel computes them."""
+    taus, paths = [], []
+    for u in x.view(np.uint32) & np.uint32(0x7fffffff):
+        hi = int(u.max())
+        if hi > 0x7f800000:                      # a NaN in the row
+            taus.append(np.float32(np.nan))
+            paths.append("nan")
+            continue
+        lo, t, path = 0, None, "general"
+        if k_b <= 128:
+            # the filter's bound: the k_b-th largest of the maxima of each
+            # lane's J groups of 32 / J slots, cut to its top 16 bits
+            J = 1 if k_b <= 32 else 4 if k_b <= 64 else 8
+            gmax = u[_LANE_COLS].reshape(32, J, 32 // J).max(axis=2)
+            lo = _kth_by_bits(gmax, k_b, int(gmax.min()), hi, stop=16)
+            cand = u[u >= lo]
+            assert cand.size >= k_b                # lo bounds tau below
+            if cand.size <= _CAP:
+                path = "filter"
+                if cand.size <= 32:                # the rank pick
+                    gt = (cand[None, :] > cand[:, None]).sum(1)
+                    ge = (cand[None, :] >= cand[:, None]).sum(1)
+                    t = int(cand[(gt < k_b) & (k_b <= ge)][0])
+                else:
+                    t = _kth_by_bits(cand, k_b, lo, hi)
+        if t is None:
+            t = _kth_by_bits(u, k_b, lo, hi)
+        taus.append(np.uint32(t).view(np.float32))
+        paths.append(path)
+    return np.array(taus, np.float32).reshape(-1, 1), paths
+
+
+def _assert_same_bits(got, want):
+    nan = np.isnan(want)
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    np.testing.assert_array_equal(got[~nan].view(np.uint32),
+                                  want[~nan].view(np.uint32))
+
+
+@pytest.mark.parametrize("k_b", [1, 10, 31, 32, 33, 41, 102, 1023, 1024])
+def test_block_stats_select_emulation_matches_jax(k_b):
+    """The select of block_stats_kernel, emulated in its lane layout, is
+    bit-exact against the plain version and JAX's Pallas kernel in
+    interpret mode on rows that reach each of its paths, and each row
+    takes the path its kind predicts."""
+    kinds, x = selection_rows(k_b)
+    tau, paths = _emulate_block_stats(x, k_b)
+    _assert_same_bits(tau, ref.block_abs_topk_threshold(
+        torch.from_numpy(x), k_b).numpy())
+    # XLA on the CPU flushes subnormals in the Pallas kernel's max
+    # reduction (tau 0 for a subnormal row); JAX's jnp oracle keeps them,
+    # as the port does (ROADMAP queue 3)
+    sub = np.array([k == "subnormal" for k in kinds])
+    _assert_same_bits(tau[~sub], np.asarray(jef_topk.block_stats(
+        jnp.asarray(x[~sub]), k_b, interpret=True)))
+    _assert_same_bits(tau[sub], np.asarray(jref.block_abs_topk_threshold(
+        jnp.asarray(x[sub]).reshape(-1), k_b, 1024)).reshape(-1, 1))
+    filtered = "filter" if k_b <= 128 else "general"
+    want = {"gauss": filtered, "subnormal": filtered, "equal": "general",
+            "zeros": "general", "signed_zeros": "general",
+            "ties_under_cap": filtered, "ties_over_cap": "general",
+            "nan": "nan", "nan_inf": "nan"}
+    assert {k: p for k, p in zip(kinds, paths) if k in want} == want
+
+
+@settings(max_examples=60, deadline=None, database=None)
+@given(k_b=st.integers(1, 1024), seed=st.integers(0, 2**32 - 1),
+       distinct=st.sampled_from([1, 2, 5, 40, 300, 1024]),
+       special=st.sampled_from([0.0, np.inf, 1e-40, 1e30]),
+       n_special=st.integers(0, 1024))
+def test_block_stats_select_emulation_property(k_b, seed, distinct, special,
+                                               n_special):
+    """The emulated select against the plain version on rows drawn from a
+    pool of a few distinct magnitudes (ties), with zeros, infinities,
+    subnormals or large values mixed in."""
+    rng = np.random.default_rng(seed)
+    pool = rng.standard_normal(distinct).astype(np.float32)
+    x = rng.choice(pool, 1024) * np.where(rng.random(1024) < 0.5, 1, -1)
+    x[rng.choice(1024, n_special, replace=False)] = special
+    x = x.astype(np.float32).reshape(1, 1024)
+    tau, _ = _emulate_block_stats(x, k_b)
+    _assert_same_bits(tau, ref.block_abs_topk_threshold(
+        torch.from_numpy(x), k_b).numpy())
 
 
 @pytest.mark.parametrize("shape", [(5000,), (3, 2048), (2, 1500)])

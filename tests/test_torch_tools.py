@@ -1,0 +1,53 @@
+"""``tools/time_kernel.py`` on the CPU: its arguments, and its check of a
+build against the plain version, run with the plain version standing in
+for the CUDA launcher (the builds and the timing need the card)."""
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
+import time_kernel  # noqa: E402
+
+#: small cases of each kernel, in the arguments of its ``inputs``
+SMALL = {"block_stats": {"k10": (64, 10, "gauss"), "k102": (9, 102, "gauss"),
+                         "edge1024": (8, 1024, "edge")},
+         "wkv_forward": {"ragged": (1, 9, 2, 32, 20),
+                         "decode": (2, 1, 2, 32, 32)}}
+
+
+def test_time_kernel_arguments():
+    args = time_kernel.parse_args(["block_stats", "--extra", "a.cu", "b.cu"])
+    assert (args.kernel, args.extra) == ("block_stats", ["a.cu", "b.cu"])
+    assert time_kernel.parse_args(["wkv_forward"]).extra == []
+    with pytest.raises(SystemExit):
+        time_kernel.parse_args(["flash_attention"])
+    with pytest.raises(SystemExit):
+        time_kernel.parse_args([])
+
+
+def test_time_kernel_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal on a machine without a CUDA device")
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        time_kernel.main(["block_stats"])
+
+
+@pytest.mark.parametrize("name", sorted(time_kernel.KERNELS))
+def test_time_kernel_check_holds_a_build_to_the_plain_version(name):
+    kernel = time_kernel.KERNELS[name]
+    gen = torch.Generator().manual_seed(0)
+    data = {case: kernel.inputs(gen, "cpu", *args)
+            for case, args in SMALL[name].items()}
+    want = {case: kernel.plain(*args) for case, args in data.items()}
+    line = time_kernel.check(kernel, "plain", kernel.plain, data, want)
+    assert line.startswith("check plain: ") and line.count("0.00e+00") == \
+        len(data)
+
+    def off(*args):          # a build whose outputs are a little off
+        got = kernel.plain(*args)
+        return tuple(t * 1.001 for t in got) if isinstance(got, tuple) \
+            else got * 1.001
+    with pytest.raises(SystemExit, match="from the plain version"):
+        time_kernel.check(kernel, "off", off, data, want)

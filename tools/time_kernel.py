@@ -1,0 +1,216 @@
+#!/usr/bin/env python3
+"""Time a CUDA kernel of the port against other versions of its source on
+one card.
+
+    python3 tools/time_kernel.py KERNEL [--extra path/to/source.cu ...]
+
+KERNEL is ``block_stats`` (``csrc/ef_topk.cu``) or ``wkv_forward``
+(``csrc/rwkv_wkv.cu``).  Builds the kernel's source in
+``src/repro_torch/csrc/`` and each ``--extra`` source (an older commit's,
+unpacked with ``git archive``, say) with the port's own nvcc flags, all at
+once, into the gitignored ``src/repro_torch/_build/compare/``, and prints
+ptxas's registers and spills of every kernel each build holds.  Checks
+each build against the kernel's plain version in
+``repro_torch.kernels.ref`` at every case, then times each at the timed
+cases in turns (the builds in order, then in reverse) with
+``chip_smoke.py``'s two clocks: the median of 25 calls between CUDA
+events, host launch included, and the device time alone from the
+profiler; the library call that computes the same function, where there
+is one, is timed in the same turns.  Calls the kernels through a bare
+ctypes launcher, without the wrapper's checks.  Prints the card's name
+and power limit.
+
+Cases.  ``block_stats``: the largest CSGD leaf of paper-lm-100m, (18432,
+1024) f32 Gaussian x 1e-2, at k_b 10, 41 and 102 (gamma 1%, 4% and 10%;
+timed, beside ``torch.topk``), and the edge rows of ``chip_smoke.py``
+(NaN, +-inf, zeros, ties) at k_b 1, 10 and 1024; bit-exact, NaN where the
+plain version gives NaN.  ``wkv_forward``: rwkv6-1.6b's prefill (4, 1024,
+32, 64) and a decode step (S = 1), both timed, and a ragged (2, 65, 3, 32)
+with V = 100; atol 2e-5 on y and sT.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import subprocess
+import sys
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Callable
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+
+from chip_smoke import device_ms, special_rows, time_ms  # noqa: E402
+from repro_torch.kernels import _build, ref  # noqa: E402
+
+OUT = _build.BUILD_DIR / "compare"
+
+
+@dataclass(frozen=True)
+class Kernel:
+    source: str                   # csrc/<source>.cu
+    entry: str                    # its C launcher
+    cases: dict                   # case -> the arguments of ``inputs``
+    timed: tuple                  # the cases timed
+    inputs: Callable              # (generator, device, *case) -> inputs
+    launch: Callable              # (C launcher, *inputs) -> outputs
+    plain: Callable               # *inputs -> outputs
+    error: Callable               # (got, want) -> a float, 0 if equal
+    tol: float
+    library: Callable | None = None   # *inputs -> outputs, timed only
+
+
+def _bs_inputs(gen, device, rows, k_b, kind):
+    if kind == "edge":
+        return special_rows(device)[:rows], k_b
+    return torch.randn((rows, 1024), generator=gen, device=device) * 1e-2, \
+        k_b
+
+
+def _bs_launch(fn, x, k_b):
+    tau = torch.empty((x.shape[0], 1), device=x.device)
+    _check(fn(x.data_ptr(), tau.data_ptr(), x.shape[0], k_b,
+              _build.stream(x)))
+    return tau
+
+
+def _bs_error(got, want) -> float:
+    """The number of rows that differ (NaN equals NaN)."""
+    return float(((got != want) & ~(got.isnan() & want.isnan())).sum())
+
+
+def _wkv_inputs(gen, device, B, S, H, K, V):
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=device) * scale
+    return (randn(B, S, H, K, scale=0.3), randn(B, S, H, K, scale=0.3),
+            randn(B, S, H, V), torch.sigmoid(randn(B, S, H, K)),
+            randn(H, K, scale=0.1), randn(B, H, K, V, scale=0.1))
+
+
+def _wkv_launch(fn, r, k, v, w, u, s0):
+    B, S, H, K = r.shape
+    V = v.shape[3]
+    y = torch.empty((B, S, H, V), device=r.device)
+    sT = torch.empty((B, H, K, V), device=r.device)
+    _check(fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+              u.data_ptr(), s0.data_ptr(), y.data_ptr(), sT.data_ptr(),
+              B, S, H, K, V, _build.stream(r)))
+    return y, sT
+
+
+def _wkv_error(got, want) -> float:
+    return max(float((a - b).abs().max()) for a, b in zip(got, want))
+
+
+KERNELS = {
+    "block_stats": Kernel(
+        "ef_topk", "block_stats_launch",
+        {"k10": (18432, 10, "gauss"), "k41": (18432, 41, "gauss"),
+         "k102": (18432, 102, "gauss"), "edge1": (8, 1, "edge"),
+         "edge10": (8, 10, "edge"), "edge1024": (8, 1024, "edge")},
+        ("k10", "k41", "k102"), _bs_inputs, _bs_launch,
+        ref.block_abs_topk_threshold, _bs_error, 0.0,
+        library=lambda x, k_b: torch.topk(x.abs(), k_b, dim=1).values[
+            :, -1:]),
+    "wkv_forward": Kernel(
+        "rwkv_wkv", "wkv_forward_launch",
+        {"prefill": (4, 1024, 32, 64, 64), "decode": (4, 1, 32, 64, 64),
+         "ragged": (2, 65, 3, 32, 100)},
+        ("prefill", "decode"), _wkv_inputs, _wkv_launch,
+        ref.wkv_reference, _wkv_error, 2e-5),
+}
+
+
+def _check(err: int) -> None:
+    if err:
+        raise RuntimeError(f"CUDA error {err} at launch")
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("kernel", choices=sorted(KERNELS))
+    ap.add_argument("--extra", nargs="*", default=[],
+                    help="other versions of the kernel's source")
+    return ap.parse_args(argv)
+
+
+def build_all(sources: dict[str, Path]) -> None:
+    OUT.mkdir(parents=True, exist_ok=True)
+    procs = {name: subprocess.Popen(
+        [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(OUT / f"{name}.so"),
+         str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for name, src in sources.items()}
+    for name, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise SystemExit(f"nvcc failed for {name}:\n{log}")
+        for line in log.splitlines():
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill")):
+                print(f"  ptxas {name}: {line.strip()}")
+
+
+def launcher(kernel: Kernel, name: str) -> Callable:
+    fn = getattr(ctypes.CDLL(str(OUT / f"{name}.so")), kernel.entry)
+    fn.argtypes = _build.SIGNATURES[kernel.source][kernel.entry]
+    fn.restype = ctypes.c_int
+    return lambda *a: kernel.launch(fn, *a)
+
+
+def check(kernel: Kernel, name: str, call: Callable, data: dict,
+          want: dict) -> str:
+    """Hold ``call`` against the plain outputs ``want`` at every case;
+    raise SystemExit beyond the kernel's tolerance, else return a line
+    of the errors."""
+    errs = []
+    for case, args in data.items():
+        e = kernel.error(call(*args), want[case])
+        if not e <= kernel.tol:
+            raise SystemExit(f"{name} at {case} is {e} from the plain "
+                             f"version (tol {kernel.tol})")
+        errs.append(f"{case} {e:.2e}")
+    return f"check {name}: {', '.join(errs)}"
+
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
+    kernel = KERNELS[args.kernel]
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: this script times kernels on one")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(f"card: {smi}", flush=True)
+    sources = {"this": _build.CSRC / f"{kernel.source}.cu"}
+    for i, path in enumerate(args.extra):
+        sources[f"extra{i}"] = Path(path).resolve()
+        print(f"extra{i}: {path}")
+    build_all(sources)
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    data = {case: kernel.inputs(gen, "cuda", *c)
+            for case, c in kernel.cases.items()}
+    want = {case: kernel.plain(*a) for case, a in data.items()}
+    calls = {name: launcher(kernel, name) for name in sources}
+    for name, call in calls.items():
+        print(check(kernel, name, call, data, want), flush=True)
+    if kernel.library is not None:
+        calls["library"] = kernel.library
+    times = {(name, case, how): [] for name in calls for case in kernel.timed
+             for how in ("ms", "device")}
+    for name in list(calls) + list(reversed(calls)):
+        for case in kernel.timed:
+            call = lambda: calls[name](*data[case])  # noqa: E731
+            times[name, case, "ms"].append(time_ms(call))
+            times[name, case, "device"].append(device_ms(call))
+    for (name, case, how), t in times.items():
+        print(f"time {name} {case} {kernel.cases[case]} {how}: "
+              f"{' '.join(f'{x:.4f}' for x in t)} ms", flush=True)
+    print(f"card: {smi}")
+
+
+if __name__ == "__main__":
+    main()
