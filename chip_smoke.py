@@ -21,9 +21,10 @@ Phases, each fatal on failure (no phase catches and continues):
    to 0 just before and read just after; ``block_stats`` also checked
    and timed at the largest CSGD leaf at k_b 10, 41 and 102 (gamma 1%,
    4%, 10%) beside ``torch.topk`` (timed only), host launch included and
-   on the device alone, and the device-only times of the EF pass-1
-   kernels at k_b 41 and 102 and of the codec kernels; ptxas spills in
-   ``ef_topk.cu`` are fatal; the 3 serving
+   on the device alone; both EF pass-1 kernels checked (tau bit-exact,
+   moments within 8 ulp) and timed the same two ways at the trainer's
+   rows at k_b 10, 41 and 102; the device-only times of the codec
+   kernels; ptxas spills in ``ef_topk.cu`` are fatal; the 3 serving
    kernels at the shapes serving gives them (flash attention's bf16
    tensor-core route at qwen1.5-4b's prefill, (4, 20, 2048, 128) causal,
    and at 20 edge cases that cross every tile edge, through strided
@@ -41,9 +42,11 @@ Phases, each fatal on failure (no phase catches and continues):
    paper-lm-100m at full width — 12 layers, d_model 768, vocab 16384,
    seq 256, global batch 8, ``--compress-method block_topk`` — for 4
    steps, with every launch count set to 0 just before and read just
-   after, then 2 steps at ``--value-bits 8`` the same way;
-4b. profile one warm trainer step: device time by kernel group, the
-   device's idle share and the host time of each train_step span;
+   after, then 2 steps at ``--value-bits 8`` and 2 at ``--gamma 0.1``
+   (k_b 102, the paper's 10%) the same way;
+4b. profile one warm trainer step at gamma 0.01 and one at gamma 0.1:
+   device time by kernel group, the device's idle share and the host
+   time of each train_step span;
 4c. run single-node CSGD-ASSS (``repro_torch.core.csgd.csgd_asss``,
    ``block_topk``, gamma 0.01) on the same model and batches for 4
    steps the same way: 11 ``block_stats`` and 11 ``threshold_split``
@@ -88,7 +91,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 F32_OPS_PER_S = 67e12            # H100 SXM, f32 outside the tensor cores
 BF16_OPS_PER_S = 989e12          # H100 SXM, dense bf16 tensor cores
-MAIN_STEPS, VB8_STEPS, CSGD_STEPS = 4, 2, 4
+MAIN_STEPS, VB8_STEPS, G10_STEPS, CSGD_STEPS = 4, 2, 2, 4
 MAIN_ARGS = ["--arch", "paper-lm-100m", "--compress-method", "block_topk",
              "--seq-len", "256", "--global-batch", "8", "--log-every", "1"]
 REPLACES = {
@@ -200,7 +203,7 @@ def kernel_group(name: str) -> str:
     return "other"
 
 
-def profile_step(dev, cfg, comp) -> None:
+def profile_step(dev, cfg, comp, label="trainer") -> None:
     """One warm full-width train step under torch.profiler: device time
     by kernel group and the device's idle share of the step."""
     from repro_torch.comm.exchange import init_process_group
@@ -226,11 +229,12 @@ def profile_step(dev, cfg, comp) -> None:
     finally:
         if created:
             torch.distributed.destroy_process_group()
-    spans = report_profile("trainer", prof, wall_ms,
+    spans = report_profile(label, prof, wall_ms,
                            ("ef_stats_telemetry_kernel", "ef_apply_kernel",
                             "pack_words_kernel", "unpack_words_kernel"))
     if len(spans) != 4 or min(spans.values()) <= 0:
-        fail(f"the profiler saw train_step spans {spans}, want 4 timed")
+        fail(f"the profiler saw {label} train_step spans {spans}, want 4 "
+             "timed")
 
 
 def profiled(dev, fn):
@@ -980,14 +984,28 @@ def main() -> None:
         plain_ms=time_ms(lambda: ref.ef_block_stats(m, g, eta, k_b)),
         bytes=rows * 1024 * 8 + rows * 4, ops=rows * 1024 * 3,
         note="through ops.fused_ef_compress(telemetry=False)")
-    # the EF pass-1 kernels' rounds grow with k_b: their device time at
-    # the paper's 4% and 10%
-    print("device only (profiler) at the main path's rows: " + "; ".join(
-        f"k_b={kb} ef_stats_telemetry "
-        f"{device_ms(lambda: ef_topk.ef_stats_telemetry(m, g, eta, kb)):.4f}"
-        f" ms, ef_block_stats "
-        f"{device_ms(lambda: ef_topk.ef_block_stats(m, g, eta, kb)):.4f} ms"
-        for kb in paper_ks), flush=True)
+    # both EF pass-1 kernels at the paper's 1%, 4% and 10%: checked, then
+    # timed with the host's launch and on the device alone
+    for kb in paper_ks:
+        t1, mom1 = ef_topk.ef_stats_telemetry(m, g, eta, kb)
+        t2 = ef_topk.ef_block_stats(m, g, eta, kb)
+        rt, rm = ref.ef_block_stats_telemetry(m, g, eta, kb)
+        ulp = max_ulp(mom1.cpu().numpy(), rm.cpu().numpy())
+        if not (same(t1, rt) and same(t2, rt)) or ulp > 8:
+            fail(f"EF pass 1 at k_b={kb} differs from the plain version: "
+                 f"tau in {int((t1 != rt).sum())} and {int((t2 != rt).sum())}"
+                 f" of {rows} rows, moments {ulp} ulp (limit 8)")
+        del t1, mom1, t2, rt, rm
+        print(f"EF pass 1 ({rows}, 1024) k_b={kb}: bit-exact, moments "
+              f"{ulp} ulp; ef_stats_telemetry "
+              f"{time_ms(lambda: ef_topk.ef_stats_telemetry(m, g, eta, kb)):.4f}"
+              f" ms, device only "
+              f"{device_ms(lambda: ef_topk.ef_stats_telemetry(m, g, eta, kb)):.4f}"
+              f" ms; ef_block_stats "
+              f"{time_ms(lambda: ef_topk.ef_block_stats(m, g, eta, kb)):.4f} "
+              f"ms, device only "
+              f"{device_ms(lambda: ef_topk.ef_block_stats(m, g, eta, kb)):.4f}"
+              " ms", flush=True)
     del m, g, sent, mnew, rsent, rmnew, tau, rtau, mom, rmom, btau, rbtau
 
     W = index_words
@@ -1052,18 +1070,20 @@ def main() -> None:
 
     # ---- 4. the trainer at full width through the kernels ---------------
     runs = {}
-    for label, bits, steps, per_step in (
-            ("main", 32, MAIN_STEPS, dict(ef_stats_telemetry=1, ef_apply=1,
-                                          pack_words=1, unpack_words=1)),
-            ("value-bits 8", 8, VB8_STEPS,
+    one_codec = dict(ef_stats_telemetry=1, ef_apply=1, pack_words=1,
+                     unpack_words=1)
+    for label, gamma, bits, steps, per_step in (
+            ("main", 0.01, 32, MAIN_STEPS, one_codec),
+            ("value-bits 8", 0.01, 8, VB8_STEPS,
              dict(ef_stats_telemetry=1, ef_apply=1, pack_words=2,
-                  unpack_words=2))):
+                  unpack_words=2)),
+            ("gamma 0.1", 0.1, 32, G10_STEPS, one_codec)):
         want_bytes = step_wire_bytes(shapes, stacked, Compressor(
-            gamma=0.01, method="block_topk", value_bits=bits))
+            gamma=gamma, method="block_topk", value_bits=bits))
         torch.cuda.reset_peak_memory_stats(dev)
         ops.reset_launch_counts()
-        log = train.main(MAIN_ARGS + ["--value-bits", str(bits),
-                                      "--steps", str(steps)])
+        log = train.main(MAIN_ARGS + ["--gamma", str(gamma), "--value-bits",
+                                      str(bits), "--steps", str(steps)])
         counts = ops.launch_counts()
         peak = torch.cuda.max_memory_allocated(dev)
         runs[label] = counts
@@ -1079,13 +1099,15 @@ def main() -> None:
         if not all(np.isfinite(x["loss"]) for x in log):
             fail(f"[{label}] non-finite loss: {[x['loss'] for x in log]}")
         if any(x["wire_bytes"] != want_bytes for x in log):
-            fail(f"wire bytes {[x['wire_bytes'] for x in log]} != "
-                 f"accounted {want_bytes}")
+            fail(f"[{label}] wire bytes {[x['wire_bytes'] for x in log]} "
+                 f"!= accounted {want_bytes}")
         if any(x["steps_skipped"] for x in log):
             fail(f"[{label}] steps were skipped by the finite check")
 
     # ---- 4b. where one step's device time goes ---------------------------
     profile_step(dev, cfg, comp)
+    profile_step(dev, cfg, Compressor(gamma=0.1, method="block_topk"),
+                 "trainer gamma 0.1")
 
     # ---- 4c. single-node CSGD-ASSS at full width through its kernels -----
     csgd_counts = run_csgd(dev, cfg, comp, CSGD_STEPS)

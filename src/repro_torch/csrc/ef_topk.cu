@@ -18,17 +18,13 @@
 // pass-1 kernel gives each row to one warp that keeps the row's 1024
 // magnitudes in registers (32 per lane, 16-byte loads).
 //
-// ef_stats_telemetry and ef_block_stats share one body (pass1_row): k_b
-// rounds of a warp max-reduce over (value, column) pairs, each knocking
-// out one element as _kth_largest does; on an H100 these rounds, not the
-// bytes, set their time, and it grows with k_b (PERF.md).
-//
-// block_stats selects by value alone (block_stats_kernel).  Every caller
-// uses only tau, the value of the k_b-th largest |x|, and that value does
-// not depend on which of several tied elements a round would knock out,
-// so no column is kept.  The sign-cleared bit pattern of a non-NaN |x|
-// orders like its value as a uint32 (+0 lowest, +inf 0x7f800000 above
-// every finite value), so the select runs on integers and is exact:
+// The three pass-1 kernels share one select by value (select_kth).
+// Every caller uses only tau, the value of the k_b-th largest magnitude
+// (ef_apply keeps |acc| >= tau), and that value does not depend on which
+// of several tied elements a knock-out round would take, so no column is
+// kept.  The sign-cleared bit pattern of a non-NaN magnitude orders like
+// its value as a uint32 (+0 lowest, +inf 0x7f800000 above every finite
+// value), so the select runs on integers and is exact:
 //   * the general path sets tau's bits from the top down, one warp count
 //     (__reduce_add_sync) per bit over all 32 values a lane: at most 31
 //     counts whatever k_b;
@@ -42,14 +38,18 @@
 //     values a lane instead of 32.  Otherwise (ties at the top,
 //     near-constant rows) it takes the general path from L.
 // Neither path's cost grows with k_b.  On Gaussian rows the filter keeps
-// about 12, 49 and 123 candidates at k_b = 10, 41 and 102, and at k_b =
-// 10 the bytes bound the kernel (PERF.md: its device time is 1.2x the
-// byte bound, the k_b = 102 one 1.6x).  The warps share no barrier, so a
-// warp past the last row returns at once.
+// about 12, 49 and 123 candidates at k_b = 10, 41 and 102, and the bytes
+// bound the kernels: on one H100 80GB HBM3 at 700 W (PERF.md §6) the
+// device time is 1.2x the byte bound at k_b = 10 and 1.6x at 102 for
+// block_stats, 1.07x and 1.22x for ef_stats_telemetry, 1.05x and 1.08x
+// for ef_block_stats.  The warps share no barrier, so a warp past the
+// last row returns at once.
 //
 // NaN rule: a row holding a NaN magnitude gets tau = NaN, as the TPU
 // kernel gives it (its per-round max propagates NaN and then knocks
-// nothing out); no selection runs for such a row.  Infinities rank
+// nothing out); no selection runs for such a row.  A NaN's pattern lies
+// above +inf's, so the row's largest pattern tells; for the EF pair that
+// includes the NaN that inf - inf gives in the fma.  Infinities rank
 // like any other value.
 //
 // acc is formed with an explicit fused multiply-add, __fmaf_rn(eta, g, m):
@@ -60,7 +60,9 @@
 //
 // The moments are accumulated in double (each f32 square is exact there)
 // and rounded once, so they sit within an ulp of the exact sums; the f32
-// reference sums differ from them by their own rounding, a few ulp.
+// reference sums differ from them by their own rounding, a few ulp.  They
+// are summed and written before the select, so the two f64 sums are dead
+// during it.
 //
 // Each entry point returns cudaGetLastError() after its launch.
 
@@ -71,145 +73,9 @@
 namespace {
 
 constexpr int kCols = 1024;
-constexpr int kPerLane = kCols / 32;      // 32 |acc| values per lane
+constexpr int kPerLane = kCols / 32;      // 32 magnitudes per lane
 constexpr int kWarpsPerBlock = 8;
 constexpr unsigned kFull = 0xffffffffu;
-
-// Column of register slot s of a lane: slot s = 4*c + j holds column
-// (c*32 + lane)*4 + j, the j-th float of the lane's c-th float4.
-__device__ __forceinline__ int slot_col(int s, int lane) {
-  return ((s >> 2) * 32 + lane) * 4 + (s & 3);
-}
-
-// Lane-local maximum; the lowest slot wins ties, and slot order is
-// column order within a lane.
-__device__ __forceinline__ void lane_best(const float (&mag)[kPerLane],
-                                          float& best, int& best_slot) {
-  best = mag[0];
-  best_slot = 0;
-#pragma unroll
-  for (int s = 1; s < kPerLane; ++s) {
-    if (mag[s] > best) {
-      best = mag[s];
-      best_slot = s;
-    }
-  }
-}
-
-// The EF pass-1 body: one warp per block row, magnitudes |fma(eta, g, m)|.
-// kMoments: also write [sum g^2, sum acc^2] per row.
-template <bool kMoments>
-__device__ __forceinline__ void pass1_row(const float* __restrict__ m,
-                                          const float* __restrict__ g,
-                                          const float* __restrict__ eta_ptr,
-                                          float* __restrict__ tau,
-                                          float* __restrict__ moments,
-                                          long long rows, int k_b) {
-  const int lane = threadIdx.x & 31;
-  const long long row =
-      (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= rows) return;  // whole warps exit together
-  const float4* m4 = reinterpret_cast<const float4*>(m + row * kCols);
-  const float4* g4 = reinterpret_cast<const float4*>(g + row * kCols);
-  const float eta = *eta_ptr;
-
-  float mag[kPerLane];
-  double sum_g = 0.0, sum_acc = 0.0;
-  bool has_nan = false;
-#pragma unroll
-  for (int c = 0; c < kPerLane / 4; ++c) {
-    float4 v = m4[c * 32 + lane];
-    const float4 gv = g4[c * 32 + lane];
-    v.x = __fmaf_rn(eta, gv.x, v.x);
-    v.y = __fmaf_rn(eta, gv.y, v.y);
-    v.z = __fmaf_rn(eta, gv.z, v.z);
-    v.w = __fmaf_rn(eta, gv.w, v.w);
-    if constexpr (kMoments) {
-      sum_g = fma((double)gv.x, (double)gv.x, sum_g);
-      sum_g = fma((double)gv.y, (double)gv.y, sum_g);
-      sum_g = fma((double)gv.z, (double)gv.z, sum_g);
-      sum_g = fma((double)gv.w, (double)gv.w, sum_g);
-      sum_acc = fma((double)v.x, (double)v.x, sum_acc);
-      sum_acc = fma((double)v.y, (double)v.y, sum_acc);
-      sum_acc = fma((double)v.z, (double)v.z, sum_acc);
-      sum_acc = fma((double)v.w, (double)v.w, sum_acc);
-    }
-    mag[4 * c + 0] = fabsf(v.x);
-    mag[4 * c + 1] = fabsf(v.y);
-    mag[4 * c + 2] = fabsf(v.z);
-    mag[4 * c + 3] = fabsf(v.w);
-    has_nan |= isnan(v.x) | isnan(v.y) | isnan(v.z) | isnan(v.w);
-  }
-
-  float kth = NAN;
-  if (!__any_sync(kFull, has_nan)) {
-    // k_b rounds: the warp's largest remaining (value, column) pair,
-    // lowest column on ties, is knocked out -- exactly one element per
-    // round, as in _kth_largest, so duplicated magnitudes count like
-    // lax.top_k's.
-    float best;
-    int best_slot;
-    lane_best(mag, best, best_slot);
-    for (int r = 0; r < k_b; ++r) {
-      float v = best;
-      int col = slot_col(best_slot, lane);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float v2 = __shfl_xor_sync(kFull, v, off);
-        const int c2 = __shfl_xor_sync(kFull, col, off);
-        if (v2 > v || (v2 == v && c2 < col)) {
-          v = v2;
-          col = c2;
-        }
-      }
-      kth = v;
-      if (((col >> 2) & 31) == lane) {  // this lane owns the winner
-        const int s = (col >> 7) * 4 + (col & 3);
-#pragma unroll
-        for (int t = 0; t < kPerLane; ++t) {
-          if (t == s) mag[t] = -INFINITY;
-        }
-        lane_best(mag, best, best_slot);
-      }
-    }
-  }
-
-  if constexpr (kMoments) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      sum_g += __shfl_xor_sync(kFull, sum_g, off);
-      sum_acc += __shfl_xor_sync(kFull, sum_acc, off);
-    }
-  }
-  if (lane == 0) {
-    tau[row] = kth;
-    if constexpr (kMoments) {
-      moments[2 * row + 0] = (float)sum_g;
-      moments[2 * row + 1] = (float)sum_acc;
-    }
-  }
-}
-
-// One kernel name per entry point, so that a trace names the TPU kernel
-// each one replaces.
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-ef_stats_telemetry_kernel(const float* __restrict__ m,
-                          const float* __restrict__ g,
-                          const float* __restrict__ eta,
-                          float* __restrict__ tau,
-                          float* __restrict__ moments, long long rows,
-                          int k_b) {
-  pass1_row<true>(m, g, eta, tau, moments, rows, k_b);
-}
-
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-ef_block_stats_kernel(const float* __restrict__ m,
-                      const float* __restrict__ g,
-                      const float* __restrict__ eta,
-                      float* __restrict__ tau, long long rows, int k_b) {
-  pass1_row<false>(m, g, eta, tau, nullptr, rows, k_b);
-}
-
 constexpr unsigned kAbs = 0x7fffffffu;   // clears the sign bit
 constexpr unsigned kInf = 0x7f800000u;   // |x| above this is NaN
 constexpr int kCap = 256;                // candidates a warp compacts
@@ -276,27 +142,15 @@ __device__ __forceinline__ unsigned select_candidates(const unsigned* cand,
   return kth_by_bits<N>(v, k, lo, hi);
 }
 
-// block_stats' own body (see the note at the top of this file).
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-block_stats_kernel(const float* __restrict__ x, float* __restrict__ tau,
-                   long long rows, int k_b) {
-  __shared__ unsigned cand[kWarpsPerBlock][kCap];
+// The select shared by the pass-1 kernels (see the note at the top of
+// this file): tau, the k_b-th largest of the row's 1024 sign-cleared
+// patterns, 32 a lane in u (slot 4c + j: column (c*32 + lane)*4 + j), or
+// NaN for a row holding a NaN.  mine: the warp's kCap slots of shared
+// memory.  Called by the whole warp.
+__device__ __forceinline__ float select_kth(const unsigned (&u)[kPerLane],
+                                            int k_b, unsigned* mine) {
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const long long row = (long long)blockIdx.x * kWarpsPerBlock + warp;
-  if (row >= rows) return;  // no barrier below: warps are independent
-  const uint4* x4 = reinterpret_cast<const uint4*>(x + row * kCols);
-
-  unsigned u[kPerLane];   // slot 4c + j: column (c*32 + lane)*4 + j
   unsigned lane_max = 0u;
-#pragma unroll
-  for (int c = 0; c < kPerLane / 4; ++c) {
-    const uint4 v = x4[c * 32 + lane];
-    u[4 * c + 0] = v.x & kAbs;
-    u[4 * c + 1] = v.y & kAbs;
-    u[4 * c + 2] = v.z & kAbs;
-    u[4 * c + 3] = v.w & kAbs;
-  }
 #pragma unroll
   for (int s = 0; s < kPerLane; ++s) lane_max = max(lane_max, u[s]);
   // a NaN's pattern lies above +inf's, so the row's largest pattern
@@ -323,7 +177,6 @@ block_stats_kernel(const float* __restrict__ x, float* __restrict__ tau,
           if (lane >= d) at += up;
         }
         at -= n;
-        unsigned* mine = cand[warp];
 #pragma unroll
         for (int s = 0; s < kPerLane; ++s) {
           if (u[s] >= lo) mine[at++] = u[s];
@@ -351,6 +204,109 @@ block_stats_kernel(const float* __restrict__ x, float* __restrict__ tau,
     if (!done) t = kth_by_bits<kPerLane>(u, k_b, lo, hi);
     kth = __uint_as_float(t);
   }
+  return kth;
+}
+
+// The EF pass-1 body: one warp per block row, the patterns of
+// |fma(eta, g, m)|.  kMoments: also write [sum g^2, sum acc^2] per row.
+template <bool kMoments>
+__device__ __forceinline__ void pass1_row(const float* __restrict__ m,
+                                          const float* __restrict__ g,
+                                          const float* __restrict__ eta_ptr,
+                                          float* __restrict__ tau,
+                                          float* __restrict__ moments,
+                                          long long rows, int k_b,
+                                          unsigned (*cand)[kCap]) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long row = (long long)blockIdx.x * kWarpsPerBlock + warp;
+  if (row >= rows) return;  // no barrier below: warps are independent
+  const float4* m4 = reinterpret_cast<const float4*>(m + row * kCols);
+  const float4* g4 = reinterpret_cast<const float4*>(g + row * kCols);
+  const float eta = *eta_ptr;
+
+  unsigned u[kPerLane];   // slot 4c + j: column (c*32 + lane)*4 + j
+  double sum_g = 0.0, sum_acc = 0.0;
+#pragma unroll
+  for (int c = 0; c < kPerLane / 4; ++c) {
+    float4 v = m4[c * 32 + lane];
+    const float4 gv = g4[c * 32 + lane];
+    v.x = __fmaf_rn(eta, gv.x, v.x);
+    v.y = __fmaf_rn(eta, gv.y, v.y);
+    v.z = __fmaf_rn(eta, gv.z, v.z);
+    v.w = __fmaf_rn(eta, gv.w, v.w);
+    if constexpr (kMoments) {
+      sum_g = fma((double)gv.x, (double)gv.x, sum_g);
+      sum_g = fma((double)gv.y, (double)gv.y, sum_g);
+      sum_g = fma((double)gv.z, (double)gv.z, sum_g);
+      sum_g = fma((double)gv.w, (double)gv.w, sum_g);
+      sum_acc = fma((double)v.x, (double)v.x, sum_acc);
+      sum_acc = fma((double)v.y, (double)v.y, sum_acc);
+      sum_acc = fma((double)v.z, (double)v.z, sum_acc);
+      sum_acc = fma((double)v.w, (double)v.w, sum_acc);
+    }
+    u[4 * c + 0] = __float_as_uint(v.x) & kAbs;
+    u[4 * c + 1] = __float_as_uint(v.y) & kAbs;
+    u[4 * c + 2] = __float_as_uint(v.z) & kAbs;
+    u[4 * c + 3] = __float_as_uint(v.w) & kAbs;
+  }
+  if constexpr (kMoments) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      sum_g += __shfl_xor_sync(kFull, sum_g, off);
+      sum_acc += __shfl_xor_sync(kFull, sum_acc, off);
+    }
+    if (lane == 0) {
+      moments[2 * row + 0] = (float)sum_g;
+      moments[2 * row + 1] = (float)sum_acc;
+    }
+  }
+  const float kth = select_kth(u, k_b, cand[warp]);
+  if (lane == 0) tau[row] = kth;
+}
+
+// One kernel name per entry point, so that a trace names the TPU kernel
+// each one replaces.
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+ef_stats_telemetry_kernel(const float* __restrict__ m,
+                          const float* __restrict__ g,
+                          const float* __restrict__ eta,
+                          float* __restrict__ tau,
+                          float* __restrict__ moments, long long rows,
+                          int k_b) {
+  __shared__ unsigned cand[kWarpsPerBlock][kCap];
+  pass1_row<true>(m, g, eta, tau, moments, rows, k_b, cand);
+}
+
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+ef_block_stats_kernel(const float* __restrict__ m,
+                      const float* __restrict__ g,
+                      const float* __restrict__ eta,
+                      float* __restrict__ tau, long long rows, int k_b) {
+  __shared__ unsigned cand[kWarpsPerBlock][kCap];
+  pass1_row<false>(m, g, eta, tau, nullptr, rows, k_b, cand);
+}
+
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+block_stats_kernel(const float* __restrict__ x, float* __restrict__ tau,
+                   long long rows, int k_b) {
+  __shared__ unsigned cand[kWarpsPerBlock][kCap];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long row = (long long)blockIdx.x * kWarpsPerBlock + warp;
+  if (row >= rows) return;  // no barrier below: warps are independent
+  const uint4* x4 = reinterpret_cast<const uint4*>(x + row * kCols);
+
+  unsigned u[kPerLane];   // slot 4c + j: column (c*32 + lane)*4 + j
+#pragma unroll
+  for (int c = 0; c < kPerLane / 4; ++c) {
+    const uint4 v = x4[c * 32 + lane];
+    u[4 * c + 0] = v.x & kAbs;
+    u[4 * c + 1] = v.y & kAbs;
+    u[4 * c + 2] = v.z & kAbs;
+    u[4 * c + 3] = v.w & kAbs;
+  }
+  const float kth = select_kth(u, k_b, cand[warp]);
   if (lane == 0) tau[row] = kth;
 }
 

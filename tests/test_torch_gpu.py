@@ -142,6 +142,88 @@ def selection_rows(k_b):
         np.float32)
 
 
+def _lowest_bit_exponent(x):
+    """e with 2^e the lowest set bit of each finite nonzero f32 x."""
+    b = x.view(np.uint32) & np.uint32(0x7fffffff)
+    e = (b >> 23).astype(np.int64)
+    mant = (b & 0x7fffff).astype(np.int64)
+    mant = np.where(e > 0, mant | 0x800000, mant)
+    mant = np.where(mant == 0, 1, mant)
+    return np.where(e > 0, e - 150, -149) + np.log2(mant & -mant).astype(
+        np.int64)
+
+
+def ef_inputs(x, eta, seed):
+    """(m, g) f32 whose EF accumulators fma(eta, g, m) are the rows x bit
+    for bit (any NaN for a NaN), made by cancellation: for finite nonzero
+    x, g = +-2^j with j = (x's lowest bit) - (eta's exponent) + 23, so
+    eta*g and m = x - eta*g are exact multiples of x's lowest bit below
+    2^24 of it, and the fma gives x back; +0 from m = -eta*g, -0 from
+    m = g = -0; inf and NaN from m = x with a Gaussian g."""
+    rng = np.random.default_rng(seed)
+    e = np.float32(eta)
+    finite = np.isfinite(x) & (x != 0)
+    j = np.where(finite, _lowest_bit_exponent(x) - (np.frexp(e)[1] - 1)
+                 + 23, rng.integers(-20, 20, x.shape))
+    g = np.ldexp(np.where(np.signbit(x), -1.0, 1.0), j)
+    g = np.where(np.isfinite(x), g, rng.standard_normal(x.shape))
+    g = np.where((x == 0) & np.signbit(x), -0.0, g).astype(np.float32)
+    m = np.where(np.isfinite(x) & ~((x == 0) & np.signbit(x)),
+                 x.astype(np.float64) - np.float64(e) * g, x).astype(
+                     np.float32)
+    acc = ref.ef_acc(torch.from_numpy(m), torch.from_numpy(g),
+                     torch.tensor([e])).numpy()
+    assert ((acc.view(np.uint32) == x.view(np.uint32))
+            | (np.isnan(acc) & np.isnan(x))).all()
+    return m, g
+
+
+def pass1_rows(k_b, eta=0.0345):
+    """(kinds, m, g): the rows of selection_rows(k_b) as the accumulators
+    fma(eta, g, m) of EF pass 1 (ef_inputs: ties, zeros and subnormals
+    made by cancellation), then 'inf_minus_inf', whose NaN the fma makes
+    from m = +inf and g = -inf, and 'trainer', drawn as the trainer's m ~
+    N(0, 1e-3) and g ~ N(0, 1e-2), which the fma rounds."""
+    kinds, x = selection_rows(k_b)
+    m, g = ef_inputs(x, eta, 2000 + k_b)
+    rng = np.random.default_rng(3000 + k_b)
+    inf_m = (rng.standard_normal(1024) * 1e-3).astype(np.float32)
+    inf_g = (rng.standard_normal(1024) * 1e-2).astype(np.float32)
+    inf_m[[5, 900]], inf_g[[5, 900]] = np.inf, -np.inf
+    tr_m = (rng.standard_normal(1024) * 1e-3).astype(np.float32)
+    tr_g = (rng.standard_normal(1024) * 1e-2).astype(np.float32)
+    return kinds + ["inf_minus_inf", "trainer"], \
+        np.concatenate([m, inf_m[None], tr_m[None]]), \
+        np.concatenate([g, inf_g[None], tr_g[None]])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [1, 7, 9, 300])
+@pytest.mark.parametrize("k_b", SELECT_KS)
+def test_ef_pass1_select_paths_on_card(cuda, k_b, rows):
+    """Both EF pass-1 kernels on the accumulator rows that reach each path
+    of the select (pass1_rows), cycled to a row count ragged against the
+    kernels' 8 warps a block: tau bit-exact, NaN exactly where a row's
+    accumulator holds a NaN; the moments within 8 ulp where finite and
+    equal (NaN as NaN) elsewhere."""
+    _, m, g = pass1_rows(k_b)
+    m, g = (torch.from_numpy(np.resize(t, (rows, 1024))).to(cuda)
+            for t in (m, g))
+    eta = torch.tensor([0.0345], device=cuda)
+    tau, mom = ef_topk.ef_stats_telemetry(m, g, eta, k_b)
+    rtau, rmom = ref.ef_block_stats_telemetry(m, g, eta, k_b)
+    torch.testing.assert_close(tau, rtau, rtol=0, atol=0, equal_nan=True)
+    torch.testing.assert_close(ef_topk.ef_block_stats(m, g, eta, k_b), rtau,
+                               rtol=0, atol=0, equal_nan=True)
+    assert torch.equal(tau.isnan().ravel(),
+                       ref.ef_acc(m, g, eta).isnan().any(1))
+    fin = rmom.isfinite()
+    np.testing.assert_array_max_ulp(mom[fin].cpu().numpy(),
+                                    rmom[fin].cpu().numpy(), maxulp=8)
+    torch.testing.assert_close(mom[~fin], rmom[~fin], rtol=0, atol=0,
+                               equal_nan=True)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("rows", [1, 7, 9, 300])
 @pytest.mark.parametrize("k_b", [1, 10, 31, 32, 33, 41, 102, 1023, 1024])

@@ -35,7 +35,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import dispatch, ops, ref
 from repro_torch.kernels import ef_topk, wire_pack
-from test_torch_gpu import selection_rows
+from test_torch_gpu import ef_inputs, pass1_rows, selection_rows
 
 torch.set_num_threads(2)
 
@@ -139,9 +139,9 @@ def test_selection_plain_versions_follow_the_kernels_nan_rule(k_b):
     np.testing.assert_array_equal(np.asarray(jr), tr.numpy())
 
 
-# block_stats' select in csrc/ef_topk.cu, emulated on the uint32 patterns
-# of |x| in the kernel's lane layout: slot s of lane l holds column
-# ((s >> 2) * 32 + l) * 4 + (s & 3).
+# The pass-1 kernels' select in csrc/ef_topk.cu (select_kth), emulated on
+# the sign-cleared uint32 patterns of a row in the kernels' lane layout:
+# slot s of lane l holds column ((s >> 2) * 32 + l) * 4 + (s & 3).
 _SLOT = np.arange(32)
 _LANE_COLS = ((_SLOT[None, :] >> 2) * 32 + np.arange(32)[:, None]) * 4 \
     + (_SLOT[None, :] & 3)                       # (lane, slot) -> column
@@ -162,11 +162,12 @@ def _kth_by_bits(v, k, lo, hi, stop=0):
     return t
 
 
-def _emulate_block_stats(x, k_b):
+def _emulate_select(patterns, k_b):
     """(tau (R, 1) f32, the path of each row: 'nan', 'filter' or
-    'general') as block_stats_kernel computes them."""
+    'general') as select_kth computes them from (R, 1024) sign-cleared
+    patterns."""
     taus, paths = [], []
-    for u in x.view(np.uint32) & np.uint32(0x7fffffff):
+    for u in patterns:
         hi = int(u.max())
         if hi > 0x7f800000:                      # a NaN in the row
             taus.append(np.float32(np.nan))
@@ -194,6 +195,49 @@ def _emulate_block_stats(x, k_b):
         taus.append(np.uint32(t).view(np.float32))
         paths.append(path)
     return np.array(taus, np.float32).reshape(-1, 1), paths
+
+
+def _emulate_block_stats(x, k_b):
+    """block_stats_kernel: the select on the patterns of |x|."""
+    return _emulate_select(x.view(np.uint32) & np.uint32(0x7fffffff), k_b)
+
+
+def _emulate_pass1(m, g, eta, k_b):
+    """(tau, moments, paths) as the EF pass-1 kernels compute them: acc =
+    fma(eta, g, m) rounded once (ref.ef_acc), the select on the patterns of
+    |acc|, and the moments [sum g^2, sum acc^2] summed in f64 as a lane
+    does (its 32 slots in load order; each f32 square is exact in f64, so
+    a sum and an fma agree), then the warp's xor-shuffle sum, rounded to
+    f32 once."""
+    acc = ref.ef_acc(torch.from_numpy(m), torch.from_numpy(g),
+                     torch.tensor([eta])).numpy()
+    tau, paths = _emulate_select(acc.view(np.uint32)
+                                 & np.uint32(0x7fffffff), k_b)
+    moments = []
+    for v in (g, acc):
+        sq = v.astype(np.float64)[:, _LANE_COLS] ** 2      # (R, lane, slot)
+        lane = np.zeros(sq.shape[:2])
+        for s in range(32):
+            lane = lane + sq[:, :, s]
+        for off in (16, 8, 4, 2, 1):
+            lane = lane + lane[:, np.arange(32) ^ off]
+        with np.errstate(over="ignore"):       # inf, as the kernel rounds
+            moments.append(lane[:, 0].astype(np.float32))
+    return tau, np.stack(moments, axis=1), paths
+
+
+def _flushed(a):
+    """a with its subnormal values flushed to zero of their sign, as XLA
+    on the CPU treats subnormal inputs and results."""
+    return np.where(np.abs(a) < np.float32(2.0**-126),
+                    np.copysign(np.float32(0.0), a), a).astype(np.float32)
+
+
+def _assert_moments(got, want):
+    """8 ulp where a moment is finite, equal (NaN as NaN) elsewhere."""
+    fin = np.isfinite(want)
+    np.testing.assert_array_max_ulp(got[fin], want[fin], maxulp=8)
+    np.testing.assert_array_equal(got[~fin], want[~fin])
 
 
 def _assert_same_bits(got, want):
@@ -247,6 +291,84 @@ def test_block_stats_select_emulation_property(k_b, seed, distinct, special,
     tau, _ = _emulate_block_stats(x, k_b)
     _assert_same_bits(tau, ref.block_abs_topk_threshold(
         torch.from_numpy(x), k_b).numpy())
+
+
+@pytest.mark.parametrize("k_b", [1, 10, 31, 32, 33, 41, 102, 1023, 1024])
+def test_ef_pass1_select_emulation_matches_jax(k_b):
+    """The EF pass-1 kernels emulated in their lane layout (the select of
+    block_stats on the patterns of |fma(eta, g, m)|, the moments in the
+    kernels' order) on accumulators that reach each path of the select,
+    ties, zeros and subnormals made by cancellation: tau bit-exact against
+    the plain version and JAX's ef_stats_telemetry and ef_block_stats in
+    interpret mode, the moments within 8 ulp of both, and each row on the
+    path its kind predicts.  XLA on the CPU flushes subnormal inputs and
+    results, so on the subnormal row JAX (its jnp oracle and its Pallas
+    kernel alike) selects among the accumulators eta*g + m formed from
+    flushed operands and flushed again, while the port keeps them, as
+    the card does (ROADMAP queue 3)."""
+    kinds, m, g = pass1_rows(k_b)
+    eta = np.float32(0.0345)
+    tau, moments, paths = _emulate_pass1(m, g, eta, k_b)
+    tm, tg, teta = torch.from_numpy(m), torch.from_numpy(g), \
+        torch.tensor([eta])
+    rtau, rmom = ref.ef_block_stats_telemetry(tm, tg, teta, k_b)
+    _assert_same_bits(tau, rtau.numpy())
+    _assert_same_bits(tau, ref.ef_block_stats(tm, tg, teta, k_b).numpy())
+    _assert_moments(moments, rmom.numpy())
+
+    sub = np.array([k == "subnormal" for k in kinds])
+    jm, jg, jeta = jnp.asarray(m), jnp.asarray(g), jnp.float32(eta)
+    jtau, jmom = jef_topk.ef_stats_telemetry(jm, jg, jeta, k_b,
+                                             interpret=True)
+    jtau2 = jef_topk.ef_block_stats(jm, jg, jeta, k_b, interpret=True)
+    _assert_same_bits(tau[~sub], np.asarray(jtau)[~sub])
+    _assert_same_bits(tau[~sub], np.asarray(jtau2)[~sub])
+    _assert_moments(moments, np.asarray(jmom))
+    # the subnormal row: JAX's oracle and kernel select among the flushed
+    # accumulators; the port's tau is a subnormal value of the unflushed
+    acc_xla = _flushed(_flushed(m[sub]) + _flushed(eta * _flushed(g[sub])))
+    want_xla, _ = _emulate_select(acc_xla.view(np.uint32)
+                                  & np.uint32(0x7fffffff), k_b)
+    oracle, _ = jref.ef_block_stats_telemetry(jnp.asarray(m[sub]),
+                                              jnp.asarray(g[sub]), jeta, k_b)
+    _assert_same_bits(want_xla, np.asarray(oracle))
+    _assert_same_bits(want_xla, np.asarray(jtau)[sub])
+    assert 0 < tau[sub][0, 0] < 2.0**-126
+
+    filtered = "filter" if k_b <= 128 else "general"
+    want = {"gauss": filtered, "subnormal": filtered, "equal": "general",
+            "zeros": "general", "signed_zeros": "general",
+            "ties_under_cap": filtered, "ties_over_cap": "general",
+            "nan": "nan", "nan_inf": "nan", "inf_minus_inf": "nan",
+            "trainer": filtered}
+    assert {k: p for k, p in zip(kinds, paths) if k in want} == want
+
+
+@settings(max_examples=40, deadline=None, database=None)
+@given(k_b=st.integers(1, 1024), seed=st.integers(0, 2**32 - 1),
+       distinct=st.sampled_from([1, 2, 5, 40, 300, 1024]),
+       special=st.sampled_from([0.0, np.inf, 1e-40, 1e30]),
+       n_special=st.integers(0, 1024), n_rounded=st.integers(0, 1024))
+def test_ef_pass1_select_emulation_property(k_b, seed, distinct, special,
+                                            n_special, n_rounded):
+    """The emulated EF pass-1 select against the plain version on
+    accumulators drawn as in the block_stats property (a pool of a few
+    magnitudes, zeros, infinities, subnormals or large values mixed in),
+    formed exactly by cancellation, with n_rounded of them moved off it:
+    m scaled by 1 + 2^-10, which the fma then rounds."""
+    rng = np.random.default_rng(seed)
+    pool = rng.standard_normal(distinct).astype(np.float32)
+    x = rng.choice(pool, 1024) * np.where(rng.random(1024) < 0.5, 1, -1)
+    x[rng.choice(1024, n_special, replace=False)] = special
+    x = x.astype(np.float32).reshape(1, 1024)
+    eta = np.float32(0.0345)
+    m, g = ef_inputs(x, eta, seed)
+    moved = rng.choice(1024, n_rounded, replace=False)
+    m[0, moved] *= np.float32(1 + 2.0**-10)
+    tau, _, _ = _emulate_pass1(m, g, eta, k_b)
+    _assert_same_bits(tau, ref.ef_block_stats_telemetry(
+        torch.from_numpy(m), torch.from_numpy(g), torch.tensor([eta]),
+        k_b)[0].numpy())
 
 
 @pytest.mark.parametrize("shape", [(5000,), (3, 2048), (2, 1500)])

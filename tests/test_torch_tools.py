@@ -13,6 +13,11 @@ import time_kernel  # noqa: E402
 #: small cases of each kernel, in the arguments of its ``inputs``
 SMALL = {"block_stats": {"k10": (64, 10, "gauss"), "k102": (9, 102, "gauss"),
                          "edge1024": (8, 1024, "edge")},
+         "ef_stats_telemetry": {"k10": (64, 10, "gauss"),
+                                "k102": (9, 102, "gauss"),
+                                "edge1024": (8, 1024, "edge")},
+         "ef_block_stats": {"k41": (33, 41, "gauss"),
+                            "edge1": (8, 1, "edge")},
          "wkv_forward": {"ragged": (1, 9, 2, 32, 20),
                          "decode": (2, 1, 2, 32, 32)}}
 
@@ -21,6 +26,8 @@ def test_time_kernel_arguments():
     args = time_kernel.parse_args(["block_stats", "--extra", "a.cu", "b.cu"])
     assert (args.kernel, args.extra) == ("block_stats", ["a.cu", "b.cu"])
     assert time_kernel.parse_args(["wkv_forward"]).extra == []
+    for name in ("ef_stats_telemetry", "ef_block_stats"):
+        assert time_kernel.parse_args([name]).kernel == name
     with pytest.raises(SystemExit):
         time_kernel.parse_args(["flash_attention"])
     with pytest.raises(SystemExit):
@@ -45,9 +52,28 @@ def test_time_kernel_check_holds_a_build_to_the_plain_version(name):
     assert line.startswith("check plain: ") and line.count("0.00e+00") == \
         len(data)
 
-    def off(*args):          # a build whose outputs are a little off
+    with pytest.raises(SystemExit, match="from the plain version"):
+        time_kernel.check(kernel, "off", _off(kernel), data, want)
+
+
+def _off(kernel):
+    """A build whose outputs are a little off the plain version's."""
+    def call(*args):
         got = kernel.plain(*args)
         return tuple(t * 1.001 for t in got) if isinstance(got, tuple) \
             else got * 1.001
-    with pytest.raises(SystemExit, match="from the plain version"):
-        time_kernel.check(kernel, "off", off, data, want)
+    return call
+
+
+@pytest.mark.parametrize("name", sorted(time_kernel.KERNELS))
+def test_time_kernel_says_whether_builds_are_bit_identical(name):
+    kernel = time_kernel.KERNELS[name]
+    gen = torch.Generator().manual_seed(1)
+    data = {case: kernel.inputs(gen, "cpu", *args)
+            for case, args in SMALL[name].items()}
+    assert time_kernel.identical("extra0", kernel.plain, kernel.plain,
+                                 data) == \
+        "bits extra0 vs this: identical at every case"
+    assert time_kernel.identical("extra0", _off(kernel), kernel.plain,
+                                 data) == \
+        f"bits extra0 vs this: differ at {', '.join(SMALL[name])}"

@@ -4,11 +4,12 @@ one card.
 
     python3 tools/time_kernel.py KERNEL [--extra path/to/source.cu ...]
 
-KERNEL is ``block_stats`` (``csrc/ef_topk.cu``) or ``wkv_forward``
-(``csrc/rwkv_wkv.cu``).  Builds the kernel's source in
-``src/repro_torch/csrc/`` and each ``--extra`` source (an older commit's,
-unpacked with ``git archive``, say) with the port's own nvcc flags, all at
-once, into the gitignored ``src/repro_torch/_build/compare/``, and prints
+KERNEL is ``block_stats``, ``ef_stats_telemetry`` or ``ef_block_stats``
+(``csrc/ef_topk.cu``) or ``wkv_forward`` (``csrc/rwkv_wkv.cu``).  Builds
+the kernel's source in ``src/repro_torch/csrc/`` and each ``--extra``
+source (an older commit's, unpacked with ``git archive``, say) with the
+port's own nvcc flags, all at once, into the gitignored
+``src/repro_torch/_build/compare/``, and prints
 ptxas's registers and spills of every kernel each build holds.  Checks
 each build against the kernel's plain version in
 ``repro_torch.kernels.ref`` at every case, then times each at the timed
@@ -16,17 +17,23 @@ cases in turns (the builds in order, then in reverse) with
 ``chip_smoke.py``'s two clocks: the median of 25 calls between CUDA
 events, host launch included, and the device time alone from the
 profiler; the library call that computes the same function, where there
-is one, is timed in the same turns.  Calls the kernels through a bare
-ctypes launcher, without the wrapper's checks.  Prints the card's name
-and power limit.
+is one, is timed in the same turns.  Prints, for each ``--extra``
+build, whether its outputs are bit-identical to this source's at every
+case.  Calls the kernels through a bare ctypes launcher, without the
+wrapper's checks.  Prints the card's name and power limit.
 
 Cases.  ``block_stats``: the largest CSGD leaf of paper-lm-100m, (18432,
 1024) f32 Gaussian x 1e-2, at k_b 10, 41 and 102 (gamma 1%, 4% and 10%;
 timed, beside ``torch.topk``), and the edge rows of ``chip_smoke.py``
 (NaN, +-inf, zeros, ties) at k_b 1, 10 and 1024; bit-exact, NaN where the
-plain version gives NaN.  ``wkv_forward``: rwkv6-1.6b's prefill (4, 1024,
-32, 64) and a decode step (S = 1), both timed, and a ragged (2, 65, 3, 32)
-with V = 100; atol 2e-5 on y and sT.
+plain version gives NaN.  ``ef_stats_telemetry`` and ``ef_block_stats``:
+the trainer's 107,520 block rows of paper-lm-100m, m ~ N(0, 1e-3),
+g ~ N(0, 1e-2), eta 0.0345, at k_b 10, 41 and 102 (timed), and the edge
+rows as g with m = 0 and eta 0.5 at k_b 1, 10 and 1024; tau bit-exact
+(NaN where the plain version gives NaN), the moments within 8 ulp.
+``wkv_forward``: rwkv6-1.6b's prefill (4, 1024, 32, 64) and a decode
+step (S = 1), both timed, and a ragged (2, 65, 3, 32) with V = 100; atol
+2e-5 on y and sT.
 """
 from __future__ import annotations
 
@@ -82,6 +89,43 @@ def _bs_error(got, want) -> float:
     return float(((got != want) & ~(got.isnan() & want.isnan())).sum())
 
 
+def _ef_inputs(gen, device, rows, k_b, kind):
+    if kind == "edge":
+        g = special_rows(device)[:rows]
+        return torch.zeros_like(g), g, torch.tensor([0.5], device=device), \
+            k_b
+    m = torch.randn((rows, 1024), generator=gen, device=device) * 1e-3
+    g = torch.randn((rows, 1024), generator=gen, device=device) * 1e-2
+    return m, g, torch.tensor([0.0345], device=device), k_b
+
+
+def _ef_launch(fn, m, g, eta, k_b, moments=True):
+    R = m.shape[0]
+    tau = torch.empty((R, 1), device=m.device)
+    if not moments:
+        _check(fn(m.data_ptr(), g.data_ptr(), eta.data_ptr(),
+                  tau.data_ptr(), R, k_b, _build.stream(m)))
+        return tau
+    mom = torch.empty((R, 2), device=m.device)
+    _check(fn(m.data_ptr(), g.data_ptr(), eta.data_ptr(), tau.data_ptr(),
+              mom.data_ptr(), R, k_b, _build.stream(m)))
+    return tau, mom
+
+
+def _ef_error(got, want) -> float:
+    """inf if a row's tau differs (NaN equals NaN), else the moments'
+    largest distance in ulps (non-finite moments must be equal, NaN
+    where the plain version has NaN)."""
+    (tau, mom), (rtau, rmom) = got, want
+    if _bs_error(tau, rtau):
+        return float("inf")
+    fin = rmom.isfinite()
+    if _bs_error(mom[~fin], rmom[~fin]):
+        return float("inf")
+    a, b = (t[fin].view(torch.int32).long() for t in (mom, rmom))
+    return float((a - b).abs().max()) if a.numel() else 0.0
+
+
 def _wkv_inputs(gen, device, B, S, H, K, V):
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=device) * scale
@@ -105,6 +149,11 @@ def _wkv_error(got, want) -> float:
     return max(float((a - b).abs().max()) for a, b in zip(got, want))
 
 
+#: the trainer's block rows at the paper's 1%, 4% and 10%, and edge rows
+_EF_CASES = {"k10": (107520, 10, "gauss"), "k41": (107520, 41, "gauss"),
+             "k102": (107520, 102, "gauss"), "edge1": (8, 1, "edge"),
+             "edge10": (8, 10, "edge"), "edge1024": (8, 1024, "edge")}
+
 KERNELS = {
     "block_stats": Kernel(
         "ef_topk", "block_stats_launch",
@@ -115,6 +164,15 @@ KERNELS = {
         ref.block_abs_topk_threshold, _bs_error, 0.0,
         library=lambda x, k_b: torch.topk(x.abs(), k_b, dim=1).values[
             :, -1:]),
+    "ef_stats_telemetry": Kernel(
+        "ef_topk", "ef_stats_telemetry_launch", _EF_CASES,
+        ("k10", "k41", "k102"), _ef_inputs, _ef_launch,
+        ref.ef_block_stats_telemetry, _ef_error, 8.0),
+    "ef_block_stats": Kernel(
+        "ef_topk", "ef_block_stats_launch", _EF_CASES,
+        ("k10", "k41", "k102"), _ef_inputs,
+        lambda fn, *a: _ef_launch(fn, *a, moments=False),
+        ref.ef_block_stats, _bs_error, 0.0),
     "wkv_forward": Kernel(
         "rwkv_wkv", "wkv_forward_launch",
         {"prefill": (4, 1024, 32, 64, 64), "decode": (4, 1, 32, 64, 64),
@@ -175,6 +233,22 @@ def check(kernel: Kernel, name: str, call: Callable, data: dict,
     return f"check {name}: {', '.join(errs)}"
 
 
+def _bits(out) -> list[torch.Tensor]:
+    return [t.view(torch.int32) for t in
+            (out if isinstance(out, tuple) else (out,))]
+
+
+def identical(name: str, call: Callable, this: Callable, data: dict) -> str:
+    """A line saying whether ``call``'s outputs are bit-identical to
+    ``this``'s at every case, or at which cases they are not."""
+    differ = [case for case, args in data.items()
+              if not all(torch.equal(a, b) for a, b in
+                         zip(_bits(call(*args)), _bits(this(*args))))]
+    return f"bits {name} vs this: " + (
+        f"differ at {', '.join(differ)}" if differ
+        else "identical at every case")
+
+
 def main(argv=None) -> None:
     args = parse_args(argv)
     kernel = KERNELS[args.kernel]
@@ -197,6 +271,8 @@ def main(argv=None) -> None:
     calls = {name: launcher(kernel, name) for name in sources}
     for name, call in calls.items():
         print(check(kernel, name, call, data, want), flush=True)
+        if name != "this":
+            print(identical(name, call, calls["this"], data), flush=True)
     if kernel.library is not None:
         calls["library"] = kernel.library
     times = {(name, case, how): [] for name in calls for case in kernel.timed
