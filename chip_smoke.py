@@ -23,8 +23,15 @@ Phases, each fatal on failure (no phase catches and continues):
    4%, 10%) beside ``torch.topk`` (timed only), host launch included and
    on the device alone; both EF pass-1 kernels checked (tau bit-exact,
    moments within 8 ulp) and timed the same two ways at the trainer's
-   rows at k_b 10, 41 and 102; the device-only times of the codec
-   kernels; ptxas spills in ``ef_topk.cu`` are fatal; the 3 serving
+   rows at k_b 10, 41 and 102; the codec kernels ``pack_words`` and
+   ``unpack_words`` bit-exact at the trainer's 16-bit index streams at
+   gamma 1%, 4% and 10% and its 8-bit value stream at 1%, each timed
+   host launch included, on the device alone (and with L2 evicted) and
+   by the host's time a call, beside the narrowing casts that compute
+   the same function (timed only), and bit-exact at 4 bits, ragged
+   rows, an input base one word or field off 16 bytes and lengths no
+   multiple of 4 words; ptxas spills in ``ef_topk.cu`` and
+   ``wire_pack.cu`` are fatal; the 3 serving
    kernels at the shapes serving gives them (flash attention's bf16
    tensor-core route at qwen1.5-4b's prefill, (4, 20, 2048, 128) causal,
    and at 20 edge cases that cross every tile edge, through strided
@@ -153,19 +160,46 @@ def time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int = 20) -> float:
+def device_ms(fn, reps: int = 20, evict: bool = False) -> float:
     """Device time of one call, from the profiler's kernel times over
     ``reps`` calls: without the host's time before each launch, which
-    ``time_ms`` keeps (and a host-bound decode pays)."""
+    ``time_ms`` keeps (and a host-bound decode pays).  With ``evict`` a
+    256 MB write before each call leaves none of its inputs in the 50 MB
+    L2; the write's own kernels are not counted."""
+    def profile(calls) -> dict:
+        """Device microseconds by the profiler's key over ``reps`` calls."""
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                calls()
+            torch.cuda.synchronize()
+        return {e.key: getattr(e, "self_device_time_total", 0)
+                for e in prof.key_averages()}
+
+    flush, skip = (lambda: None), set()
+    if evict:
+        scratch = torch.empty(2**26, dtype=torch.int32, device="cuda")
+        flush = scratch.bitwise_not_
+        skip = {k for k, us in profile(flush).items() if us > 0}
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(getattr(e, "self_device_time_total", 0)
-               for e in prof.key_averages()) / reps / 1e3
+    return sum(us for k, us in profile(lambda: (flush(), fn())).items()
+               if k not in skip) / reps / 1e3
+
+
+def host_ms(fn, reps: int = 1000) -> float:
+    """The host's time a call, from ``time.perf_counter`` over ``reps``
+    back-to-back calls without a synchronize: the wrapper's checks,
+    allocation and launch (the device's time where the device is the
+    slower and the launch queue fills)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return ms
 
 
 def max_ulp(a, b) -> int:
@@ -445,6 +479,138 @@ def check_dense_selection(dev, gen, leaf_rows, k_b, paper_ks,
         plain_ms=time_ms(lambda: ref.threshold_split(x, tau)),
         bytes=big * 1024 * 12 + big * 4, ops=big * 1024 * 3,
         note=f"largest leaf, {big} block rows")
+
+
+#: bits -> the signed and unsigned integer types of a field's width
+NARROW = {16: (torch.int16, torch.uint16), 8: (torch.int8, torch.uint8)}
+
+
+def cast_pack(fields: torch.Tensor, bits: int) -> torch.Tensor:
+    """pack_words at 16 or 8 bits as one PyTorch call, a yardstick timed
+    beside the kernel and used nowhere in the port: the narrowing cast
+    keeps each field's low bits, and a little-endian view puts field f at
+    bits [f*bits, (f+1)*bits) of a word."""
+    return fields.to(NARROW[bits][0]).view(torch.int32)
+
+
+def cast_unpack(words: torch.Tensor, bits: int) -> torch.Tensor:
+    """unpack_words at 16 or 8 bits as one PyTorch call (a yardstick)."""
+    return words.view(NARROW[bits][1]).to(torch.int32)
+
+
+def check_wire(dev, gen, shapes, stacked, report) -> None:
+    """pack_words and unpack_words (``csrc/wire_pack.cu``) against their
+    plain versions, bit-exact: at the trainer's 16-bit index streams at
+    gamma 1%, 4% and 10% and its 8-bit value stream at 1%, in the (rows,
+    512)-word layout ``ops.pack_fields_stream`` gives them, then at 4
+    bits, ragged, with the input's base one word or one field off and at
+    lengths that are no multiple of 4 words.  Each stream timed by the
+    three clocks (the device time also with L2 evicted) beside the
+    narrowing cast that computes the same function, itself checked
+    against the plain version.  ptxas spills in wire_pack.cu are fatal."""
+    from repro_torch.comm.bucket import build_bucket_plan
+    from repro_torch.core.compression import Compressor
+    from repro_torch.kernels import ref, wire_pack
+    entries = ptxas_entries("wire_pack", ["pack_words_kernel",
+                                          "unpack_words_kernel"])
+    if len(entries) != 18 or any(spill for _, _, spill in entries):
+        fail(f"csrc/wire_pack.cu: ptxas reported spills, or not 18 "
+             f"kernels: {entries}")
+    print("ptxas wire_pack: no spills; registers "
+          + ", ".join(f"{e} {r}" for e, r, _ in entries), flush=True)
+
+    def lanes(gamma, value_bits):
+        plan = build_bucket_plan(shapes, stacked, Compressor(
+            gamma=gamma, method="block_topk", value_bits=value_bits))
+        return [ln for ln in plan.leaves if not ln.dense]
+    streams = {f"index gamma {gm}": (sum(
+        ln.L * ln.spec.index_words for ln in lanes(gm, 32)), 16)
+        for gm in (0.01, 0.04, 0.1)}
+    streams["value gamma 0.01 (8-bit)"] = (sum(
+        ln.L * ln.spec.value_words for ln in lanes(0.01, 8)), 8)
+
+    def randint(*shape):
+        return torch.randint(-2**31, 2**31 - 1, shape, generator=gen,
+                             device=dev, dtype=torch.int32)
+
+    for label, (W, bits) in streams.items():
+        F = 32 // bits
+        R, C = wire_pack.stream_shape(W)
+        fields = randint(R, C * F)
+        words = wire_pack.pack_words(fields, bits)
+        back = wire_pack.unpack_words(words, bits)
+        rwords = ref.pack_fields(fields, bits)
+        rback = ref.unpack_fields(words, bits)
+        if not torch.equal(words, rwords):
+            fail(f"pack_words differs from the plain version at the "
+                 f"{label} stream, {W} words")
+        if not torch.equal(back, rback):
+            fail(f"unpack_words differs from the plain version at the "
+                 f"{label} stream, {W} words")
+        if not (torch.equal(cast_pack(fields, bits), rwords)
+                and torch.equal(cast_unpack(words, bits), rback)):
+            fail(f"the narrowing casts differ from the plain versions at "
+                 f"the {label} stream")
+        bound = W * 4 * (1 + F) / HBM_BYTES_PER_S * 1e3
+        for name, kernel, plain, cast, x, err in (
+                ("pack_words", wire_pack.pack_words, ref.pack_fields,
+                 cast_pack, fields,
+                 (words.long() - rwords.long()).abs().max()),
+                ("unpack_words", wire_pack.unpack_words, ref.unpack_fields,
+                 cast_unpack, words,
+                 (back.long() - rback.long()).abs().max())):
+            t = {who: (time_ms(fn), device_ms(fn), device_ms(fn, evict=True),
+                       host_ms(fn))
+                 for who, fn in (("kernel", lambda: kernel(x, bits)),
+                                 ("cast", lambda: cast(x, bits)))}
+            clocks = ("{:.4f} ms, device {:.4f} (L2 evicted {:.4f}), host "
+                      "{:.4f}")
+            print(f"wire {label}, {R * C} words of {bits}-bit fields "
+                  f"({W * 4 * (1 + F)} B, bound {bound:.4f} ms): {name} "
+                  + clocks.format(*t["kernel"]) + f"; {cast.__name__} "
+                  + clocks.format(*t["cast"]), flush=True)
+            if label == "index gamma 0.01":
+                report[name] = dict(
+                    max_abs_err=float(err), ms=t["kernel"][0],
+                    plain_ms=time_ms(lambda: plain(x, bits)),
+                    library_ms=t["cast"][0],
+                    bytes=W * 4 * (1 + F), ops=W * F * 3,
+                    note=f"16-bit index stream {W} words; device "
+                         f"{t['kernel'][1]:.4f} ms, cast {t['cast'][1]:.4f}")
+        del fields, words, back, rwords, rback
+
+    # the edges: 4 bits, ragged rows, an input base one word (or, for
+    # pack, one field) off 16 bytes, lengths no multiple of 4 words
+    cases = [(bits, rows, cols, period, 0) for bits in (4, 8, 16)
+             for rows, cols, period in ((97, 40, 0), (97, 40, 11),
+                                        (9, 40, 29))]
+    cases += [(bits, 5, 203, 0, off) for bits in (4, 8, 16)
+              for off in (0, 1)] + [(16, 1, 3, 0, 0), (8, 3, 1, 0, 1)]
+    for bits, rows, cols, period, off in cases:
+        F = 32 // bits
+        cnt = torch.randint(0, period + 1, (rows,), generator=gen,
+                            device=dev, dtype=torch.int32) \
+            if period else None
+        views = {"pack_words": randint(F + rows * cols * F)[
+                     off * F:][:rows * cols * F].view(rows, cols * F),
+                 "pack_words (one field off)": randint(1 + rows * cols * F)[
+                     off:][:rows * cols * F].view(rows, cols * F),
+                 "unpack_words": randint(1 + rows * cols)[off:][
+                     :rows * cols].view(rows, cols)}
+        for name, x in views.items():
+            if name.startswith("pack"):
+                got = wire_pack.pack_words(x, bits, cnt, period)
+                want = ref.pack_fields(x, bits, cnt, period)
+            else:
+                got = wire_pack.unpack_words(x, bits, cnt, period)
+                want = ref.unpack_fields(x, bits, cnt, period)
+            if not torch.equal(got, want):
+                fail(f"{name} differs from the plain version at bits={bits}"
+                     f" ({rows}, {cols}) words, period {period}, base "
+                     f"offset {off}")
+    print(f"wire edges: bit-exact at {len(cases)} cases (4/8/16 bits, "
+          "ragged at period 11 and 29, input base one word or field off, "
+          "lengths 1015, 3 and 3 words)", flush=True)
 
 
 def run_csgd(dev, cfg, comp, steps) -> dict:
@@ -911,8 +1077,6 @@ def main() -> None:
     plan = build_bucket_plan(shapes, stacked, comp)
     rows = sum(ln.L * -(-ln.d // comp.block) for ln in plan.leaves
                if not ln.dense)
-    index_words = sum(ln.L * ln.spec.index_words for ln in plan.leaves
-                      if not ln.dense)
     k_b = comp.block_k()
     # k_b at the paper's gamma of 1%, 4% and 10%: 10, 41 and 102
     paper_ks = [Compressor(gamma=gm, method="block_topk").block_k()
@@ -1008,50 +1172,7 @@ def main() -> None:
               " ms", flush=True)
     del m, g, sent, mnew, rsent, rmnew, tau, rtau, mom, rmom, btau, rbtau
 
-    W = index_words
-    srows, scols = wire_pack.stream_shape(W)
-    fields = torch.randint(0, 1 << 16, (srows, scols * 2), generator=gen,
-                           device=dev, dtype=torch.int32)
-    words = wire_pack.pack_words(fields, 16)
-    rwords = ref.pack_fields(fields, 16)
-    if not torch.equal(words, rwords):
-        fail("pack_words differs from the plain version")
-    back = wire_pack.unpack_words(words, 16)
-    rback = ref.unpack_fields(words, 16)
-    if not torch.equal(back, rback) or not torch.equal(back, fields):
-        fail("unpack_words differs from the plain version or the input")
-    for bits in (4, 8):                    # the value widths, ragged too
-        F = 32 // bits
-        f2 = torch.randint(-2**31, 2**31 - 1, (97, 40 * F), generator=gen,
-                           device=dev, dtype=torch.int32)
-        cnt = torch.randint(0, 12, (97,), generator=gen, device=dev,
-                            dtype=torch.int32)
-        for c, period in ((None, 0), (cnt, 11)):
-            w2 = wire_pack.pack_words(f2, bits, c, period)
-            if not torch.equal(w2, ref.pack_fields(f2, bits, c, period)) \
-                    or not torch.equal(
-                        wire_pack.unpack_words(w2, bits, c, period),
-                        ref.unpack_fields(w2, bits, c, period)):
-                fail(f"wire kernels differ from the plain versions at "
-                     f"bits={bits} ragged={c is not None}")
-    report["pack_words"] = dict(
-        max_abs_err=float((words.long() - rwords.long()).abs().max()),
-        ms=time_ms(lambda: wire_pack.pack_words(fields, 16)),
-        plain_ms=time_ms(lambda: ref.pack_fields(fields, 16)),
-        bytes=srows * scols * 4 * 3, ops=srows * scols * 2 * 3,
-        note=f"16-bit index stream {W} words")
-    report["unpack_words"] = dict(
-        max_abs_err=float((back.long() - rback.long()).abs().max()),
-        ms=time_ms(lambda: wire_pack.unpack_words(words, 16)),
-        plain_ms=time_ms(lambda: ref.unpack_fields(words, 16)),
-        bytes=srows * scols * 4 * 3, ops=srows * scols * 2 * 3,
-        note=f"16-bit index stream {W} words")
-    print(f"device only (profiler), {W}-word index stream: pack_words "
-          f"{device_ms(lambda: wire_pack.pack_words(fields, 16)):.4f} ms, "
-          f"unpack_words "
-          f"{device_ms(lambda: wire_pack.unpack_words(words, 16)):.4f} ms",
-          flush=True)
-    del fields, words, rwords, back, rback
+    check_wire(dev, gen, shapes, stacked, report)
 
     csgd_rows = [-(-int(np.prod(sh)) // comp.block) for sh in shapes
                  if int(np.prod(sh)) >= comp.min_compress_size]

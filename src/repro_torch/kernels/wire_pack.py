@@ -4,7 +4,9 @@ Twins of ``src/repro/kernels/wire_pack.py``'s ``pack_words`` /
 ``unpack_words``, ragged ``counts``/``period`` variants included.  Fields
 and words are uint32 bit patterns in int32 (or uint32) tensors.  Each
 wrapper checks its tensors, launches on the current stream, raises on a
-launch error and counts its launches in ``<wrapper>.launches``.
+launch error and counts its launches in ``<wrapper>.launches``.  The
+trainer launches each once or twice a step, so the host path reads each
+tensor property once and looks the C entry point up once.
 """
 from __future__ import annotations
 
@@ -14,6 +16,8 @@ from . import _build
 
 WORD_CHUNK = 512
 _WORD_DTYPES = (torch.int32, torch.uint32)
+_FIELDS = {4: 8, 8: 4, 16: 2}          # bits -> fields a word
+_ENTRIES: dict = {}                    # C launcher name -> its function
 
 
 def stream_shape(n_words: int) -> tuple[int, int]:
@@ -24,40 +28,51 @@ def stream_shape(n_words: int) -> tuple[int, int]:
     return -(-max(n_words, 1) // cols), cols
 
 
-def _check(name: str, x: torch.Tensor, bits: int, counts, period: int):
-    if x.device.type != "cuda" or x.dtype not in _WORD_DTYPES \
-            or not x.is_contiguous() or x.dim() != 2:
+def _launch(name: str, x: torch.Tensor, bits: int, counts, period: int,
+            pack: bool) -> torch.Tensor:
+    """Check ``x``, allocate the output, launch ``<name>_launch``."""
+    shape, F = x.shape, _FIELDS.get(bits)
+    if not x.is_cuda or x.dtype not in _WORD_DTYPES or len(shape) != 2 \
+            or not x.is_contiguous():
         raise ValueError(f"{name}: want a contiguous 2-D int32/uint32 CUDA "
-                         f"tensor, got {x.dtype} {tuple(x.shape)} on "
+                         f"tensor, got {x.dtype} {tuple(shape)} on "
                          f"{x.device}")
-    if bits not in (4, 8, 16):
+    if F is None:
         raise ValueError(f"{name}: bits={bits} not in (4, 8, 16)")
-    if counts is None:
-        return None
-    if period <= 0:
-        raise ValueError(f"{name}: ragged variant needs a positive period")
-    counts = counts.to(device=x.device, dtype=torch.int32).contiguous()
-    if counts.numel() != x.shape[0]:
-        raise ValueError(f"{name}: {counts.numel()} counts for "
-                         f"{x.shape[0]} rows")
-    return counts
+    R, n = shape
+    if pack and n % F:
+        raise ValueError(f"{name}: {n} fields per row is not a multiple "
+                         f"of {F}")
+    dev = x.get_device()
+    c_ptr = 0
+    if counts is not None:
+        if period <= 0:
+            raise ValueError(f"{name}: ragged variant needs a positive "
+                             "period")
+        counts = counts.to(device=x.device, dtype=torch.int32).contiguous()
+        if counts.numel() != R:
+            raise ValueError(f"{name}: {counts.numel()} counts for {R} "
+                             "rows")
+        c_ptr = counts.data_ptr()
+    W = n // F if pack else n
+    out = torch.empty((R, W if pack else n * F), dtype=torch.int32,
+                      device=dev)
+    entry = _ENTRIES.get(name)
+    if entry is None:
+        entry = _ENTRIES[name] = getattr(_build.load("wire_pack"),
+                                         f"{name}_launch")
+    err = entry(x.data_ptr(), c_ptr, out.data_ptr(), R, W, bits, period,
+                _build.raw_stream(dev))
+    if err:
+        _build.check(err, name)                    # raises
+    return out
 
 
 def pack_words(fields: torch.Tensor, bits: int,
                counts: torch.Tensor | None = None,
                period: int = 0) -> torch.Tensor:
     """(R, n) fields -> (R, n*bits/32) int32 words; n % (32//bits) == 0."""
-    counts = _check("pack_words", fields, bits, counts, period)
-    F = 32 // bits
-    R, n = fields.shape
-    if n % F:
-        raise ValueError(f"pack_words: {n} fields per row is not a "
-                         f"multiple of {F}")
-    out = torch.empty((R, n // F), dtype=torch.int32, device=fields.device)
-    err = _build.load("wire_pack").pack_words_launch(
-        fields.data_ptr(), 0 if counts is None else counts.data_ptr(),
-        out.data_ptr(), R, n // F, bits, period, _build.stream(fields))
-    _build.check(err, "pack_words")
+    out = _launch("pack_words", fields, bits, counts, period, True)
     pack_words.launches += 1
     return out
 
@@ -69,14 +84,7 @@ def unpack_words(words: torch.Tensor, bits: int,
                  counts: torch.Tensor | None = None,
                  period: int = 0) -> torch.Tensor:
     """(R, W) words -> (R, W*32/bits) int32 fields, zero past the count."""
-    counts = _check("unpack_words", words, bits, counts, period)
-    R, W = words.shape
-    out = torch.empty((R, W * (32 // bits)), dtype=torch.int32,
-                      device=words.device)
-    err = _build.load("wire_pack").unpack_words_launch(
-        words.data_ptr(), 0 if counts is None else counts.data_ptr(),
-        out.data_ptr(), R, W, bits, period, _build.stream(words))
-    _build.check(err, "unpack_words")
+    out = _launch("unpack_words", words, bits, counts, period, False)
     unpack_words.launches += 1
     return out
 

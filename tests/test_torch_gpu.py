@@ -278,6 +278,80 @@ def test_wire_kernels_match_plain_on_card(cuda, bits, ragged):
                                rtol=0, atol=0)
 
 
+def _wire_roundtrip(x, bits, counts=None, period=0, pack=True):
+    """Run one wire kernel on ``x`` and hold it bit-exact against its
+    plain version."""
+    if pack:
+        got = wire_pack.pack_words(x, bits, counts, period)
+        want = ref.pack_fields(x, bits, counts, period)
+    else:
+        got = wire_pack.unpack_words(x, bits, counts, period)
+        want = ref.unpack_fields(x, bits, counts, period)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def _int32_patterns(seed, n, cuda):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint64).astype(
+        np.uint32).view(np.int32)).to(cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [4, 8, 16])
+@pytest.mark.parametrize("offset", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("pack", [True, False])
+def test_wire_kernels_misaligned_head_on_card(cuda, bits, offset, pack):
+    """The input's base ``offset`` int32s past a 16-byte boundary (a word
+    view sliced at any word, a field view at any field): the kernels pick
+    a head of scalar words or their scalar path, bit-exact either way."""
+    F = 32 // bits if pack else 1
+    rows, cols = 7, 300
+    buf = _int32_patterns(offset, offset + rows * cols * F, cuda)
+    _wire_roundtrip(buf[offset:].view(rows, cols * F), bits, pack=pack)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [4, 8, 16])
+@pytest.mark.parametrize("words", [1, 3, 127, 129, 1015, 4099])
+@pytest.mark.parametrize("pack", [True, False])
+def test_wire_kernels_odd_tail_on_card(cuda, bits, words, pack):
+    """Streams of lengths that are no multiple of 4 words (or of a
+    warp's 128-word tile): the tail is packed one word a thread."""
+    F = 32 // bits if pack else 1
+    x = _int32_patterns(words, words * F, cuda).view(1, words * F)
+    _wire_roundtrip(x, bits, pack=pack)
+
+
+@pytest.mark.gpu
+def test_wire_kernels_gamma_01_stream_on_card(cuda):
+    """The trainer's 16-bit index stream at gamma 0.1 (k_b 102): 5,483,520
+    words in the (rows, 512)-word layout it is packed in, more than a few
+    waves of the grid, so the blocks stride; round trip exact too."""
+    rows, cols = wire_pack.stream_shape(5_483_520)
+    fields = _int32_patterns(102, rows * cols * 2, cuda).view(rows, cols * 2)
+    words = wire_pack.pack_words(fields, 16)
+    torch.testing.assert_close(words, ref.pack_fields(fields, 16),
+                               rtol=0, atol=0)
+    back = wire_pack.unpack_words(words, 16)
+    torch.testing.assert_close(back, ref.unpack_fields(words, 16),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(back, fields & 0xFFFF, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [1, 9, 70_000])
+@pytest.mark.parametrize("pack", [True, False])
+def test_wire_kernels_ragged_4bit_on_card(cuda, rows, pack):
+    """The ragged variant at 4 bits with a period (29) that divides
+    neither the row (40 words, 320 fields) nor the 8 fields of a word,
+    and more rows than grid y holds (70,000 > 65,535)."""
+    rng = np.random.default_rng(rows)
+    counts = torch.from_numpy(rng.integers(-1, 31, rows).astype(
+        np.int32)).to(cuda)
+    x = _int32_patterns(rows, rows * 40 * (8 if pack else 1), cuda)
+    _wire_roundtrip(x.view(rows, -1), 4, counts, 29, pack=pack)
+
+
 def _bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
     """Largest distance in bf16 steps between two bf16 tensors of one
     sign pattern (the int16 bit patterns are monotone per sign)."""

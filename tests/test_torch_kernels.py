@@ -466,6 +466,131 @@ def test_stream_shape_matches_jax():
         assert wire_pack.stream_shape(n) == jwp.stream_shape(n)
 
 
+def _vector_head(in_addr, in_bytes, out_addr, out_bytes):
+    """``csrc/wire_pack.cu`` ``vector_head``: the first word (0..3) at
+    which both pointers are 16-byte aligned, -1 if none."""
+    for h in range(4):
+        if (in_addr + h * in_bytes) % 16 == 0 \
+                and (out_addr + h * out_bytes) % 16 == 0:
+            return h
+    return -1
+
+
+def _emulate_wire(x, bits, pack, in_addr, out_addr):
+    """``csrc/wire_pack.cu``'s launcher and its kVector and kScalar paths
+    over a flat stream, in their lane layout: x the uint32 fields (pack)
+    or words (unpack), in_addr and out_addr the two pointers' offsets
+    from a 16-byte boundary.  Each warp takes a tile of 128 words; lane l
+    moves field vector q * 32 + l of it (4 fields); the head and tail
+    words go one a thread to the first threads of the grid."""
+    F, mask = 32 // bits, (1 << bits) - 1
+    n = x.size // F if pack else x.size
+    out = np.full(n if pack else n * F, 0xA5A5A5A5, np.uint32)
+
+    def pack_word(v):                       # (..., F) fields -> words
+        return np.bitwise_or.reduce(
+            [(v[..., f] & mask) << (f * bits) for f in range(F)])
+
+    def scalar(i):
+        if pack:
+            out[i] = pack_word(x[i * F:(i + 1) * F])
+        else:
+            out[i * F:(i + 1) * F] = [(x[i] >> (f * bits)) & mask
+                                      for f in range(F)]
+
+    head = _vector_head(in_addr, 4 * F if pack else 4, out_addr,
+                        4 if pack else 4 * F)
+    if head < 0 or head > n:                # kScalar: one word a thread
+        for i in range(n):
+            scalar(i)
+        return out
+    tiles, lane = (n - head) >> 7, np.arange(32)
+    words = (out if pack else x)[head:head + tiles * 128].reshape(tiles, 128)
+    fields = (x if pack else out)[head * F:(head + tiles * 128) * F].reshape(
+        tiles, 32 * F, 4)
+    for q in range(F):
+        if pack:
+            a = fields[:, q * 32 + lane].astype(np.int64)
+            if F == 2:     # vector j: the fields of words 2j, 2j + 1
+                words.reshape(tiles, 64, 2)[:, q * 32 + lane] = np.stack(
+                    [pack_word(a[..., :2]), pack_word(a[..., 2:])], -1)
+            elif F == 4:   # vector j: word j
+                words[:, q * 32 + lane] = pack_word(a)
+            else:          # vector j: half j % 2 of word j / 2, one shuffle
+                part = pack_word(np.pad(a, [(0, 0), (0, 0), (0, 4)])) \
+                    << ((lane & 1) * 16)
+                part |= part[:, lane ^ 1]
+                even = lane[::2]
+                words[:, q * 16 + even // 2] = part[:, even]
+        else:
+            if F == 2:
+                w = words.reshape(tiles, 64, 2)[:, q * 32 + lane]
+                w = w.astype(np.int64)
+                a = np.stack([w[..., 0] & mask, w[..., 0] >> 16,
+                              w[..., 1] & mask, w[..., 1] >> 16], -1)
+            elif F == 4:
+                w = words[:, q * 32 + lane].astype(np.int64)
+                a = np.stack([(w >> s) & mask for s in (0, 8, 16, 24)], -1)
+            else:
+                w = words[:, q * 16 + lane // 2].astype(np.int64) \
+                    >> ((lane & 1) * 16)
+                a = np.stack([(w >> s) & mask for s in (0, 4, 8, 12)], -1)
+            fields[:, q * 32 + lane] = a
+    tail = (n - head) & 127
+    for t in range(head + tail):            # the edge words
+        scalar(t if t < head else n - tail + (t - head))
+    return out
+
+
+@pytest.mark.parametrize("bits", [4, 8, 16])
+@pytest.mark.parametrize("pack", [True, False])
+@pytest.mark.parametrize("in_addr", [0, 4, 8, 12])
+def test_wire_vector_layout_emulation_matches_plain(bits, pack, in_addr):
+    """The CUDA kernels' tile and lane layout, emulated, gives the plain
+    version's words and fields at every alignment of the two pointers and
+    at stream lengths around a warp's 128-word tile."""
+    F = 32 // bits
+    rng = np.random.default_rng(bits * 100 + in_addr)
+    for out_addr in (0, 4, 8, 12):
+        for n in (1, 3, 127, 128, 131, 300, 1015):
+            x = rng.integers(0, 2**32, n * F if pack else n,
+                             dtype=np.uint64).astype(np.uint32)
+            got = _emulate_wire(x, bits, pack, in_addr, out_addr)
+            t = torch.from_numpy(x.view(np.int32)).reshape(1, -1)
+            want = ref.pack_fields(t, bits) if pack else \
+                ref.unpack_fields(t, bits)
+            np.testing.assert_array_equal(got, _u32(want.reshape(-1)))
+
+
+@pytest.mark.parametrize("bits", [4, 8, 16])
+@pytest.mark.parametrize("period", [11, 29])
+def test_wire_ragged_running_counter_matches_plain(bits, period):
+    """The ragged kernels' field mask: j % period once a word (32-bit),
+    then a counter that wraps at the period across the word's fields."""
+    F = 32 // bits
+    rng = np.random.default_rng(period + bits)
+    rows, cols = 7, 45
+    counts = rng.integers(-1, period + 2, rows).astype(np.int32)
+    valid = np.zeros((rows, cols * F), bool)
+    for r in range(rows):
+        for w in range(cols):
+            p = (w * F) % period
+            for f in range(F):
+                valid[r, w * F + f] = p < counts[r]
+                p = 0 if p + 1 == period else p + 1
+    x = torch.from_numpy(rng.integers(0, 2**32, (rows, cols * F),
+                                      dtype=np.uint64).astype(
+        np.uint32).view(np.int32))
+    c = torch.from_numpy(counts)
+    masked = torch.where(torch.from_numpy(valid), x, 0)
+    assert torch.equal(ref.pack_fields(x, bits, c, period),
+                       ref.pack_fields(masked, bits))
+    words = ref.pack_fields(x, bits)
+    assert torch.equal(ref.unpack_fields(words, bits, c, period),
+                       torch.where(torch.from_numpy(valid),
+                                   ref.unpack_fields(words, bits), 0))
+
+
 def test_dispatch_follows_device():
     reg = dispatch.registered()
     for op in ("ef_stats_telemetry", "ef_stats", "block_stats",

@@ -19,15 +19,26 @@ SMALL = {"block_stats": {"k10": (64, 10, "gauss"), "k102": (9, 102, "gauss"),
          "ef_block_stats": {"k41": (33, 41, "gauss"),
                             "edge1": (8, 1, "edge")},
          "wkv_forward": {"ragged": (1, 9, 2, 32, 20),
-                         "decode": (2, 1, 2, 32, 32)}}
+                         "decode": (2, 1, 2, 32, 32)},
+         "pack_words": {"k10": (3, 512, 16, 0, 0, True),
+                        "v8": (2, 512, 8, 0, 0, True),
+                        "ragged29": (9, 40, 4, 29, 0, True),
+                        "head16": (5, 203, 16, 0, 1, True)},
+         "unpack_words": {"k10": (3, 512, 16, 0, 0, False),
+                          "b4": (33, 100, 4, 0, 0, False),
+                          "ragged11": (97, 40, 16, 11, 0, False),
+                          "head8": (5, 203, 8, 0, 1, False)}}
 
 
 def test_time_kernel_arguments():
     args = time_kernel.parse_args(["block_stats", "--extra", "a.cu", "b.cu"])
     assert (args.kernel, args.extra) == ("block_stats", ["a.cu", "b.cu"])
     assert time_kernel.parse_args(["wkv_forward"]).extra == []
-    for name in ("ef_stats_telemetry", "ef_block_stats"):
+    for name in ("ef_stats_telemetry", "ef_block_stats", "pack_words",
+                 "unpack_words"):
         assert time_kernel.parse_args([name]).kernel == name
+    args = time_kernel.parse_args(["unpack_words", "--extra", "old.cu"])
+    assert (args.kernel, args.extra) == ("unpack_words", ["old.cu"])
     with pytest.raises(SystemExit):
         time_kernel.parse_args(["flash_attention"])
     with pytest.raises(SystemExit):
@@ -77,3 +88,26 @@ def test_time_kernel_says_whether_builds_are_bit_identical(name):
     assert time_kernel.identical("extra0", _off(kernel), kernel.plain,
                                  data) == \
         f"bits extra0 vs this: differ at {', '.join(SMALL[name])}"
+
+
+@pytest.mark.parametrize("bits", [16, 8])
+@pytest.mark.parametrize("name", ["pack_words", "unpack_words"])
+def test_narrowing_casts_match_the_plain_versions(name, bits):
+    """The yardstick of the wire kernels: one narrowing cast computes
+    pack_words (``to(int16 | int8).view(int32)``) and unpack_words
+    (``view(uint16 | uint8).to(int32)``) bit for bit, on random int32
+    patterns and on the edges of the signed range."""
+    from chip_smoke import cast_pack, cast_unpack
+    from repro_torch.kernels import ref
+    kernel = time_kernel.KERNELS[name]
+    gen = torch.Generator().manual_seed(bits)
+    x, _, counts, period = kernel.inputs(gen, "cpu", 6, 64, bits, 0, 0,
+                                         name == "pack_words")
+    x = x.clone()
+    x.view(-1)[:4] = torch.tensor([-2**31, 2**31 - 1, -1, 0])
+    want = kernel.plain(x, bits, counts, period)
+    assert torch.equal(kernel.library(x, bits, counts, period), want)
+    cast = cast_pack if name == "pack_words" else cast_unpack
+    assert torch.equal(cast(x, bits), want)
+    plain = ref.pack_fields if name == "pack_words" else ref.unpack_fields
+    assert torch.equal(plain(x, bits), want)

@@ -5,21 +5,26 @@ one card.
     python3 tools/time_kernel.py KERNEL [--extra path/to/source.cu ...]
 
 KERNEL is ``block_stats``, ``ef_stats_telemetry`` or ``ef_block_stats``
-(``csrc/ef_topk.cu``) or ``wkv_forward`` (``csrc/rwkv_wkv.cu``).  Builds
+(``csrc/ef_topk.cu``), ``wkv_forward`` (``csrc/rwkv_wkv.cu``), or
+``pack_words`` or ``unpack_words`` (``csrc/wire_pack.cu``).  Builds
 the kernel's source in ``src/repro_torch/csrc/`` and each ``--extra``
 source (an older commit's, unpacked with ``git archive``, say) with the
 port's own nvcc flags, all at once, into the gitignored
 ``src/repro_torch/_build/compare/``, and prints
 ptxas's registers and spills of every kernel each build holds.  Checks
 each build against the kernel's plain version in
-``repro_torch.kernels.ref`` at every case, then times each at the timed
-cases in turns (the builds in order, then in reverse) with
-``chip_smoke.py``'s two clocks: the median of 25 calls between CUDA
-events, host launch included, and the device time alone from the
-profiler; the library call that computes the same function, where there
-is one, is timed in the same turns.  Prints, for each ``--extra``
+``repro_torch.kernels.ref`` at every case, and the library call and the
+port's wrapper, where the kernel has them, too; then times each at the
+timed cases in turns (the builds in order, then in reverse) with
+``chip_smoke.py``'s three clocks: the median of 25 calls between CUDA
+events, host launch included (``ms``), the device time alone from the
+profiler (``device``), and the host's time a call over 1,000
+back-to-back calls without a synchronize (``host``; the device's time
+where the device is the slower); the library call that computes the
+same function, where there is one, and the port's wrapper, where it is
+set, are timed in the same turns.  Prints, for each ``--extra``
 build, whether its outputs are bit-identical to this source's at every
-case.  Calls the kernels through a bare ctypes launcher, without the
+case.  Calls the builds through a bare ctypes launcher, without the
 wrapper's checks.  Prints the card's name and power limit.
 
 Cases.  ``block_stats``: the largest CSGD leaf of paper-lm-100m, (18432,
@@ -33,7 +38,18 @@ rows as g with m = 0 and eta 0.5 at k_b 1, 10 and 1024; tau bit-exact
 (NaN where the plain version gives NaN), the moments within 8 ulp.
 ``wkv_forward``: rwkv6-1.6b's prefill (4, 1024, 32, 64) and a decode
 step (S = 1), both timed, and a ragged (2, 65, 3, 32) with V = 100; atol
-2e-5 on y and sT.
+2e-5 on y and sT.  ``pack_words`` and ``unpack_words``: the trainer's
+16-bit index streams at k_b 10, 41 and 102 (537,600, 2,204,160 and
+5,483,520 words) and its 8-bit value stream at k_b 10 (268,800 words),
+as paper-lm-100m's bucket plan packs them (per layer row, so no word is
+padded per 1024-block), each in the (rows, 512)-word layout of
+``ops.pack_fields_stream``, timed beside the narrowing cast that
+computes the same function (``chip_smoke.cast_pack``:
+``x.to(int16).view(int32)``, ``cast_unpack``: ``x.view(uint16).to(
+int32)``; int8 and uint8 at 8 bits); checked only: 4-bit fields, the
+ragged variant at period 11 (16-bit) and 29 (4-bit), the input's base
+one word off (16 and 8 bits) and a stream whose length is no multiple
+of 4 words; random int32 bit patterns, bit-exact.
 """
 from __future__ import annotations
 
@@ -50,8 +66,9 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
-from chip_smoke import device_ms, special_rows, time_ms  # noqa: E402
-from repro_torch.kernels import _build, ref  # noqa: E402
+from chip_smoke import cast_pack, cast_unpack, device_ms, host_ms, \
+    special_rows, time_ms  # noqa: E402
+from repro_torch.kernels import _build, ref, wire_pack  # noqa: E402
 
 OUT = _build.BUILD_DIR / "compare"
 
@@ -67,7 +84,8 @@ class Kernel:
     plain: Callable               # *inputs -> outputs
     error: Callable               # (got, want) -> a float, 0 if equal
     tol: float
-    library: Callable | None = None   # *inputs -> outputs, timed only
+    library: Callable | None = None   # *inputs -> outputs, timed cases
+    wrapper: Callable | None = None   # the port's own call, *inputs
 
 
 def _bs_inputs(gen, device, rows, k_b, kind):
@@ -149,6 +167,62 @@ def _wkv_error(got, want) -> float:
     return max(float((a - b).abs().max()) for a, b in zip(got, want))
 
 
+def _wire_inputs(gen, device, rows, cols, bits, period, offset, pack):
+    """(x, bits, counts, period): (rows, cols) words or their fields,
+    random int32 patterns, the base ``offset`` words into a buffer."""
+    F = 32 // bits if pack else 1
+    buf = torch.randint(-2**31, 2**31 - 1, ((offset + rows * cols) * F,),
+                        generator=gen, device=device, dtype=torch.int32)
+    counts = torch.randint(0, period + 1, (rows,), generator=gen,
+                           device=device, dtype=torch.int32) \
+        if period else None
+    return buf[offset * F:].view(rows, cols * F), bits, counts, period
+
+
+def _wire_launch(fn, x, bits, counts, period, pack=True):
+    R, n = x.shape
+    W = n // (32 // bits) if pack else n
+    out = torch.empty((R, W if pack else n * (32 // bits)),
+                      dtype=torch.int32, device=x.device)
+    _check(fn(x.data_ptr(), 0 if counts is None else counts.data_ptr(),
+              out.data_ptr(), R, W, bits, period, _build.stream(x)))
+    return out
+
+
+def _wire_error(got, want) -> float:
+    """The number of fields or words that differ."""
+    return float((got != want).sum())
+
+
+def _wire_kernel(pack: bool) -> Kernel:
+    """pack_words or unpack_words: the trainer's streams in the (rows,
+    512)-word layout of ``ops.pack_fields_stream``, then the edges."""
+    def stream(words, bits):
+        return (*wire_pack.stream_shape(words), bits, 0, 0, pack)
+    cases = {"k10": stream(537_600, 16), "k41": stream(2_204_160, 16),
+             "k102": stream(5_483_520, 16), "v8": stream(268_800, 8),
+             "b4": (33, 100, 4, 0, 0, pack),
+             "ragged11": (97, 40, 16, 11, 0, pack),
+             "ragged29": (9, 40, 4, 29, 0, pack),
+             "head16": (5, 203, 16, 0, 1, pack),
+             "head8": (5, 203, 8, 0, 1, pack),
+             "tail": (5, 203, 16, 0, 0, pack)}
+    if pack:
+        return Kernel(
+            "wire_pack", "pack_words_launch", cases,
+            ("k10", "k41", "k102", "v8"), _wire_inputs, _wire_launch,
+            ref.pack_fields, _wire_error, 0.0,
+            library=lambda x, bits, c, p: cast_pack(x, bits),
+            wrapper=wire_pack.pack_words)
+    return Kernel(
+        "wire_pack", "unpack_words_launch", cases,
+        ("k10", "k41", "k102", "v8"), _wire_inputs,
+        lambda fn, *a: _wire_launch(fn, *a, pack=False),
+        ref.unpack_fields, _wire_error, 0.0,
+        library=lambda x, bits, c, p: cast_unpack(x, bits),
+        wrapper=wire_pack.unpack_words)
+
+
 #: the trainer's block rows at the paper's 1%, 4% and 10%, and edge rows
 _EF_CASES = {"k10": (107520, 10, "gauss"), "k41": (107520, 41, "gauss"),
              "k102": (107520, 102, "gauss"), "edge1": (8, 1, "edge"),
@@ -179,6 +253,8 @@ KERNELS = {
          "ragged": (2, 65, 3, 32, 100)},
         ("prefill", "decode"), _wkv_inputs, _wkv_launch,
         ref.wkv_reference, _wkv_error, 2e-5),
+    "pack_words": _wire_kernel(pack=True),
+    "unpack_words": _wire_kernel(pack=False),
 }
 
 
@@ -274,14 +350,22 @@ def main(argv=None) -> None:
         if name != "this":
             print(identical(name, call, calls["this"], data), flush=True)
     if kernel.library is not None:
+        timed = {case: data[case] for case in kernel.timed}
+        print(check(kernel, "library", kernel.library, timed, want),
+              flush=True)
         calls["library"] = kernel.library
+    if kernel.wrapper is not None:
+        print(check(kernel, "wrapper", kernel.wrapper, data, want),
+              flush=True)
+        calls["wrapper"] = kernel.wrapper
     times = {(name, case, how): [] for name in calls for case in kernel.timed
-             for how in ("ms", "device")}
+             for how in ("ms", "device", "host")}
     for name in list(calls) + list(reversed(calls)):
         for case in kernel.timed:
             call = lambda: calls[name](*data[case])  # noqa: E731
             times[name, case, "ms"].append(time_ms(call))
             times[name, case, "device"].append(device_ms(call))
+            times[name, case, "host"].append(host_ms(call))
     for (name, case, how), t in times.items():
         print(f"time {name} {case} {kernel.cases[case]} {how}: "
               f"{' '.join(f'{x:.4f}' for x in t)} ms", flush=True)
