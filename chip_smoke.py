@@ -30,7 +30,11 @@ Phases, each fatal on failure (no phase catches and continues):
    by the host's time a call, beside the narrowing casts that compute
    the same function (timed only), and bit-exact at 4 bits, ragged
    rows, an input base one word or field off 16 bytes and lengths no
-   multiple of 4 words; ptxas spills in ``ef_topk.cu`` and
+   multiple of 4 words; the ragged variants ``pack_words_ragged`` and
+   ``unpack_words_ragged`` bit-exact at every section of the perleaf
+   trainer's rows at k_b_t 41, 72 and 102 (and counts that differ per
+   row), timed at its largest, the embedding row's 16-bit index section
+   (626,688 words), at k_b_t 41; ptxas spills in ``ef_topk.cu`` and
    ``wire_pack.cu`` are fatal; the 3 serving
    kernels at the shapes serving gives them (flash attention's bf16
    tensor-core route at qwen1.5-4b's prefill, (4, 20, 2048, 128) causal,
@@ -71,9 +75,21 @@ Phases, each fatal on failure (no phase catches and continues):
    and peak memory; then one profiled prefill and one profiled decode
    step of each, with device time under each kernel's own name and the
    idle share (fatal if a path's kernels are missing from its trace);
+4e. the adaptive trainer at full width: ``--max-gamma 0.1 --gamma 0.04
+   --gamma-schedule linear --gamma-ramp-steps 2 --value-bits 8``, so
+   gamma_t runs 0.04, 0.07, 0.1, for 3 steps on ``--transport perleaf``
+   (per step 9 ``ef_stats_telemetry``, 9 ``ef_apply`` and 18 launches of
+   each ragged codec kernel, no other kernel) and 3 on ``bucketed`` (no
+   ragged launch), each step's effective bytes 13,302,448 / 23,301,808 /
+   32,978,608 and its static bytes 32,978,608; from one saved state, grads
+   and batch one exchange through each transport, parameters and EF
+   memory bit-identical; 2 steps of ``--gamma-schedule ef-coupled`` at
+   32-bit values on perleaf, finite losses; one profiled perleaf step at
+   gamma_t 0.04, as in 4b;
 5. run the 2-layer smoke variants on the card and on the CPU (the plain
    versions, which the CPU tests hold against the JAX package), through
-   the trainer for 2 steps, through CSGD-ASSS for 3 and through serving
+   the trainer for 2 steps (also on ``--transport perleaf --max-gamma
+   0.1``), through CSGD-ASSS for 3 and through serving
    (qwen1.5-4b and rwkv6-1.6b, ctx 96, 4 tokens), and compare: equal
    greedy tokens and logits within 1e-4 of max|logits| for serving;
 6. print the kernels as one JSON line, the card line, and last
@@ -109,6 +125,9 @@ REPLACES = {
     "threshold_split": "src/repro/kernels/ef_topk.py:243",
     "pack_words": "src/repro/kernels/wire_pack.py:109",
     "unpack_words": "src/repro/kernels/wire_pack.py:154",
+    # the ragged bodies' pallas_call, inside pack_words / unpack_words
+    "pack_words_ragged": "src/repro/kernels/wire_pack.py:143",
+    "unpack_words_ragged": "src/repro/kernels/wire_pack.py:183",
     "flash_attention": "src/repro/kernels/flash_attention.py:83",
     "rmsnorm": "src/repro/kernels/rmsnorm.py:30",
     "wkv_forward": "src/repro/kernels/rwkv_wkv.py:58",
@@ -121,6 +140,8 @@ SOURCES = {
     "threshold_split": "src/repro_torch/csrc/ef_topk.cu",
     "pack_words": "src/repro_torch/csrc/wire_pack.cu",
     "unpack_words": "src/repro_torch/csrc/wire_pack.cu",
+    "pack_words_ragged": "src/repro_torch/csrc/wire_pack.cu",
+    "unpack_words_ragged": "src/repro_torch/csrc/wire_pack.cu",
     # the bf16 route, the one serving takes and the kernels line times;
     # f32 inputs take src/repro_torch/csrc/flash_attention.cu
     "flash_attention": "src/repro_torch/csrc/flash_attention_sm90.cu",
@@ -136,6 +157,14 @@ SERVE_RUNS = (("qwen1.5-4b", 2048, dict(flash_attention=40,
                                         rmsnorm=49 * 16),
                ("wkv_forward_kernel", "rmsnorm_kernel")))
 SERVE_BATCH, SERVE_GEN = 4, 16
+#: phase 4e: a 10% budget, gamma_t ramping 0.04 -> 0.07 -> 0.1
+ADAPTIVE_ARGS = ["--max-gamma", "0.1", "--gamma", "0.04",
+                 "--gamma-ramp-steps", "2"]
+ADAPTIVE_STEPS, EF_COUPLED_STEPS = 3, 2
+#: one worker's exchange bytes a step at 8-bit values: static, and
+#: effective at gamma_t 0.04, 0.07 and 0.1 (k_b_t 41, 72, 102 of 102)
+ADAPTIVE_STATIC = 32_978_608
+ADAPTIVE_EFFECTIVE = [13_302_448, 23_301_808, 32_978_608]
 
 
 def fail(msg: str) -> None:
@@ -237,7 +266,8 @@ def kernel_group(name: str) -> str:
     return "other"
 
 
-def profile_step(dev, cfg, comp, label="trainer") -> None:
+def profile_step(dev, cfg, comp, label="trainer",
+                 transport="bucketed") -> None:
     """One warm full-width train step under torch.profiler: device time
     by kernel group and the device's idle share of the step."""
     from repro_torch.comm.exchange import init_process_group
@@ -247,7 +277,8 @@ def profile_step(dev, cfg, comp, label="trainer") -> None:
     from repro_torch.launch.train_step import init_train_state, train_step
     from repro_torch.models import lm
     run = RunConfig(model=cfg, shape=ShapeConfig(256, 8),
-                    optimizer=OptimizerConfig(compressor=comp))
+                    optimizer=OptimizerConfig(compressor=comp,
+                                              transport=transport))
     created = init_process_group(dev)
     try:
         params = lm.init_params(cfg, seed=0, device=dev)
@@ -613,6 +644,215 @@ def check_wire(dev, gen, shapes, stacked, report) -> None:
           "lengths 1015, 3 and 3 words)", flush=True)
 
 
+def check_ragged_wire(dev, gen, shapes, stacked, report) -> None:
+    """The ragged variants of the codec kernels against their plain
+    versions, bit-exact, at every field section of the perleaf trainer's
+    rows (16-bit index, 8-bit value) at k_b_t 41, 72 and 102 and at
+    counts that differ per row; then timed at the largest section, the
+    (16384, 768) embedding row's 16-bit index section at k_b_t 41."""
+    from repro_torch.comm.bucket import build_bucket_plan
+    from repro_torch.core.compression import Compressor
+    from repro_torch.kernels import ref, wire_pack
+    comp = Compressor(gamma=0.04, method="block_topk", max_gamma=0.1,
+                      value_bits=8)
+    lanes = [ln for ln in build_bucket_plan(shapes, stacked, comp).leaves
+             if not ln.dense]
+    cases = 0
+    for ln in lanes:
+        spec = ln.spec
+        for bits, words in ((spec.index_bits, spec.index_words),
+                            (spec.value_bits, spec.value_words)):
+            F = 32 // bits
+            fields = torch.randint(-2**31, 2**31 - 1, (ln.L, words * F),
+                                   generator=gen, device=dev,
+                                   dtype=torch.int32)
+            for c in (41, 72, 102, None):
+                cnt = (torch.full((ln.L,), c, dtype=torch.int32, device=dev)
+                       if c is not None else torch.randint(
+                           0, spec.k_b + 1, (ln.L,), generator=gen,
+                           device=dev, dtype=torch.int32))
+                w = wire_pack.pack_words_ragged(fields, bits, cnt, spec.k_b)
+                back = wire_pack.unpack_words_ragged(w, bits, cnt, spec.k_b)
+                if not (torch.equal(w, ref.pack_fields(fields, bits, cnt,
+                                                       spec.k_b))
+                        and torch.equal(back, ref.unpack_fields(
+                            w, bits, cnt, spec.k_b))):
+                    fail(f"the ragged codec differs from the plain version "
+                         f"at a ({ln.L}, {words})-word {bits}-bit section, "
+                         f"count {c}")
+                cases += 1
+    print(f"ragged wire: bit-exact at {cases} cases ({len(lanes)} leaves, "
+          "index and value sections, k_b_t 41 / 72 / 102 and random)",
+          flush=True)
+
+    big = max(lanes, key=lambda ln: ln.spec.index_words)
+    spec, W = big.spec, big.spec.index_words
+    F = 32 // spec.index_bits
+    fields = torch.randint(-2**31, 2**31 - 1, (big.L, W * F), generator=gen,
+                           device=dev, dtype=torch.int32)
+    cnt = torch.full((big.L,), 41, dtype=torch.int32, device=dev)
+    words = wire_pack.pack_words_ragged(fields, spec.index_bits, cnt,
+                                        spec.k_b)
+    rwords = ref.pack_fields(fields, spec.index_bits, cnt, spec.k_b)
+    back = wire_pack.unpack_words_ragged(words, spec.index_bits, cnt,
+                                         spec.k_b)
+    rback = ref.unpack_fields(words, spec.index_bits, cnt, spec.k_b)
+    # the function's work at this count: the valid fields and the words
+    # that hold one (each read once), the other side written whole
+    valid = (torch.arange(W * F, device=dev) % spec.k_b < 41)
+    n_valid = int(valid.sum()) * big.L
+    live_words = int(valid.view(W, F).any(-1).sum()) * big.L
+    for name, kernel, plain, x, got, want, nbytes in (
+            ("pack_words_ragged", wire_pack.pack_words_ragged,
+             ref.pack_fields, fields, words, rwords,
+             n_valid * 4 + W * big.L * 4 + big.L * 4),
+            ("unpack_words_ragged", wire_pack.unpack_words_ragged,
+             ref.unpack_fields, words, back, rback,
+             live_words * 4 + W * F * big.L * 4 + big.L * 4)):
+        def call(kernel=kernel, x=x):
+            return kernel(x, spec.index_bits, cnt, spec.k_b)
+        report[name] = dict(
+            max_abs_err=float((got.long() - want.long()).abs().max()),
+            ms=time_ms(call),
+            plain_ms=time_ms(lambda plain=plain, x=x: plain(
+                x, spec.index_bits, cnt, spec.k_b)),
+            library_ms=None, bytes=nbytes, ops=W * F * big.L * 3,
+            note=f"embedding row's 16-bit index section, {W} words, "
+                 f"k_b_t 41 of {spec.k_b}; device {device_ms(call):.4f} ms")
+        print(f"{name} ({big.L}, {W}) words, 16-bit, k_b_t 41: "
+              f"{report[name]['ms']:.4f} ms, device only "
+              f"{device_ms(call):.4f} ms (L2 evicted "
+              f"{device_ms(call, evict=True):.4f}), host "
+              f"{host_ms(call):.4f} ms; plain {report[name]['plain_ms']:.4f}"
+              " ms", flush=True)
+
+
+def adaptive_trainer(dev, shapes, stacked) -> dict:
+    """Phase 4e: the adaptive trainer at full width through
+    ``launch.train``, on each transport; returns the perleaf run's launch
+    counts."""
+    from repro_torch.comm.bucket import build_bucket_plan
+    from repro_torch.core.compression import Compressor
+    from repro_torch.core.dcsgd import plan_wire_bytes
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    plans = {bits: build_bucket_plan(shapes, stacked, Compressor(
+        gamma=0.04, method="block_topk", max_gamma=0.1, value_bits=bits))
+        for bits in (8, 32)}
+    n = len(plans[8].compressed_ids)
+    runs = {}
+    for label, transport, bits, schedule, steps, per_step in (
+            ("perleaf", "perleaf", 8, "linear", ADAPTIVE_STEPS,
+             dict(ef_stats_telemetry=n, ef_apply=n, pack_words_ragged=2 * n,
+                  unpack_words_ragged=2 * n)),
+            ("bucketed", "bucketed", 8, "linear", ADAPTIVE_STEPS,
+             dict(ef_stats_telemetry=1, ef_apply=1, pack_words=2,
+                  unpack_words=2)),
+            ("perleaf ef-coupled", "perleaf", 32, "ef-coupled",
+             EF_COUPLED_STEPS,
+             dict(ef_stats_telemetry=n, ef_apply=n, pack_words_ragged=n,
+                  unpack_words_ragged=n))):
+        comp = Compressor(gamma=0.04, method="block_topk", max_gamma=0.1,
+                          value_bits=bits)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launch_counts()
+        log = train.main(MAIN_ARGS + ADAPTIVE_ARGS + [
+            "--transport", transport, "--value-bits", str(bits),
+            "--gamma-schedule", schedule, "--steps", str(steps)])
+        counts = ops.launch_counts()
+        runs[label] = counts
+        peak = torch.cuda.max_memory_allocated(dev)
+        gammas = [x["gamma"] for x in log]
+        eff = [x["effective_wire_bytes"] for x in log]
+        print(f"adaptive [{label}]: launches {counts}; step_s "
+              f"{[round(x['step_s'], 4) for x in log]}; gamma_t {gammas}; "
+              f"wire bytes {[x['wire_bytes'] for x in log]}, effective "
+              f"{eff}; losses {[x['loss'] for x in log]}; n_evals "
+              f"{[x['n_evals'] for x in log]}; peak memory "
+              f"{peak / 2**30:.2f} GiB", flush=True)
+        for name, c in counts.items():
+            if c != per_step.get(name, 0) * steps:
+                fail(f"[adaptive {label}] {name} launched {c} times in "
+                     f"{steps} steps, want {per_step.get(name, 0) * steps}")
+        if not all(np.isfinite(x["loss"]) for x in log) \
+                or any(x["steps_skipped"] for x in log):
+            fail(f"[adaptive {label}] non-finite loss or skipped steps: "
+                 f"{[x['loss'] for x in log]}")
+        # the exchange's bytes from shapes at each step's gamma_t
+        want = [plan_wire_bytes(plans[bits], comp, np.float32(gm))
+                for gm in gammas]
+        if [(x["wire_bytes"], x["effective_wire_bytes"]) for x in log] \
+                != [(float(w), float(e)) for w, e in want]:
+            fail(f"[adaptive {label}] bytes {eff} differ from the "
+                 f"exchange's accounting {want}")
+        if bits == 8 and (eff != ADAPTIVE_EFFECTIVE or any(
+                x["wire_bytes"] != ADAPTIVE_STATIC for x in log)):
+            fail(f"[adaptive {label}] effective bytes {eff}, want "
+                 f"{ADAPTIVE_EFFECTIVE}; static "
+                 f"{[x['wire_bytes'] for x in log]}, want {ADAPTIVE_STATIC}")
+    return runs["perleaf"]
+
+
+def transports_agree(dev, cfg) -> None:
+    """Phase 4e: from one saved state (a warm EF memory), one batch and
+    its grads, one exchange and update through each transport on the
+    card at gamma_t 0.07: parameters and EF memory bit-identical.  The
+    grads are computed once: the embedding's backward sums with atomics,
+    so two backward passes may differ in the last bit."""
+    from repro_torch.comm.exchange import init_process_group
+    from repro_torch.configs.base import OptimizerConfig, RunConfig, \
+        ShapeConfig
+    from repro_torch.core.compression import Compressor
+    from repro_torch.core.dcsgd import worker_compress_aggregate
+    from repro_torch.core.gamma import GammaControllerConfig
+    from repro_torch.data.synthetic import TokenPipeline
+    from repro_torch.launch.train_step import init_train_state, train_step
+    from repro_torch.models import lm
+    from repro_torch.utils import tree_leaves, tree_map, value_and_grad
+    comp = Compressor(gamma=0.04, method="block_topk", max_gamma=0.1,
+                      value_bits=8)
+    run = RunConfig(model=cfg, shape=ShapeConfig(256, 8),
+                    optimizer=OptimizerConfig(
+                        compressor=comp, gamma_controller=
+                        GammaControllerConfig(schedule="linear",
+                                              ramp_steps=2)))
+    created = init_process_group(dev)
+    try:
+        params = lm.init_params(cfg, seed=0, device=dev)
+        pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=256,
+                             global_batch=8)
+        batch = {k: v.to(dev) for k, v in pipe.batch(0).items()}
+        params, state, _ = train_step(params, init_train_state(params, run),
+                                      batch, run)
+        batch = {k: v.to(dev) for k, v in pipe.batch(1).items()}
+        _, grads = value_and_grad(lambda p: lm.loss_fn(p, batch, cfg),
+                                  params)
+        gamma_t = np.float32(0.07)
+        eta = run.optimizer.armijo.scale_for(gamma_t) * state.alpha_prev
+        out = {}
+        for tp in ("perleaf", "bucketed"):
+            upd, mem, wire, eff, _ = worker_compress_aggregate(
+                grads, state.memory, eta, comp,
+                stacked_mask=lm.stacked_mask(params), gamma_t=gamma_t,
+                transport=tp)
+            out[tp] = (tree_leaves(tree_map(lambda p, u: p - u, params,
+                                            upd)), tree_leaves(mem),
+                       wire, eff)
+        torch.cuda.synchronize(dev)
+    finally:
+        if created:
+            torch.distributed.destroy_process_group()
+    a, b = out["perleaf"], out["bucketed"]
+    diff = [i for i, (x, y) in enumerate(zip(a[0] + a[1], b[0] + b[1]))
+            if not torch.equal(x, y)]
+    if diff or a[2:] != b[2:]:
+        fail(f"perleaf and bucketed differ on the card: leaves {diff}, "
+             f"bytes {a[2:]} vs {b[2:]}")
+    print(f"transports on the card: perleaf == bucketed bit for bit over "
+          f"{len(a[0])} parameter and {len(a[1])} EF memory leaves at "
+          f"gamma_t 0.07 (effective bytes {float(a[3])})", flush=True)
+
+
 def run_csgd(dev, cfg, comp, steps) -> dict:
     """Phase 4c: single-node CSGD-ASSS on the full-width model through
     the library entry point; returns the launch counts of the run."""
@@ -629,8 +869,8 @@ def run_csgd(dev, cfg, comp, steps) -> dict:
         """Keeps the (acc, sent, residual) of the largest leaf, so the EF
         identity is checked on what the optimizer really passed."""
 
-        def compress_dense(self, x):
-            sent, resid = super().compress_dense(x)
+        def compress_dense(self, x, gamma_t=None):
+            sent, resid = super().compress_dense(x, gamma_t)
             if x.numel() >= seen.get("n", 0):
                 seen.update(n=x.numel(), x=x, sent=sent, resid=resid)
             return sent, resid
@@ -1173,6 +1413,7 @@ def main() -> None:
     del m, g, sent, mnew, rsent, rmnew, tau, rtau, mom, rmom, btau, rbtau
 
     check_wire(dev, gen, shapes, stacked, report)
+    check_ragged_wire(dev, gen, shapes, stacked, report)
 
     csgd_rows = [-(-int(np.prod(sh)) // comp.block) for sh in shapes
                  if int(np.prod(sh)) >= comp.min_compress_size]
@@ -1236,6 +1477,13 @@ def main() -> None:
     # ---- 4d. serving at full width through its kernels -------------------
     serve_counts = run_serving(dev)
 
+    # ---- 4e. the adaptive trainer: the ragged codec on a trainer path ---
+    adaptive_counts = adaptive_trainer(dev, shapes, stacked)
+    transports_agree(dev, cfg)
+    profile_step(dev, cfg, Compressor(gamma=0.04, method="block_topk",
+                                      max_gamma=0.1, value_bits=8),
+                 "adaptive perleaf, gamma_t 0.04", transport="perleaf")
+
     # ---- 5. small input: the card against the CPU's plain path ----------
     small = ["--smoke", "--steps", "2", "--seq-len", "33", "--global-batch",
              "4", "--compress-method", "block_topk", "--log-every", "1"]
@@ -1247,14 +1495,29 @@ def main() -> None:
             fail(f"smoke run on the card {a} disagrees with the CPU {b}")
     print(f"smoke card vs cpu: losses {[x['loss'] for x in on_card]} vs "
           f"{[x['loss'] for x in on_cpu]}", flush=True)
+    adaptive = small + ["--transport", "perleaf", "--max-gamma", "0.1",
+                        "--gamma-schedule", "linear", "--gamma-ramp-steps",
+                        "1"]
+    on_card = train.main(adaptive)
+    on_cpu = train.main(adaptive + ["--device", "cpu"])
+    for a, b in zip(on_card, on_cpu):
+        if abs(a["loss"] - b["loss"]) > 1e-4 * abs(b["loss"]) or any(
+                a[k] != b[k] for k in ("gamma", "wire_bytes",
+                                       "effective_wire_bytes")):
+            fail(f"adaptive perleaf smoke on the card {a} disagrees with "
+                 f"the CPU {b}")
+    print(f"adaptive perleaf smoke card vs cpu: losses "
+          f"{[x['loss'] for x in on_card]} vs {[x['loss'] for x in on_cpu]},"
+          f" effective bytes {[x['effective_wire_bytes'] for x in on_card]}",
+          flush=True)
     csgd_smoke(dev)
     serve_smoke(dev)
 
     # ---- 6. results -----------------------------------------------------
     # launches: each kernel's count on the path that runs it — the
     # trainer, single-node CSGD, fused_ef_compress(telemetry=False), the
-    # qwen1.5-4b serve run (flash attention, RMSNorm) or the rwkv6-1.6b
-    # one (WKV)
+    # qwen1.5-4b serve run (flash attention, RMSNorm), the rwkv6-1.6b one
+    # (WKV) or the adaptive perleaf trainer (the ragged codec)
     launches = dict(runs["main"])
     launches.update(block_stats=csgd_counts["block_stats"],
                     threshold_split=csgd_counts["threshold_split"],
@@ -1262,7 +1525,10 @@ def main() -> None:
                     flash_attention=serve_counts["qwen1.5-4b"][
                         "flash_attention"],
                     rmsnorm=serve_counts["qwen1.5-4b"]["rmsnorm"],
-                    wkv_forward=serve_counts["rwkv6-1.6b"]["wkv_forward"])
+                    wkv_forward=serve_counts["rwkv6-1.6b"]["wkv_forward"],
+                    pack_words_ragged=adaptive_counts["pack_words_ragged"],
+                    unpack_words_ragged=adaptive_counts[
+                        "unpack_words_ragged"])
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name],
                     max_abs_err=r["max_abs_err"], ms=r["ms"],

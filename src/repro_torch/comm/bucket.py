@@ -5,11 +5,14 @@ DESIGN.md §11).
   compressible leaf gets a :class:`LeafLane` (its (L, d) row geometry,
   :class:`~repro_torch.comm.wire.WireSpec` and word offset into ONE flat
   wire buffer); lanes sharing an index width form a :class:`Bucket`.
-* :func:`encode_buckets` — per-leaf field construction, ONE stream-pack
-  launch per bucket field section, then the exact per-leaf payload rows
-  back to back in one flat int32 buffer (no padding word on the wire).
+* :func:`encode_buckets` — per-leaf field construction (ragged lanes
+  count-masked), ONE stream-pack launch per bucket field section, then
+  the exact per-leaf payload rows back to back in one flat int32 buffer
+  (no padding word on the wire).
 * :func:`decode_buckets` — the inverse on the all-gathered (W, words)
-  buffer, ONE stream-unpack launch per bucket field section.
+  buffer, ONE stream-unpack launch per bucket field section, each ragged
+  row read at its own header's count.  The plain kernels only: the
+  ragged kernels are the per-leaf codec's (``comm/wire.py``).
 """
 from __future__ import annotations
 
@@ -124,11 +127,25 @@ def _unpack_sections(group, bits: int):
 
 
 def encode_buckets(plan: BucketPlan, rows) -> torch.Tensor:
-    """Encode every compressed leaf's (vals (L, k), idx (L, k)) —
-    ``rows`` aligned with ``plan.leaves``, None for dense lanes — into the
-    flat (total_words,) int32 wire buffer."""
-    secs = {ln.index: wire_fmt.row_fields(*rows[ln.index], ln.spec)
-            for ln in plan.leaves if not ln.dense}
+    """Encode every compressed leaf's (vals (L, k), idx (L, k), counts
+    (L,) or None) — ``rows`` aligned with ``plan.leaves``, None for dense
+    lanes — into the flat (total_words,) int32 wire buffer.  A ragged
+    lane's field sections are count-masked here, before the one stream
+    pack of its bucket (the per-leaf codec masks inside the ragged
+    kernels; the fields are the same)."""
+    secs = {}
+    for ln in plan.leaves:
+        if ln.dense:
+            continue
+        vals, idx, counts = rows[ln.index]
+        header, ifields, vfields, counts = wire_fmt.row_fields(
+            vals, idx, ln.spec, counts=counts)
+        if ln.spec.ragged:
+            valid = wire_fmt.field_mask(ln.spec.k, counts,
+                                        ln.spec.count_period)
+            ifields = torch.where(valid, ifields, 0)
+            vfields = torch.where(valid, vfields, 0)
+        secs[ln.index] = (header, ifields, vfields)
 
     lanes = {ln.index: ln for ln in plan.leaves}
     iwords: dict[int, torch.Tensor] = {}
@@ -184,8 +201,17 @@ def decode_buckets(plan: BucketPlan, gathered: torch.Tensor):
         if ln.dense:
             continue
         spec, i = ln.spec, ln.index
-        scale_words = pay[i][:, :1] if spec.value_bits <= 8 else None
-        vals, idx = wire_fmt.fields_to_rows(ifields[i], vfields[i],
-                                            scale_words, spec)
+        ifld, vfld, counts = ifields[i], vfields[i], None
+        if spec.ragged:
+            # each row at its own header's count: workers may differ
+            counts = pay[i][:, 0]
+            valid = wire_fmt.field_mask(spec.k, counts, spec.count_period)
+            ifld = torch.where(valid, ifld, 0)
+            vfld = torch.where(valid, vfld, 0)
+        off = spec.header_words
+        scale_words = pay[i][:, off - 1:off] if spec.value_bits <= 8 \
+            else None
+        vals, idx = wire_fmt.fields_to_rows(ifld, vfld, scale_words, counts,
+                                            spec)
         out[i] = (vals.reshape(W, ln.L, spec.k), idx.reshape(W, ln.L, spec.k))
     return out

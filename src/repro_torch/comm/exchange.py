@@ -1,9 +1,11 @@
 """Packed payload exchange over the data-parallel process group (twin of
 ``src/repro/comm/exchange.py``).
 
-The compressed path's only collective is ONE ``all_gather`` of the flat
-packed buffer; :func:`check_bucket_payload` guarantees before it that the
-buffer is exactly the bytes ``Compressor.wire_bytes`` accounts for.  The
+The compressed path's only collective is an ``all_gather`` of packed
+words: ONE flat buffer on the ``bucketed`` transport, one per leaf on
+``perleaf``; :func:`check_bucket_payload` / :func:`check_payload`
+guarantee before it that the buffer is exactly the bytes
+``Compressor.wire_bytes`` accounts for.  The
 words move as int32: NCCL and gloo support uint32 collectives thinly,
 and the bits are the same.
 """
@@ -14,6 +16,22 @@ import socket
 
 import torch
 import torch.distributed as dist
+
+
+def check_payload(payload: torch.Tensor, spec, comp, d: int) -> None:
+    """The (L, row_words) payload of one leaf about to cross the process
+    group (the ``perleaf`` transport) is exactly the bytes
+    ``Compressor.wire_bytes`` accounts for.  Raises (not assert)."""
+    if payload.dtype != torch.int32:
+        raise ValueError(f"payload must be int32 words, got {payload.dtype}")
+    if payload.shape[-1] != spec.row_words:
+        raise ValueError(f"payload row is {payload.shape[-1]} words, "
+                         f"spec says {spec.row_words}")
+    accounted = comp.wire_bytes(d)
+    if spec.row_bytes != accounted:
+        raise ValueError(
+            f"wire accounting drift: payload row is {spec.row_bytes} B but "
+            f"Compressor.wire_bytes({d}) = {accounted} B")
 
 
 def check_bucket_payload(payload: torch.Tensor, plan, comp) -> None:
@@ -45,13 +63,14 @@ def check_bucket_payload(payload: torch.Tensor, plan, comp) -> None:
 
 
 def gather_packed(payload: torch.Tensor, group=None) -> torch.Tensor:
-    """All-gather one worker's flat (n,) int32 payload -> (W, n), rows in
-    rank order."""
+    """All-gather one worker's int32 payload, flat (n,) or (L, words) ->
+    (W, *payload.shape), rows in rank order."""
     W = dist.get_world_size(group)
     out = torch.empty((W * payload.numel(),), dtype=payload.dtype,
                       device=payload.device)
-    dist.all_gather_into_tensor(out, payload.contiguous(), group=group)
-    return out.reshape(W, -1)
+    dist.all_gather_into_tensor(out, payload.contiguous().reshape(-1),
+                                group=group)
+    return out.reshape(W, *payload.shape)
 
 
 def all_reduce_mean(x: torch.Tensor, group=None) -> torch.Tensor:

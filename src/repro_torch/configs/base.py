@@ -7,6 +7,7 @@ import dataclasses
 
 from repro_torch.core.armijo import ArmijoConfig
 from repro_torch.core.compression import Compressor
+from repro_torch.core.gamma import GammaControllerConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,6 +72,17 @@ class OptimizerConfig:
 
     armijo: ArmijoConfig = ArmijoConfig()
     compressor: Compressor = Compressor()
+    # per-round compression level (core/gamma.py); the schedule moves
+    # gamma_t when compressor.max_gamma > 0 sizes the ragged wire budget
+    gamma_controller: GammaControllerConfig = GammaControllerConfig()
+    # exchange schedule, validated against the comm.transport registry:
+    # "bucketed" (one flat all_gather a step) or "perleaf" (the reference,
+    # one all_gather a leaf)
+    transport: str = "bucketed"
+
+    def __post_init__(self):
+        from repro_torch.comm.transport import validate_transport
+        validate_transport(self.transport)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -6,7 +6,8 @@ paper Algorithm 1 + §III-A).
 * Stopping condition (2): ``f(x - alpha*grad) <= f(x) -
   sigma*alpha*||grad||^2``, with the unscaled alpha; a non-finite trial
   loss is a reject.
-* The descent step is ``eta = a * alpha``.
+* The descent step is ``eta = a * alpha``; with ``theory_safe`` the
+  caller takes ``a = scale_for(gamma_t)``, clamped to the round's bound.
 * Across iterations ``alpha_max_t = omega * alpha_{t-1}``.
 
 PyTorch runs eagerly, so the loop is a host loop: each trial reads its
@@ -36,11 +37,21 @@ class ArmijoConfig:
     alpha0: float = 0.1         # initial alpha_max
     max_backtracks: int = 40
     alpha_min: float = 1e-8
+    #: clamp the step scale to the compressed-SGD bound zeta(gamma_t)
+    #: each round (off by default: the paper runs a = 3*sigma)
+    theory_safe: bool = False
 
-    def scale_for(self, gamma=None) -> float:
+    def zeta(self, gamma) -> np.float32:
+        """The compressed-SGD bound a <= sigma*gamma/(2-gamma), in f32."""
+        g = f32(gamma)
+        return f32(self.sigma) * g / (f32(2.0) - g)
+
+    def scale_for(self, gamma=None) -> np.float32:
         """The step scale a of a round at compression level ``gamma``:
-        ``a_scale`` (the JAX package's default, ``theory_safe`` off)."""
-        return self.a_scale
+        ``a_scale``, clamped to ``zeta(gamma)`` under ``theory_safe``."""
+        if gamma is None or not self.theory_safe:
+            return f32(self.a_scale)
+        return min(f32(self.a_scale), self.zeta(gamma))
 
 
 class ArmijoResult(NamedTuple):
@@ -101,3 +112,11 @@ def next_alpha_max(alpha_t, cfg: ArmijoConfig) -> np.float32:
     """Algorithm 2 step 3: alpha_max_{t+1} = omega * alpha_t."""
     return f32(np.clip(f32(cfg.omega) * f32(alpha_t), f32(cfg.alpha_min),
                        f32(1e6)))
+
+
+def next_evals_ema(ema, n_evals) -> np.float32:
+    """The running mean 0.9 * ema + 0.1 * n_evals as the jitted JAX
+    package computes it: XLA contracts the multiply-add into one f32
+    rounding (the product of two f32 is exact in a double)."""
+    return f32(float(f32(0.9)) * float(f32(ema))
+               + float(f32(0.1) * f32(n_evals)))

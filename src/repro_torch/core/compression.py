@@ -14,8 +14,11 @@ uses a stable descending sort, because ``torch.topk`` leaves the order of
 equal values unspecified and the shipped indices must match the JAX
 package's bit for bit.
 
-The adaptive budget of the JAX package (``max_gamma``, per-round k_t,
-the effective-byte functions) is not ported yet.
+``max_gamma > 0`` makes the compressor adaptive: every static size (the
+payload rows, ``wire_bytes``) is the budget's, and a round compresses at
+its own ``gamma_t <= max_gamma``, keeping the per-round ``k_t`` (or the
+per-block ``k_b_t``) of the budget's magnitude-sorted entries; the
+effective-byte functions price what a ragged collective would ship.
 """
 from __future__ import annotations
 
@@ -107,26 +110,51 @@ class Compressor:
 
     ``value_bits`` (32|16|8|4): wire value width of the packed payload
     (``repro_torch/comm/wire.py``).  ``block_topk`` always runs through
-    the fused EF kernels."""
+    the fused EF kernels.
+
+    ``max_gamma`` > 0: the adaptive budget.  Payload rows, ``wire_bytes``
+    and the EF threshold are sized for ``max_gamma``; a round passes its
+    own ``gamma_t`` and entries ranked beyond ``k_t`` are masked behind
+    the row's count header.  ``gamma`` stays the initial ratio."""
 
     gamma: float = 0.01
     method: str = "topk"            # topk | block_topk | none
     block: int = 1024
     min_compress_size: int = MIN_COMPRESS_SIZE
     value_bits: int = 32
+    max_gamma: float = 0.0          # > 0: adaptive budget
 
     def __post_init__(self):
         if self.method not in ("topk", "block_topk", "none"):
             raise ValueError(f"unknown compression method {self.method!r}")
 
+    @property
+    def adaptive(self) -> bool:
+        """True when the wire rows carry per-round valid counts."""
+        return self.max_gamma > 0.0
+
+    @property
+    def geometry_gamma(self) -> float:
+        """The gamma every static size is built for (the budget)."""
+        return self.max_gamma if self.adaptive else self.gamma
+
     def k_for(self, d: int) -> int:
         if self.method == "none" or d < self.min_compress_size:
             return d
-        return max(1, int(round(self.gamma * d)))
+        return max(1, int(round(self.geometry_gamma * d)))
 
     def block_k(self) -> int:
         """k_b: entries kept per ``block``-wide block (block_topk)."""
-        return max(1, int(round(self.gamma * self.block)))
+        return max(1, int(round(self.geometry_gamma * self.block)))
+
+    def k_t_for(self, d: int, gamma_t) -> int:
+        """Per-round k_t of a flat row of size d: round(gamma_t * d) in
+        f32, half to even, clamped into [1, k_for(d)]."""
+        return _round_clip(gamma_t, d, self.k_for(d))
+
+    def block_k_t(self, gamma_t) -> int:
+        """Per-round valid count of each block, in [1, block_k()]."""
+        return _round_clip(gamma_t, self.block, self.block_k())
 
     def sparse_k(self, d: int) -> int:
         """(value, index) pairs on the wire for a row of size d."""
@@ -155,15 +183,19 @@ class Compressor:
         q = torch.clamp(torch.round(vals / scale), -qmax, qmax)
         return (q * scale).to(vals.dtype)
 
-    def compress_dense(self, x: torch.Tensor):
+    def compress_dense(self, x: torch.Tensor, gamma_t=None):
         """(top_k(x) as a dense tensor, residual x - top_k(x)) of one leaf,
         flattened whole (single-node semantics).  ``block_topk`` runs the
         ``block_stats`` and ``threshold_split`` kernels over the flat
         leaf's 1024-wide blocks and ships values unquantized; ``topk``
-        quantizes its values when ``value_bits < 32``."""
+        quantizes its values when ``value_bits < 32``.  ``gamma_t``
+        (adaptive compressors): the round's ratio, see
+        :meth:`_compress_dense_ragged`."""
         d = x.numel()
         if self.method == "none" or d < self.min_compress_size:
             return x, torch.zeros_like(x)
+        if gamma_t is not None and self.adaptive:
+            return self._compress_dense_ragged(x, gamma_t)
         if self.method == "block_topk":
             flat = x.reshape(-1)
             tau = ops.block_topk_threshold(flat, self.block_k(), self.block)
@@ -174,6 +206,32 @@ class Compressor:
         if self.value_bits < 32:
             s = Sparse(self.quantize_values(s.values), s.indices, s.shape)
         dense = sparse_to_dense(s, x.dtype)
+        return dense, x - dense
+
+    def _compress_dense_ragged(self, x: torch.Tensor, gamma_t):
+        """Selection at the budget, masked to the round's count: the
+        candidates come largest first (per block for ``block_topk``), so
+        the first k_t of them are the round's top k_t, and the masked
+        ones fall into the residual.  Plain PyTorch on every device, as
+        the JAX package's ragged path is plain jnp."""
+        d = x.numel()
+        flat = x.reshape(-1)
+        if self.method == "topk":
+            idx = stable_topk_indices(flat.abs(), self.k_for(d))
+            pos = torch.arange(idx.numel(), device=x.device)
+            vals = torch.where(pos < self.k_t_for(d, gamma_t), flat[idx],
+                               0.0)
+            if self.value_bits < 32:
+                vals = self.quantize_values(vals)    # scale of valid only
+            dense = sparse_to_dense(
+                Sparse(vals, idx.to(torch.int32), tuple(x.shape)), x.dtype)
+        else:
+            vals, idx = block_extract_sparse(flat.reshape(1, -1), self)
+            pos = torch.arange(vals.shape[-1], device=x.device)
+            vals = torch.where(pos % self.block_k() < self.block_k_t(gamma_t),
+                               vals, 0.0)
+            dense = sparse_to_dense(Sparse(vals.float(), idx,
+                                           tuple(x.shape))).to(x.dtype)
         return dense, x - dense
 
     def wire_bytes(self, x_size: int, itemsize: int = 4) -> int:
@@ -204,3 +262,42 @@ def tree_wire_bytes(tree, comp: Compressor, itemsize: int = 4) -> int:
     """Communicated bytes per worker per step for a gradient tree."""
     return sum(comp.leaf_wire_bytes(leaf.shape, itemsize)
                for leaf in tree_leaves(tree))
+
+
+def _round_clip(gamma_t, n: int, hi: int) -> int:
+    """clip(round(f32(gamma_t) * n), 1, hi): the product in f32 and
+    rounded half to even, as the JAX package's ``jnp.round`` computes it;
+    the count is a host int, as gamma_t is a host scalar."""
+    t = np.round(np.float32(gamma_t) * np.float32(n))
+    return int(min(max(t, 1), hi))
+
+
+def leaf_effective_wire_bytes(comp: Compressor, shape, gamma_t,
+                              itemsize: int = 4) -> np.float32:
+    """Per-round useful wire bytes of one leaf at ``gamma_t``: the header
+    and only the valid (index, value) fields, bit-packed.  Equals
+    :meth:`Compressor.leaf_wire_bytes` for non-adaptive compressors.
+    Leaves with ndim >= 2 are read as stacked, as :func:`leaf_geometry`
+    reads them; the exchange's own figure uses the model's stacked mask
+    (``core.dcsgd.plan_wire_bytes``)."""
+    L, d = leaf_geometry(shape)
+    if comp.sparse_k(d) >= d:
+        return np.float32(L * d * itemsize)
+    from repro_torch.comm.wire import WireSpec  # local import: no cycle
+    spec = WireSpec.for_row(comp, d)
+    if not spec.ragged:
+        return np.float32(L * spec.row_bytes)
+    count = comp.block_k_t(gamma_t) if spec.local \
+        else comp.k_t_for(d, gamma_t)
+    return np.float32(L) * spec.effective_row_bytes(count)
+
+
+def tree_effective_wire_bytes(tree, comp: Compressor, gamma_t,
+                              itemsize: int = 4) -> np.float32:
+    """Per-round effective bytes of a tree (f32 sum in tree order); the
+    runtime counterpart of :func:`tree_wire_bytes`, the static bound."""
+    total = np.float32(0.0)
+    for leaf in tree_leaves(tree):
+        total = total + leaf_effective_wire_bytes(comp, leaf.shape, gamma_t,
+                                                  itemsize)
+    return total

@@ -12,7 +12,11 @@ tensors.  Each step: autograd, the Armijo search from
 ``acc = m + eta*g`` (one rounding, as the JAX package's jitted FMA),
 ``(sent, m') = compress_dense(acc)`` over the whole flattened leaf, and
 ``params -= sent``.  With ``block_topk`` every compressed leaf launches
-the ``block_stats`` and ``threshold_split`` kernels once per step.
+the ``block_stats`` and ``threshold_split`` kernels once per step.  Each
+step first runs a round of the gamma controller (``core/gamma.py``) and
+takes ``eta = scale_for(gamma_t) * alpha``; an adaptive compressor then
+compresses at gamma_t through its plain ragged path, as the JAX
+package's does (no kernel).
 
 Host scalars (alpha, eta, gamma, byte counts) are numpy float32, as the
 port's Armijo search is a host loop; tensors stay on the params' device.
@@ -27,12 +31,14 @@ import torch
 
 from repro_torch.utils import tree_flatten, tree_leaves, tree_map, \
     tree_unflatten, value_and_grad
-from .armijo import ArmijoConfig, armijo_search, next_alpha_max, tree_sqnorm
-from .compression import Compressor, tree_wire_bytes
+from .armijo import ArmijoConfig, armijo_search, next_alpha_max, \
+    next_evals_ema, tree_sqnorm
+from .compression import Compressor, tree_effective_wire_bytes, \
+    tree_wire_bytes
 from .error_feedback import QuantizedEF, dequantize_ef, init_ef, \
     init_ef_quantized, quantize_ef
-from .gamma import gamma_init
-from .telemetry import CompressionTelemetry, TelemetrySums
+from .gamma import GammaControllerConfig, gamma_init, gamma_update
+from .telemetry import CompressionTelemetry, SearchTelemetry, TelemetrySums
 
 f32 = np.float32
 EF_DTYPES = ("float32", "bfloat16", "int8")
@@ -44,6 +50,8 @@ class CSGDConfig:
     #: ``eta`` below as the step size (cf. NonAdaptiveCSGD).
     armijo: ArmijoConfig | None = ArmijoConfig()
     compressor: Compressor = Compressor()
+    #: per-round compression-level controller (core/gamma.py)
+    gamma_ctrl: GammaControllerConfig = GammaControllerConfig()
     eta: float = 0.1                # fixed step when armijo is None
     ef_dtype: str = "float32"       # float32 | bfloat16 | int8
     use_scaling: bool = True        # False reproduces the divergent variant
@@ -54,6 +62,10 @@ class CSGDConfig:
         if self.ef_dtype not in EF_DTYPES:
             raise ValueError(f"ef_dtype {self.ef_dtype!r} not in "
                              f"{EF_DTYPES}")
+        if self.armijo is None and \
+                self.gamma_ctrl.schedule == "armijo-coupled":
+            raise ValueError("armijo-coupled gamma schedule needs the "
+                             "Armijo search (armijo=None)")
 
 
 class CSGDState(NamedTuple):
@@ -63,7 +75,7 @@ class CSGDState(NamedTuple):
     n_evals_ema: np.float32   # running mean of Armijo evaluations
     gamma: np.float32         # the round's compression level gamma_t
     telemetry: CompressionTelemetry
-    cum_eff_bytes: np.float32  # run total of wire bytes (fixed budget)
+    cum_eff_bytes: np.float32  # run total of effective wire bytes
     velocity: Any = ()        # heavy-ball state (momentum > 0 only)
 
 
@@ -76,6 +88,7 @@ class StepAux(NamedTuple):
     accepted: bool
     gamma: np.float32
     wire_bytes: np.float32        # payload bytes a worker would ship
+    eff_wire_bytes: np.float32    # the same at gamma_t's valid entries
     telemetry: CompressionTelemetry
     cum_eff_bytes: np.float32
 
@@ -92,12 +105,6 @@ def _ef_from_dense(memory_dense, ef_dtype: str):
     if ef_dtype == "int8":
         return tree_map(quantize_ef, memory_dense)
     return tree_map(lambda m: m.to(getattr(torch, ef_dtype)), memory_dense)
-
-
-def _fma32(a, b, c) -> np.float32:
-    """a*b + c as XLA contracts it, one f32 rounding (the product of two
-    f32 is exact in a double)."""
-    return f32(float(f32(a)) * float(f32(b)) + float(f32(c)))
 
 
 class CSGD:
@@ -119,7 +126,7 @@ class CSGD:
         return CSGDState(
             step=0, alpha_prev=f32(alpha0), memory=memory,
             n_evals_ema=f32(0.0),
-            gamma=gamma_init(cfg.compressor),
+            gamma=gamma_init(cfg.gamma_ctrl, cfg.compressor),
             telemetry=CompressionTelemetry.init(tree_leaves(params)[0].device),
             cum_eff_bytes=f32(0.0), velocity=vel)
 
@@ -139,9 +146,15 @@ class CSGD:
         else:
             alpha, n_evals, accepted = f32(cfg.eta), 0, True
 
-        gamma_t = state.gamma                 # the fixed schedule
+        # --- the round's compression level (controller round, step t)
+        gamma_t = gamma_update(
+            cfg.gamma_ctrl, comp, state.gamma, state.step,
+            search=SearchTelemetry(alpha=alpha, alpha_prev=state.alpha_prev,
+                                   n_evals=f32(n_evals),
+                                   n_evals_ema=state.n_evals_ema),
+            compression=state.telemetry)
         if cfg.armijo is not None and cfg.use_scaling:
-            eta = f32(cfg.armijo.scale_for(gamma_t)) * alpha
+            eta = cfg.armijo.scale_for(gamma_t) * alpha
         else:
             eta = alpha                 # a = 1: the divergent variant
 
@@ -165,7 +178,7 @@ class CSGD:
             for m, g in zip(flat_m, tree_leaves(descent)):
                 gf = g.to(m.dtype)
                 acc = torch.addcmul(m, eta_t, gf)
-                s, r = comp.compress_dense(acc)
+                s, r = comp.compress_dense(acc, gamma_t)
                 # single-node semantics: decode(own) IS the dense `sent`
                 sums = sums.add(g_sq=(gf * gf).sum(), acc_sq=(acc * acc).sum(),
                                 resid_sq=(r * r).sum(), own_sq=(s * s).sum(),
@@ -176,18 +189,19 @@ class CSGD:
                                   params, tree_unflatten(structure, sent))
         telemetry = sums.finalize()
         wire = f32(tree_wire_bytes(params, comp))
-        cum_eff = f32(state.cum_eff_bytes + wire)
+        eff = tree_effective_wire_bytes(params, comp, gamma_t) \
+            if comp.adaptive else wire
+        cum_eff = f32(state.cum_eff_bytes + eff)
         new_state = CSGDState(
             step=state.step + 1, alpha_prev=alpha,
             memory=_ef_from_dense(tree_unflatten(structure, resid),
                                   cfg.ef_dtype),
-            n_evals_ema=_fma32(0.9, state.n_evals_ema,
-                               f32(0.1) * f32(n_evals)),
+            n_evals_ema=next_evals_ema(state.n_evals_ema, n_evals),
             gamma=gamma_t, telemetry=telemetry, cum_eff_bytes=cum_eff,
             velocity=vel)
         aux = StepAux(loss=loss, alpha=alpha, eta=eta, n_evals=n_evals,
                       grad_sqnorm=gsq, accepted=accepted, gamma=gamma_t,
-                      wire_bytes=wire,
+                      wire_bytes=wire, eff_wire_bytes=eff,
                       telemetry=telemetry, cum_eff_bytes=cum_eff)
         return new_params, new_state, aux
 

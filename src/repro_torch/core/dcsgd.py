@@ -1,19 +1,35 @@
 """DCSGD-ASSS exchange (twin of ``src/repro/core/dcsgd.py``, paper
-Algorithm 3 steps 3-7, the default ``bucketed`` transport).
+Algorithm 3 steps 3-7).
 
 Each data-parallel worker (one process of the group):
 
   3. forms ``acc = m + eta * grad`` per leaf,
-  4. compresses ``acc`` and encodes ONE flat bit-packed payload,
-  5. all-gathers it over the group (the only compressed collective),
-  6. decodes every worker's payload and applies the dense mean,
+  4. compresses ``acc`` and encodes it into bit-packed payload rows,
+  5. all-gathers them over the group (the only compressed collective),
+  6. decodes every worker's rows and applies the dense mean,
   7. keeps ``m' = acc - decode(own payload)``,
 
-while leaves below the compression size travel densely in ONE all-reduce.
-Stacked leaves (leading axis = layers) are compressed per layer.
+while leaves below the compression size travel densely.  Stacked leaves
+(leading axis = layers) are compressed per layer.
 
-The perleaf, gossip, overlap, downlink and faulty transports of the JAX
-package are not ported yet.
+Two transports, registered in ``comm/transport.py``:
+
+* ``bucketed`` (the default) — ONE fused-EF launch pair, ONE flat packed
+  all_gather with one plain pack/unpack launch per bucket field section,
+  and ONE dense all-reduce per step;
+* ``perleaf`` — the reference schedule: per compressed leaf one fused-EF
+  launch pair, one packed all_gather and one pack/unpack launch per field
+  section (the ragged kernels when the compressor is adaptive), and one
+  all-reduce per dense leaf.
+
+Both give the same updates, EF memory, byte counts and telemetry, bit for
+bit.  With an adaptive compressor (``max_gamma > 0``) a round compresses
+at its ``gamma_t``: selection runs at the budget, entries past the
+round's count are masked behind each row's count header (workers may
+send different counts; each row is decoded at its own), the masked mass
+stays in the EF residual, and the effective byte count prices only the
+valid fields.  The gossip, overlap, downlink and faulty transports of the
+JAX package are not ported.
 """
 from __future__ import annotations
 
@@ -23,15 +39,21 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.comm import wire as wire_fmt
 from repro_torch.comm.bucket import (build_bucket_plan, decode_buckets,
                                      encode_buckets)
 from repro_torch.comm.exchange import (all_reduce_mean, check_bucket_payload,
-                                       gather_packed)
+                                       check_payload, gather_packed)
+from repro_torch.comm.transport import get_transport, register_transport
+from repro_torch.kernels import ops
 from repro_torch.kernels.ref import ef_acc
 from repro_torch.utils import tree_flatten, tree_map, tree_unflatten
-from .compression import Compressor
-from .leafmath import scatter_layers, select_and_encode
+from .compression import Compressor, block_extract_sparse
+from .leafmath import (leaf_2d, leaf_count, per_layer_topk, scatter_layers,
+                       select_and_encode)
 from .telemetry import TelemetrySums, sparse_own_sums
+
+f32 = np.float32
 
 
 @functools.lru_cache(maxsize=8)
@@ -41,34 +63,61 @@ def _plan(shapes, stacked, comp):
     return build_bucket_plan(shapes, stacked, comp)
 
 
+def plan_wire_bytes(plan, comp: Compressor, gamma_t=None):
+    """(wire bytes, effective wire bytes) of one worker's exchange: the
+    payload rows and the f32 dense leaves, and the same with each ragged
+    row priced at its valid fields only (``WireSpec.effective_row_bytes``
+    at the round's count).  f32 sums in tree order, as the JAX package's
+    exchange accumulates them; the two agree unless the compressor is
+    adaptive.  Host float32 scalars, from shapes alone."""
+    wire = eff = f32(0.0)
+    for ln in plan.leaves:
+        if ln.dense:
+            nbytes = f32(ln.L * ln.d * 4)
+            wire, eff = wire + nbytes, eff + nbytes
+            continue
+        wire = wire + f32(ln.L * ln.spec.row_bytes)
+        count = leaf_count(comp, ln.spec, gamma_t, ln.d)
+        eff = eff + (f32(ln.L * ln.spec.row_bytes) if count is None else
+                     f32(ln.L) * ln.spec.effective_row_bytes(count))
+    return wire, eff
+
+
 def worker_compress_aggregate(grads, memory, eta, comp: Compressor,
-                              group=None, stacked_mask=None):
+                              group=None, stacked_mask=None, gamma_t=None,
+                              transport: str = "bucketed"):
     """Steps 3-7 of Algorithm 3 for a whole gradient tree.
 
-    ``eta``: the step (host scalar or one-element tensor).  Returns
-    ``(mean_update, new_memory, wire_bytes, telemetry)``; the byte count
-    is a float32 host scalar, the rest tensors on the gradients'
-    device."""
+    ``eta``: the step (host scalar or one-element tensor).  ``gamma_t``:
+    this worker's round level (adaptive compressors; default
+    ``comp.gamma``).  Returns ``(mean_update, new_memory, wire_bytes,
+    effective_wire_bytes, telemetry)``; the byte counts are float32 host
+    scalars, the rest tensors on the gradients' device."""
+    tp = get_transport(transport)
     flat_g, structure = tree_flatten(grads)
     flat_m = tree_flatten(memory)[0]
     flat_s = ([g.dim() >= 2 for g in flat_g] if stacked_mask is None
               else tree_flatten(stacked_mask)[0])
     device = flat_g[0].device
     eta = torch.as_tensor(eta, dtype=torch.float32).to(device).reshape(1)
-    updates, new_mem, wire, sums = _bucketed_exchange(
-        flat_g, flat_m, flat_s, eta, comp, group)
+    if comp.adaptive and gamma_t is None:
+        gamma_t = f32(comp.gamma)
+    updates, new_mem, wire, eff_wire, sums = tp.exchange(
+        flat_g, flat_m, flat_s, eta, comp, group, gamma_t)
     return (tree_unflatten(structure, updates),
-            tree_unflatten(structure, new_mem), wire, sums.finalize())
+            tree_unflatten(structure, new_mem), wire, eff_wire,
+            sums.finalize())
 
 
-def _consume_decoded_leaf(g, m, g2f, g_vals, g_idx, spec, L, d, W, rank,
+def _consume_decoded_leaf(g, m, g2f, g_vals, g_idx, L, d, W, rank,
                           use_fused, sent, resid, acc2):
-    """Post-gather per-leaf consumer: the mean update, this worker's EF
-    residual (own rows sliced from the gathered decode), the byte cost
-    and the decoded-side telemetry sums."""
+    """Post-gather per-leaf consumer, shared by both transports: the mean
+    update, this worker's EF residual (own rows sliced from the gathered
+    decode) and the decoded-side telemetry sums.  Entries past the
+    round's count are absent from the decoded own rows, so they land in
+    the residual."""
     total = scatter_layers(g_vals, g_idx, L, d)
     mean_dense = total / W
-    wire_add = np.float32(L * spec.row_bytes)
     own_vals, own_idx = g_vals[rank], g_idx[rank]
     own_dense = scatter_layers(own_vals, own_idx, L, d)
     if use_fused:
@@ -77,19 +126,79 @@ def _consume_decoded_leaf(g, m, g2f, g_vals, g_idx, spec, L, d, W, rank,
         r = acc2 - own_dense
     own_sq, own_dot = sparse_own_sums(own_vals, own_idx, g2f)
     return (mean_dense.reshape(g.shape), r.reshape(m.shape).to(m.dtype),
-            wire_add, (r * r).sum(), own_sq, own_dot)
+            (r * r).sum(), own_sq, own_dot)
 
 
-def _bucketed_exchange(flat_g, flat_m, flat_s, eta, comp, group):
-    """ONE fused-EF launch pair, ONE flat packed all_gather and ONE dense
-    all-reduce per step; per-leaf accumulation order of bytes and
-    telemetry follows tree order, as in the JAX package."""
+def _tree_plan(flat_g, flat_s, comp):
+    return _plan(tuple(tuple(g.shape) for g in flat_g),
+                 tuple(bool(s) for s in flat_s), comp)
+
+
+@register_transport("perleaf", description=(
+    "reference schedule: one packed all_gather + one launch set per leaf"))
+def _perleaf_exchange(flat_g, flat_m, flat_s, eta, comp, group, gamma_t):
+    """One fused-EF launch pair, one ``encode_rows``, one all_gather and
+    one ``decode_rows`` per compressed leaf; one all-reduce per dense
+    leaf."""
     W = dist.get_world_size(group)
     rank = dist.get_rank(group)
     device = flat_g[0].device
-    plan = _plan(tuple(tuple(g.shape) for g in flat_g),
-                 tuple(bool(s) for s in flat_s), comp)
-    sel = select_and_encode(flat_g, flat_m, flat_s, eta, comp, plan)
+    plan = _tree_plan(flat_g, flat_s, comp)
+    use_fused = comp.method == "block_topk"
+    updates, new_mem = [], []
+    sums = TelemetrySums.zero(device)
+    for lane, g, m in zip(plan.leaves, flat_g, flat_m):
+        if lane.dense:
+            acc = ef_acc(m, g, eta).reshape(g.shape)
+            updates.append(all_reduce_mean(acc, group))
+            new_mem.append(torch.zeros_like(m))
+            sums = sums.add_dense(acc, g)
+            continue
+        L, d, spec = lane.L, lane.d, lane.spec
+        g2f = leaf_2d(g, lane.stacked).float()
+        sent = resid = acc2 = None
+        if use_fused:
+            # threshold at the budget; the round's count masks the rest
+            sent, resid, _, moments = ops.fused_ef_compress(
+                leaf_2d(m, lane.stacked).float(), g2f, eta,
+                comp.geometry_gamma, comp.block, telemetry=True)
+            g_sq, acc_sq = moments[:, 0].sum(), moments[:, 1].sum()
+            vals, idx = block_extract_sparse(sent, comp)
+        else:
+            acc2 = ef_acc(leaf_2d(m, lane.stacked), g2f, eta)
+            g_sq, acc_sq = (g2f * g2f).sum(), (acc2 * acc2).sum()
+            vals, idx = per_layer_topk(acc2, comp.k_for(d))
+        count = leaf_count(comp, spec, gamma_t, d)
+        payload = wire_fmt.encode_rows(
+            vals, idx, spec, counts=None if count is None else
+            wire_fmt.row_counts(count, L, device))
+        check_payload(payload, spec, comp, d)
+        g_vals, g_idx = wire_fmt.decode_rows(
+            gather_packed(payload, group).reshape(-1, spec.row_words), spec)
+        upd, mem_leaf, resid_sq, own_sq, own_dot = _consume_decoded_leaf(
+            g, m, g2f, g_vals.reshape(W, L, spec.k),
+            g_idx.reshape(W, L, spec.k), L, d, W, rank, use_fused, sent,
+            resid, acc2)
+        updates.append(upd)
+        new_mem.append(mem_leaf)
+        sums = sums.add(g_sq=g_sq, acc_sq=acc_sq, resid_sq=resid_sq,
+                        own_sq=own_sq, own_dot_g=own_dot)
+    return (updates, new_mem) + plan_wire_bytes(plan, comp, gamma_t) \
+        + (sums,)
+
+
+@register_transport("bucketed", description=(
+    "O(1) collectives: ONE flat packed all_gather + ONE all-reduce a step"))
+def _bucketed_exchange(flat_g, flat_m, flat_s, eta, comp, group, gamma_t):
+    """ONE fused-EF launch pair, ONE flat packed all_gather and ONE dense
+    all-reduce per step; per-leaf accumulation order of the telemetry
+    follows tree order, as in the JAX package."""
+    W = dist.get_world_size(group)
+    rank = dist.get_rank(group)
+    device = flat_g[0].device
+    plan = _tree_plan(flat_g, flat_s, comp)
+    sel = select_and_encode(flat_g, flat_m, flat_s, eta, comp, gamma_t,
+                            plan)
 
     decoded = [None] * len(plan.leaves)
     if plan.total_words:
@@ -112,29 +221,24 @@ def _bucketed_exchange(flat_g, flat_m, flat_s, eta, comp, group):
             off += size
 
     updates, new_mem = [], []
-    wire = np.float32(0.0)
     sums = TelemetrySums.zero(device)
     for lane, g, m in zip(plan.leaves, flat_g, flat_m):
         i = lane.index
         if lane.dense:
-            acc = dense_acc[i]
             updates.append(dense_mean[i])
             new_mem.append(torch.zeros_like(m))
-            nbytes = np.float32(acc.numel() * acc.element_size())
-            wire = wire + nbytes
-            sums = sums.add_dense(acc, g)
+            sums = sums.add_dense(dense_acc[i], g)
             continue
         g_vals, g_idx = decoded[i]
-        (upd, mem_leaf, wire_add, resid_sq, own_sq,
-         own_dot) = _consume_decoded_leaf(
-            g, m, sel.g2f[i], g_vals, g_idx, lane.spec, lane.L, lane.d, W,
-            rank, sel.use_fused, sel.sent[i], sel.resid[i], sel.acc2[i])
+        upd, mem_leaf, resid_sq, own_sq, own_dot = _consume_decoded_leaf(
+            g, m, sel.g2f[i], g_vals, g_idx, lane.L, lane.d, W, rank,
+            sel.use_fused, sel.sent[i], sel.resid[i], sel.acc2[i])
         updates.append(upd)
         new_mem.append(mem_leaf)
-        wire = wire + wire_add
         sums = sums.add(g_sq=sel.leaf_g_sq[i], acc_sq=sel.leaf_acc_sq[i],
                         resid_sq=resid_sq, own_sq=own_sq, own_dot_g=own_dot)
-    return updates, new_mem, wire, sums
+    return (updates, new_mem) + plan_wire_bytes(plan, comp, gamma_t) \
+        + (sums,)
 
 
 def dense_aggregate(grads, eta, group=None):

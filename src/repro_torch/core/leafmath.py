@@ -1,11 +1,12 @@
-"""Per-leaf selection/encode math of the bucketed transport (twin of
+"""Per-leaf selection/encode math of the transports (twin of
 ``src/repro/core/leafmath.py``).
 
 :func:`select_and_encode` is the whole-tree selection stage before the
 gather: for block_topk ONE fused-EF two-pass launch pair over every
 compressed leaf and the per-block selection of what it sent; for topk
 the EF accumulation and an exact per-layer top-k; either way the
-``(vals, idx)`` rows that ``comm.bucket.encode_buckets`` consumes.
+``(vals, idx, counts)`` rows that ``comm.bucket.encode_buckets``
+consumes, with the round's valid counts of an adaptive compressor.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.comm import wire as wire_fmt
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import ef_acc
 from .compression import Compressor, block_extract_sparse, \
@@ -46,6 +48,16 @@ def leaf_2d(x: torch.Tensor, stacked: bool) -> torch.Tensor:
     return x.reshape(1, -1)
 
 
+def leaf_count(comp: Compressor, spec, gamma_t, d: int) -> int | None:
+    """The round's valid count of a leaf's rows: the per-block ``k_b_t``
+    for block-local rows, the row ``k_t`` for flat rows; None unless the
+    spec is ragged."""
+    if not spec.ragged:
+        return None
+    return comp.block_k_t(gamma_t) if spec.local \
+        else comp.k_t_for(d, gamma_t)
+
+
 @dataclasses.dataclass
 class Selection:
     """Whole-tree selection-stage outputs, indexed by leaf position
@@ -60,32 +72,40 @@ class Selection:
     resid: list
     leaf_g_sq: list
     leaf_acc_sq: list
-    enc_rows: list
+    enc_rows: list     # (vals, idx, counts or None) per compressed leaf
 
 
 def select_and_encode(flat_g, flat_m, flat_s, eta: torch.Tensor,
-                      comp: Compressor, plan) -> Selection:
-    """``eta``: one f32 element on the working device."""
+                      comp: Compressor, gamma_t, plan) -> Selection:
+    """``eta``: one f32 element on the working device.  Selection runs at
+    the budget (``comp.geometry_gamma``): the fused EF passes threshold
+    there, and the round's count masks the rest at encode time."""
     use_fused = comp.method == "block_topk"
-    n = len(plan.leaves)
+    lanes = plan.leaves
+    n = len(lanes)
     comp_ids = list(plan.compressed_ids)
     sel = Selection(use_fused, *([None] * n for _ in range(7)))
     if use_fused and comp_ids:
         ms = [leaf_2d(flat_m[i], flat_s[i]).float() for i in comp_ids]
         gs = [leaf_2d(flat_g[i], flat_s[i]).float() for i in comp_ids]
-        outs = ops.fused_ef_compress_batched(ms, gs, eta, comp.gamma,
-                                             comp.block)
+        outs = ops.fused_ef_compress_batched(ms, gs, eta,
+                                             comp.geometry_gamma, comp.block)
         for i, g2, (s, r, _, moments) in zip(comp_ids, gs, outs):
             sel.g2f[i], sel.sent[i], sel.resid[i] = g2, s, r
             sel.leaf_g_sq[i] = moments[:, 0].sum()
             sel.leaf_acc_sq[i] = moments[:, 1].sum()
-            sel.enc_rows[i] = block_extract_sparse(s, comp)
-        return sel
     for i in comp_ids:
-        g2 = leaf_2d(flat_g[i], flat_s[i]).float()
-        a2 = ef_acc(leaf_2d(flat_m[i], flat_s[i]), g2, eta)
-        sel.g2f[i], sel.acc2[i] = g2, a2
-        sel.leaf_g_sq[i] = (g2 * g2).sum()
-        sel.leaf_acc_sq[i] = (a2 * a2).sum()
-        sel.enc_rows[i] = per_layer_topk(a2, comp.k_for(plan.leaves[i].d))
+        lane = lanes[i]
+        if use_fused:
+            vals, idx = block_extract_sparse(sel.sent[i], comp)
+        else:
+            g2 = leaf_2d(flat_g[i], flat_s[i]).float()
+            a2 = ef_acc(leaf_2d(flat_m[i], flat_s[i]), g2, eta)
+            sel.g2f[i], sel.acc2[i] = g2, a2
+            sel.leaf_g_sq[i] = (g2 * g2).sum()
+            sel.leaf_acc_sq[i] = (a2 * a2).sum()
+            vals, idx = per_layer_topk(a2, comp.k_for(lane.d))
+        count = leaf_count(comp, lane.spec, gamma_t, lane.d)
+        sel.enc_rows[i] = (vals, idx, None if count is None else
+                           wire_fmt.row_counts(count, lane.L, vals.device))
     return sel

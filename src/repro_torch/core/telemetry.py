@@ -10,7 +10,9 @@ tree order and turned into ratios once:
 
 ``sum g^2`` and ``sum acc^2`` come from the fused EF pass-1 kernel's
 moments on the kernel path; the decoded-side sums touch only the k wire
-entries.  All values are 0-dim float32 tensors on the working device.
+entries.  Values are 0-dim float32 tensors on the working device, or
+host float32 scalars once the trainer has read them back with its
+metrics (the ``ef-coupled`` controller reads them there).
 """
 from __future__ import annotations
 
@@ -90,3 +92,14 @@ def sparse_own_sums(own_vals: torch.Tensor, own_idx: torch.Tensor,
     vals = own_vals.float()
     g_at = torch.gather(g2, -1, own_idx.clamp_max(d - 1).to(torch.int64))
     return (vals * vals).sum(), (vals * g_at).sum()
+
+
+@dataclasses.dataclass(frozen=True)
+class SearchTelemetry:
+    """Armijo line-search signals of the round that just finished (the
+    ``armijo-coupled`` controller's input); host float32 scalars."""
+
+    alpha: float             # accepted step of round t
+    alpha_prev: float        # accepted step of round t-1
+    n_evals: float           # stopping-condition evaluations of round t
+    n_evals_ema: float       # running mean of n_evals

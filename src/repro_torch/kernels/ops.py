@@ -59,6 +59,8 @@ KERNELS = {
     "threshold_split": ef_topk.threshold_split,
     "pack_words": wire_pack.pack_words,
     "unpack_words": wire_pack.unpack_words,
+    "pack_words_ragged": wire_pack.pack_words_ragged,
+    "unpack_words_ragged": wire_pack.unpack_words_ragged,
     "flash_attention": flash_attention,
     "rmsnorm": rmsnorm.rmsnorm,
     "wkv_forward": rwkv_wkv.wkv_forward,

@@ -4,8 +4,9 @@ Twins of ``src/repro/kernels/wire_pack.py``'s ``pack_words`` /
 ``unpack_words``, ragged ``counts``/``period`` variants included.  Fields
 and words are uint32 bit patterns in int32 (or uint32) tensors.  Each
 wrapper checks its tensors, launches on the current stream, raises on a
-launch error and counts its launches in ``<wrapper>.launches``.  The
-trainer launches each once or twice a step, so the host path reads each
+launch error and counts its launches in ``<wrapper>.launches``; the
+ragged variants (``*_ragged``) count theirs apart.  The bucketed trainer
+launches the plain kernels once or twice a step, so the host path reads each
 tensor property once and looks the C entry point up once.
 """
 from __future__ import annotations
@@ -71,22 +72,50 @@ def _launch(name: str, x: torch.Tensor, bits: int, counts, period: int,
 def pack_words(fields: torch.Tensor, bits: int,
                counts: torch.Tensor | None = None,
                period: int = 0) -> torch.Tensor:
-    """(R, n) fields -> (R, n*bits/32) int32 words; n % (32//bits) == 0."""
-    out = _launch("pack_words", fields, bits, counts, period, True)
+    """(R, n) fields -> (R, n*bits/32) int32 words; n % (32//bits) == 0.
+    With ``counts`` this is :func:`pack_words_ragged`."""
+    if counts is not None:
+        return pack_words_ragged(fields, bits, counts, period)
+    out = _launch("pack_words", fields, bits, None, 0, True)
     pack_words.launches += 1
     return out
 
 
-pack_words.launches = 0
+def pack_words_ragged(fields: torch.Tensor, bits: int,
+                      counts: torch.Tensor, period: int) -> torch.Tensor:
+    """The ragged variant: field j of row r is zeroed when ``j % period
+    >= counts[r]``; launches are counted apart from the plain kernel's."""
+    if counts is None:
+        raise ValueError("pack_words_ragged: counts are required")
+    out = _launch("pack_words", fields, bits, counts, period, True)
+    pack_words_ragged.launches += 1
+    return out
 
 
 def unpack_words(words: torch.Tensor, bits: int,
                  counts: torch.Tensor | None = None,
                  period: int = 0) -> torch.Tensor:
-    """(R, W) words -> (R, W*32/bits) int32 fields, zero past the count."""
-    out = _launch("unpack_words", words, bits, counts, period, False)
+    """(R, W) words -> (R, W*32/bits) int32 fields.  With ``counts`` this
+    is :func:`unpack_words_ragged`."""
+    if counts is not None:
+        return unpack_words_ragged(words, bits, counts, period)
+    out = _launch("unpack_words", words, bits, None, 0, False)
     unpack_words.launches += 1
     return out
 
 
+def unpack_words_ragged(words: torch.Tensor, bits: int,
+                        counts: torch.Tensor, period: int) -> torch.Tensor:
+    """The ragged variant of :func:`unpack_words`: fields past each row's
+    count come out zero."""
+    if counts is None:
+        raise ValueError("unpack_words_ragged: counts are required")
+    out = _launch("unpack_words", words, bits, counts, period, False)
+    unpack_words_ragged.launches += 1
+    return out
+
+
+pack_words.launches = 0
+pack_words_ragged.launches = 0
 unpack_words.launches = 0
+unpack_words_ragged.launches = 0

@@ -1,6 +1,7 @@
 """Training entry point of the port: DCSGD-ASSS on the data-parallel process
-group (twin of ``src/repro/launch/train.py``, the flags its bucketed
-csgd_asss path reads, plus ``--device``).
+group (twin of ``src/repro/launch/train.py``, the flags its csgd_asss
+path reads on the ``bucketed`` and ``perleaf`` transports, plus
+``--device``).
 
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --compress-method block_topk --steps 4
@@ -10,6 +11,12 @@ variant on the CPU with the kernels' plain versions.  Several GPUs:
 ``torchrun --nproc-per-node N -m repro_torch.launch.train ...`` (one
 process per GPU; each takes its rows of the global batch).  Without
 CUDA and without ``--device cpu`` it raises: it never falls back.
+
+The adaptive budget: ``--max-gamma 0.1 --gamma-schedule linear`` (or
+``armijo-coupled``, ``ef-coupled``) compresses each round at the
+controller's gamma_t inside payload rows sized for 10%;
+``--transport perleaf`` encodes them leaf by leaf through the ragged
+pack/unpack kernels.
 """
 from __future__ import annotations
 
@@ -22,9 +29,12 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.comm.exchange import init_process_group
+from repro_torch.comm.transport import transport_names
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import OptimizerConfig, RunConfig, ShapeConfig
+from repro_torch.core.armijo import ArmijoConfig
 from repro_torch.core.compression import Compressor
+from repro_torch.core.gamma import SCHEDULES, GammaControllerConfig
 from repro_torch.data.synthetic import TokenPipeline
 from repro_torch.launch.train_step import init_train_state, train_step
 from repro_torch.models import lm
@@ -59,8 +69,39 @@ def parse_args(argv=None):
     ap.add_argument("--compress-method", default="topk",
                     choices=["topk", "block_topk", "none"],
                     help="block_topk = fused CUDA kernel path")
+    # ---- adaptive per-round compression (DESIGN.md §9) ----
+    ap.add_argument("--max-gamma", type=float, default=0.0,
+                    help="> 0: static ragged-wire budget; gamma becomes "
+                         "the per-round initial level")
+    ap.add_argument("--gamma-schedule", default="fixed",
+                    choices=list(SCHEDULES),
+                    help="per-round gamma controller (core/gamma.py); "
+                         "ef-coupled couples to the EF backlog telemetry "
+                         "(DESIGN.md §10)")
+    ap.add_argument("--gamma-min", type=float, default=0.0,
+                    help="controller floor (0 = gamma/8)")
+    ap.add_argument("--gamma-ramp-steps", type=int, default=1000,
+                    help="linear schedule: steps from gamma to max-gamma")
+    ap.add_argument("--ef-target", type=float,
+                    default=GammaControllerConfig.ef_target,
+                    help="ef-coupled: backlog ratio ||m'||/||g|| the "
+                         "hysteresis band centers on")
+    ap.add_argument("--ef-band", type=float,
+                    default=GammaControllerConfig.ef_band,
+                    help="ef-coupled: band half-width (grow above "
+                         "target+band, shrink below target-band)")
+    ap.add_argument("--theory-safe", action="store_true",
+                    help="clamp the step scale to zeta(gamma_t) = "
+                         "sigma*gamma/(2-gamma) each round")
     ap.add_argument("--value-bits", type=int, default=32,
-                    choices=[32, 16, 8, 4])
+                    choices=[32, 16, 8, 4],
+                    help="wire value width (DESIGN.md §8 packed format)")
+    ap.add_argument("--transport", default="bucketed",
+                    choices=list(transport_names()),
+                    help="compressed-exchange schedule: bucketed = ONE "
+                         "flat packed all_gather + batched launches; "
+                         "perleaf = one collective per leaf (bit-exact "
+                         "reference; the ragged kernels when adaptive)")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--out", default=None, help="JSON metrics log")
     return ap.parse_args(argv)
@@ -74,9 +115,16 @@ def main(argv=None) -> list[dict]:
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     run = RunConfig(
         model=cfg, shape=ShapeConfig(args.seq_len, args.global_batch),
-        optimizer=OptimizerConfig(compressor=Compressor(
-            gamma=args.gamma, method=args.compress_method,
-            value_bits=args.value_bits)))
+        optimizer=OptimizerConfig(
+            armijo=ArmijoConfig(theory_safe=args.theory_safe),
+            compressor=Compressor(
+                gamma=args.gamma, method=args.compress_method,
+                value_bits=args.value_bits, max_gamma=args.max_gamma),
+            gamma_controller=GammaControllerConfig(
+                schedule=args.gamma_schedule, gamma_min=args.gamma_min,
+                ramp_steps=args.gamma_ramp_steps, ef_target=args.ef_target,
+                ef_band=args.ef_band),
+            transport=args.transport))
 
     created = init_process_group(device)
     try:
@@ -108,7 +156,8 @@ def main(argv=None) -> list[dict]:
                     print(f"step {step:5d} loss={m['loss']:.4f} "
                           f"alpha={m['alpha']:.4g} evals={m['n_evals']:.2f} "
                           f"up={m['wire_bytes']:.3e}B "
-                          f"cum={m['cum_wire_bytes']:.3e}B "
+                          f"eff={m['effective_wire_bytes']:.3e}B "
+                          f"cum={m['cum_effective_wire_bytes']:.3e}B "
                           f"gamma={m['gamma']:.4g} "
                           f"backlog={m['ef_backlog']:.3g} "
                           f"cos={m['ef_cosine']:.3f} "

@@ -5,9 +5,15 @@ Each worker — one process of the data-parallel group, one device —
 
   grads  <- autograd over its batch
   alpha  <- Armijo search on the same batch             (Algorithm 3 l.4)
-  gamma  <- the round's compression level (fixed schedule)
+  gamma  <- the gamma controller's round (core/gamma.py)
+  eta    <- scale_for(gamma) * alpha
   update <- compress + all-gather the packed payload     (Algorithm 3 l.5-7)
   params <- params - update, unless the loss or the update is non-finite
+
+The controller reads this round's search and this worker's own
+compression telemetry of the previous round, which the previous step
+read back with its metrics in one transfer; workers may so compress at
+different gamma_t, and every row is decoded at its own count.
 
 The finite check skips the step as the JAX package's breaker does: the
 parameters and every carried optimizer quantity stay as they were, while
@@ -25,18 +31,20 @@ from torch.profiler import record_function
 
 from repro_torch.comm.exchange import all_reduce_mean
 from repro_torch.core.armijo import armijo_search, next_alpha_max, \
-    tree_sqnorm
+    next_evals_ema, tree_sqnorm
 from repro_torch.core.dcsgd import worker_compress_aggregate
 from repro_torch.core.error_feedback import init_ef
-from repro_torch.core.gamma import gamma_init
-from repro_torch.core.telemetry import CompressionTelemetry
+from repro_torch.core.gamma import gamma_init, gamma_update
+from repro_torch.core.telemetry import CompressionTelemetry, SearchTelemetry
 from repro_torch.models import lm
 from repro_torch.utils import tree_leaves, tree_map, value_and_grad
 
 f32 = np.float32
 
 METRIC_KEYS = ("loss", "grad_sqnorm", "alpha", "n_evals", "gamma",
-               "wire_bytes", "ef_backlog", "ef_cosine")
+               "wire_bytes", "effective_wire_bytes", "ef_backlog",
+               "ef_cosine")
+TELEMETRY_FIELDS = ("ef_backlog", "cosine", "decode_error", "eff_gamma")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,21 +57,24 @@ class TrainState:
     memory: dict                  # EF memory, f32 leaves like params
     n_evals_ema: np.float32
     gamma: np.float32
-    telemetry: CompressionTelemetry
+    telemetry: CompressionTelemetry  # own previous round, host float32
     cum_wire_bytes: np.float32
+    cum_eff_bytes: np.float32
     steps_skipped: int
 
 
 def init_train_state(params, run_cfg) -> TrainState:
     opt = run_cfg.optimizer
-    device = tree_leaves(params)[0].device
     return TrainState(
         step=0, alpha_prev=f32(opt.armijo.alpha0),
         memory=init_ef(params),
         n_evals_ema=f32(0.0),
-        gamma=gamma_init(opt.compressor),
-        telemetry=CompressionTelemetry.init(device),
-        cum_wire_bytes=f32(0.0), steps_skipped=0)
+        gamma=gamma_init(opt.gamma_controller, opt.compressor),
+        # neutral: zero backlog, perfect alignment
+        telemetry=CompressionTelemetry(ef_backlog=f32(0.0), cosine=f32(1.0),
+                                       decode_error=f32(0.0),
+                                       eff_gamma=f32(1.0)),
+        cum_wire_bytes=f32(0.0), cum_eff_bytes=f32(0.0), steps_skipped=0)
 
 
 def _all_finite(tree) -> torch.Tensor:
@@ -90,22 +101,35 @@ def train_step(params, state: TrainState, batch: dict, run_cfg, group=None):
                             grads, next_alpha_max(state.alpha_prev,
                                                   opt.armijo),
                             opt.armijo, f0=loss, grad_sqnorm=gsq)
-    gamma_t = state.gamma                 # the fixed schedule
+    gamma_t = gamma_update(
+        opt.gamma_controller, opt.compressor, state.gamma, state.step,
+        search=SearchTelemetry(alpha=res.alpha, alpha_prev=state.alpha_prev,
+                               n_evals=f32(res.n_evals),
+                               n_evals_ema=state.n_evals_ema),
+        compression=state.telemetry)
+    eta = opt.armijo.scale_for(gamma_t) * res.alpha
     with record_function("train_step.exchange"):
-        updates, new_mem, wire, tel = worker_compress_aggregate(
-            grads, state.memory, res.eta, opt.compressor, group,
-            stacked_mask=lm.stacked_mask(params))
+        updates, new_mem, wire, eff, tel = worker_compress_aggregate(
+            grads, state.memory, eta, opt.compressor, group,
+            stacked_mask=lm.stacked_mask(params), gamma_t=gamma_t,
+            transport=opt.transport)
 
     with record_function("train_step.metrics"):
         local = torch.stack(
             [loss.float(), gsq.float()]
             + [torch.tensor(float(x), device=loss.device)
-               for x in (res.alpha, res.n_evals, gamma_t, wire)]
+               for x in (res.alpha, res.n_evals, gamma_t, wire, eff)]
             + [tel.ef_backlog, tel.cosine])
-        metrics = dict(zip(METRIC_KEYS,
-                           all_reduce_mean(local, group).tolist()))
+        # one host transfer: the group means and this worker's own
+        # telemetry, which the next round's controller reads
+        own = torch.stack([getattr(tel, f) for f in TELEMETRY_FIELDS])
+        values = torch.cat([all_reduce_mean(local, group), own]).tolist()
+        metrics = dict(zip(METRIC_KEYS, values))
+        tel = CompressionTelemetry(*map(f32, values[len(METRIC_KEYS):]))
     cum_wire = state.cum_wire_bytes + f32(metrics["wire_bytes"])
+    cum_eff = state.cum_eff_bytes + f32(metrics["effective_wire_bytes"])
     metrics["cum_wire_bytes"] = float(cum_wire)
+    metrics["cum_effective_wire_bytes"] = float(cum_eff)
 
     # the decoded aggregate is the same on every worker, so the gate
     # needs no collective beyond the loss mean above
@@ -116,12 +140,11 @@ def train_step(params, state: TrainState, batch: dict, run_cfg, group=None):
     if not step_ok:
         return params, dataclasses.replace(
             state, step=state.step + 1, cum_wire_bytes=cum_wire,
-            steps_skipped=skipped), metrics
+            cum_eff_bytes=cum_eff, steps_skipped=skipped), metrics
     new_params = tree_map(lambda p, u: (p.float() - u).to(p.dtype),
                           params, updates)
     return new_params, TrainState(
         step=state.step + 1, alpha_prev=res.alpha, memory=new_mem,
-        n_evals_ema=f32(0.9) * state.n_evals_ema + f32(0.1) * f32(
-            res.n_evals),
+        n_evals_ema=next_evals_ema(state.n_evals_ema, res.n_evals),
         gamma=gamma_t, telemetry=tel, cum_wire_bytes=cum_wire,
-        steps_skipped=skipped), metrics
+        cum_eff_bytes=cum_eff, steps_skipped=skipped), metrics

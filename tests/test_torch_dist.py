@@ -7,9 +7,15 @@ and each worker's memory its single-worker memory, bit for bit: f32
 addition of two values is commutative, the halving is exact, and a
 single-worker update is exactly that worker's decoded payload.  This pins
 the rank order of the gather, the own-row slice and the dense all-reduce.
+
+With an adaptive compressor the two workers compress at different
+gamma_t, so their rows carry different counts: each decodes the other's
+rows at the sender's count, on both transports.
 """
 import multiprocessing as mp
 import socket
+
+import pytest
 
 import numpy as np
 import torch
@@ -37,30 +43,40 @@ def _inputs(rank):
     return tree, mem
 
 
-def _exchange(rank):
+#: the adaptive case: a 10% budget, worker r at ADAPTIVE_GAMMA[r]
+ADAPTIVE = dict(gamma=0.01, max_gamma=0.1, method="block_topk",
+                min_compress_size=64, value_bits=8)
+ADAPTIVE_GAMMA = (np.float32(0.02), np.float32(0.07))
+
+
+def _exchange(rank, adaptive=False, transport="bucketed"):
     tree, mem = _inputs(rank)
-    upd, new_mem, wire, _ = worker_compress_aggregate(
-        to_torch(tree), to_torch(mem), ETA, Compressor(**COMP))
-    return to_numpy(upd), to_numpy(new_mem), float(wire)
+    comp = Compressor(**(ADAPTIVE if adaptive else COMP))
+    upd, new_mem, wire, eff, _ = worker_compress_aggregate(
+        to_torch(tree), to_torch(mem), ETA, comp,
+        gamma_t=ADAPTIVE_GAMMA[rank] if adaptive else None,
+        transport=transport)
+    return to_numpy(upd), to_numpy(new_mem), float(wire), float(eff)
 
 
-def _worker(rank, port, queue):
+def _worker(rank, port, queue, adaptive, transport):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             world_size=2, rank=rank)
     try:
-        queue.put((rank, _exchange(rank)))
+        queue.put((rank, _exchange(rank, adaptive, transport)))
     finally:
         dist.destroy_process_group()
 
 
-def test_two_workers_mean_of_single_worker_exchanges():
+def _two_workers_against_singles(adaptive, transport):
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
     ctx = mp.get_context("spawn")
     queue = ctx.Queue()
-    procs = [ctx.Process(target=_worker, args=(r, port, queue))
+    procs = [ctx.Process(target=_worker,
+                         args=(r, port, queue, adaptive, transport))
              for r in range(2)]
     for p in procs:
         p.start()
@@ -71,15 +87,29 @@ def test_two_workers_mean_of_single_worker_exchanges():
 
     created = exchange.init_process_group(torch.device("cpu"))
     try:
-        single = [_exchange(r) for r in range(2)]
+        single = [_exchange(r, adaptive, transport) for r in range(2)]
     finally:
         if created:
             dist.destroy_process_group()
     for rank in range(2):
-        upd, mem, wire = got[rank]
+        upd, mem, wire, eff = got[rank]
         for k in upd:
             want = (single[0][0][k] + single[1][0][k]) / np.float32(2)
             np.testing.assert_array_equal(upd[k], want, err_msg=k)
             np.testing.assert_array_equal(mem[k], single[rank][1][k],
                                           err_msg=k)
-        assert wire == single[rank][2]
+        assert (wire, eff) == single[rank][2:]
+    return got
+
+
+def test_two_workers_mean_of_single_worker_exchanges():
+    _two_workers_against_singles(False, "bucketed")
+
+
+@pytest.mark.parametrize("transport", ["perleaf", "bucketed"])
+def test_two_workers_at_different_gamma_t(transport):
+    """Worker 0 sends k_b_t 20, worker 1 k_b_t 72 of a budget of 102 a
+    block: the same static bytes, fewer effective bytes for worker 0."""
+    got = _two_workers_against_singles(True, transport)
+    assert got[0][2] == got[1][2]
+    assert got[0][3] < got[1][3] < got[0][2]

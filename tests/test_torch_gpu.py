@@ -599,3 +599,113 @@ def test_serving_wrappers_refuse_cpu_tensors_and_gradients(cuda):
                     torch.zeros((1, 1, 32, 32), device=cuda))
     with torch.inference_mode():        # the serving path's mode
         assert flash_attention(qc, qc, qc).shape == q.shape
+
+
+# --------------------------------------------------------------------------
+# the adaptive budget: the ragged per-row codec and the perleaf exchange
+# --------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("value_bits", [4, 8, 16, 32])
+@pytest.mark.parametrize("method", ["block_topk", "topk"])
+def test_ragged_row_codec_on_card(cuda, method, value_bits):
+    """``encode_rows`` / ``decode_rows`` of ragged rows through the ragged
+    kernels, bit for bit against the plain versions on the CPU, at counts
+    that differ per row and under a header that says less than the rows
+    hold; each section below 32 bits is one ragged launch each way."""
+    from repro_torch.comm import wire
+    from repro_torch.core.compression import Compressor, \
+        block_extract_sparse
+    from repro_torch.core.leafmath import per_layer_topk
+    from repro_torch.kernels import ops
+    comp = Compressor(gamma=0.02, max_gamma=0.05, method=method,
+                      value_bits=value_bits)
+    rng = np.random.default_rng(value_bits)
+    x = torch.from_numpy(np.round(rng.standard_normal((6, 3000)) * 3)
+                         .astype(np.float32))
+    vals, idx = (block_extract_sparse(x, comp) if method == "block_topk"
+                 else per_layer_topk(x, comp.k_for(3000)))
+    spec = wire.WireSpec.for_row(comp, 3000)
+    full = spec.full_count
+    counts = torch.tensor([0, full, full // 2, 1, full - 1, 3],
+                          dtype=torch.int32)
+    want = wire.encode_rows(vals, idx, spec, counts=counts)
+    ops.reset_launch_counts()
+    got = wire.encode_rows(vals.to(cuda), idx.to(cuda), spec,
+                           counts=counts.to(cuda))
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+    kernels = (value_bits < 32) + 1
+    assert ops.launch_counts()["pack_words_ragged"] == kernels
+    for header in (counts, counts // 2):
+        words = want.clone()
+        words[:, 0] = header
+        rv, ri = wire.decode_rows(words, spec)
+        gv, gi = wire.decode_rows(words.to(cuda), spec)
+        torch.testing.assert_close(gv.cpu(), rv, rtol=0, atol=0)
+        torch.testing.assert_close(gi.cpu(), ri, rtol=0, atol=0)
+    counts = ops.launch_counts()
+    assert counts["unpack_words_ragged"] == 2 * kernels
+    assert counts["pack_words"] == counts["unpack_words"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("value_bits", [8, 32])
+def test_perleaf_exchange_on_card(cuda, value_bits):
+    """The perleaf exchange at a 10% budget and gamma_t 0.04 on the card
+    against the plain versions on the CPU, and against the bucketed
+    exchange on the card: updates, EF memory and bytes bit for bit (one
+    worker: every scattered index is hit once, padding adds zeros),
+    telemetry rel 1e-5 (the pass-1 moments sum in f64 on the card).  One
+    fused-EF pair and one ragged pack/unpack launch per section and per
+    compressed leaf; the bucketed exchange launches no ragged kernel."""
+    import socket
+
+    import torch.distributed as dist
+    from repro_torch.core.compression import Compressor
+    from repro_torch.core.dcsgd import worker_compress_aggregate
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(3)
+    tree = {"a": rng.standard_normal((3, 4096)), "b": rng.standard_normal(
+        (5000,)), "tiny": rng.standard_normal((50,)),
+        "c": rng.standard_normal((2, 4, 900))}
+    tree = {k: torch.from_numpy(v.astype(np.float32))
+            for k, v in tree.items()}
+    mem = {k: 0.05 * torch.flip(v, [-1]) for k, v in tree.items()}
+    comp = Compressor(gamma=0.01, max_gamma=0.1, method="block_topk",
+                      value_bits=value_bits, min_compress_size=64)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("cpu:gloo,cuda:nccl",
+                            init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        def run(device, transport):
+            return worker_compress_aggregate(
+                {k: v.to(device) for k, v in tree.items()},
+                {k: v.to(device) for k, v in mem.items()}, np.float32(0.7),
+                comp, gamma_t=np.float32(0.04), transport=transport)
+        want = run("cpu", "perleaf")
+        ops.reset_launch_counts()
+        got = run(cuda, "perleaf")
+        counts = ops.launch_counts()
+        bucketed = run(cuda, "bucketed")
+        after = ops.launch_counts()
+    finally:
+        dist.destroy_process_group()
+    sections = 1 + (value_bits < 32)
+    assert counts == dict(counts, ef_stats_telemetry=3, ef_apply=3,
+                          pack_words_ragged=3 * sections,
+                          unpack_words_ragged=3 * sections)
+    assert sum(counts.values()) == 6 + 6 * sections
+    assert after["pack_words_ragged"] == counts["pack_words_ragged"]
+    for out in (got, bucketed):
+        for i in (0, 1):
+            for k in tree:
+                torch.testing.assert_close(out[i][k].cpu(), want[i][k],
+                                           rtol=0, atol=0)
+        assert (out[2], out[3]) == (want[2], want[3])
+        for f in ("ef_backlog", "cosine", "decode_error", "eff_gamma"):
+            torch.testing.assert_close(getattr(out[4], f).cpu(),
+                                       getattr(want[4], f), rtol=1e-5,
+                                       atol=0)

@@ -1,6 +1,6 @@
-"""The whole slice — model, Armijo search, fixed gamma, bucketed
-compressed exchange, update — against the JAX package, and the port's
-training CLI.
+"""The whole slice — model, Armijo search, the gamma controller, the
+bucketed and perleaf compressed exchanges, update — against the JAX
+package, and the port's training CLI.
 
 The JAX reference composes the csgd_asss path of ``worker_fn``
 (src/repro/launch/train_step.py) with the model OUTSIDE any mesh, as
@@ -15,7 +15,7 @@ within 1e-5 of the parameter leaf's max |p| — the forward and backward
 passes sum in other orders in XLA and PyTorch, and an entry that moves by
 an ulp can cross its block's threshold or its int8 rounding step.  The EF
 backlog ratio is held to rel 1e-3, as it is a ratio of sums over that
-memory.  Byte counts and the batches are exact.
+memory.  Byte counts, gamma_t and the batches are exact.
 """
 import functools
 import gc
@@ -40,6 +40,9 @@ from repro.core.armijo import armijo_search as jarmijo
 from repro.core.armijo import next_alpha_max as jnext_alpha_max
 from repro.core.armijo import tree_sqnorm as jsqnorm
 from repro.core.dcsgd import worker_compress_aggregate as jwca
+from repro.core.gamma import GammaControllerConfig as JGammaCfg
+from repro.core.gamma import gamma_update as jgamma_update
+from repro.core.telemetry import SearchTelemetry as JSearch
 from repro.data.synthetic import TokenPipeline as JPipe
 from repro.models import build_model
 from repro_torch.comm import exchange
@@ -48,6 +51,7 @@ from repro_torch.core.armijo import ArmijoConfig, armijo_search
 from repro_torch.configs.base import OptimizerConfig, RunConfig, ShapeConfig
 from repro_torch.convert import to_numpy, to_torch
 from repro_torch.core.compression import Compressor
+from repro_torch.core.gamma import GammaControllerConfig
 from repro_torch.data.synthetic import TokenPipeline
 from repro_torch.launch import train as train_cli
 from repro_torch.launch.train_step import init_train_state, train_step
@@ -68,30 +72,41 @@ def group():
         dist.destroy_process_group()
 
 
-def _jax_step_fn(model, comp, arm):
-    """One worker's csgd_asss round of the JAX package, outside a mesh."""
+def _jax_step_fn(model, comp, arm, ctrl, transport):
+    """One worker's csgd_asss round of the JAX package, outside a mesh:
+    the search, the controller round (``worker_fn``'s), the exchange.
+    ``ctx``: (alpha_prev, n_evals_ema, gamma_prev, step, last round's
+    telemetry); returns the new one with the outputs."""
     mesh = jax.make_mesh((1,), ("data",))
 
     @jax.jit
-    def step(params, mem, alpha_prev, batch):
+    def step(params, mem, ctx, batch):
+        alpha_prev, ema, gamma_prev, t, tel_prev = ctx
+
         def loss(p):
             return model.loss(p, batch)[0]
         f, grads = jax.value_and_grad(loss)(params)
         gsq = jsqnorm(grads)
         res = jarmijo(loss, params, grads, jnext_alpha_max(alpha_prev, arm),
                       arm, grad_sqnorm=gsq)
-        gamma_t = jnp.float32(comp.gamma)
+        gamma_t = jgamma_update(
+            ctrl, comp, gamma_prev, t,
+            search=JSearch(alpha=res.alpha, alpha_prev=alpha_prev,
+                           n_evals=res.n_evals, n_evals_ema=ema),
+            compression=tel_prev)
         eta = arm.scale_for(gamma_t) * res.alpha
         spec = jax.tree.map(lambda _: P(), params)
         upd, new_mem, wire, eff, tel = shard_map(
-            functools.partial(jwca, comp=comp, dp_axes=("data",),
-                              stacked_mask=model.stacked_mask(params),
-                              gamma_t=gamma_t, transport="bucketed"),
-            mesh=mesh, in_specs=(spec, spec, P()),
+            lambda g, m, e, gt: jwca(g, m, e, comp, ("data",),
+                                     stacked_mask=model.stacked_mask(params),
+                                     gamma_t=gt, transport=transport),
+            mesh=mesh, in_specs=(spec, spec, P(), P()),
             out_specs=(spec, spec, P(), P(), P()),
-            axis_names={"data"})(grads, mem, eta)
+            axis_names={"data"})(grads, mem, eta, gamma_t)
         new_params = jax.tree.map(lambda p, u: p - u, params, upd)
-        return new_params, new_mem, res.alpha, f, wire, tel.ef_backlog
+        new_ctx = (res.alpha, 0.9 * ema + 0.1 * res.n_evals.astype(
+            jnp.float32), gamma_t, t + 1, tel)
+        return new_params, new_mem, new_ctx, f, wire, eff
 
     return step
 
@@ -117,40 +132,63 @@ def test_token_pipeline_batches_bit_identical():
                                       t["tokens"].numpy())
 
 
-@pytest.mark.parametrize("value_bits", [32, 8])
-def test_train_steps_match_jax(value_bits):
+#: (value bits, transport, gamma schedule, max_gamma): the fixed schedule
+#: on the bucketed exchange, then the adaptive budget from gamma 1% to
+#: 10% under each coupled schedule and the linear ramp (over 2 steps)
+TRAIN_CASES = [(32, "bucketed", "fixed", 0.0), (8, "bucketed", "fixed", 0.0),
+               (8, "perleaf", "linear", 0.1), (32, "perleaf", "ef-coupled",
+                                                0.1),
+               (8, "bucketed", "armijo-coupled", 0.1)]
+
+
+@pytest.mark.parametrize(
+    "value_bits,transport,schedule,max_gamma",
+    [pytest.param(*c, id="-".join(map(str, c)) if c[3] else str(c[0]))
+     for c in TRAIN_CASES])
+def test_train_steps_match_jax(value_bits, transport, schedule, max_gamma):
     """Three DCSGD-ASSS steps of paper-lm-100m's smoke variant (2 layers,
-    d_model 128) through the fused EF ops and the packed wire."""
+    d_model 128) through the fused EF ops and the packed wire; gamma_t
+    bit for bit, the effective bytes exact."""
     jcfg = jax_smoke_config(ARCH)
     model = build_model(jcfg)
-    jcomp = JCompressor(gamma=GAMMA, method="block_topk",
-                        value_bits=value_bits)
+    comp_kw = dict(gamma=GAMMA, method="block_topk", value_bits=value_bits,
+                   max_gamma=max_gamma)
+    ctrl_kw = dict(schedule=schedule, ramp_steps=2)
+    jcomp = JCompressor(**comp_kw)
     arm = JArmijo()
-    jstep = _jax_step_fn(model, jcomp, arm)
+    jctrl = JGammaCfg(**ctrl_kw)
+    jstep = _jax_step_fn(model, jcomp, arm, jctrl, transport)
     params = model.init(jax.random.PRNGKey(0))
     mem = jax.tree.map(jnp.zeros_like, params)
-    alpha = jnp.float32(arm.alpha0)
+    from repro.core.gamma import gamma_init as jgamma_init
+    from repro.core.telemetry import CompressionTelemetry as JTel
+    ctx = (jnp.float32(arm.alpha0), jnp.float32(0.0),
+           jgamma_init(jctrl, jcomp), jnp.int32(0), JTel.init())
 
     cfg = get_smoke_config(ARCH)
     run = RunConfig(model=cfg, shape=ShapeConfig(SEQ, BATCH),
-                    optimizer=OptimizerConfig(compressor=Compressor(
-                        gamma=GAMMA, method="block_topk",
-                        value_bits=value_bits)))
+                    optimizer=OptimizerConfig(
+                        compressor=Compressor(**comp_kw),
+                        gamma_controller=GammaControllerConfig(**ctrl_kw),
+                        transport=transport))
     tparams = to_torch(jax.tree.map(np.asarray, params))
     state = init_train_state(tparams, run)
     pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=SEQ,
                          global_batch=BATCH)
     for step in range(3):
         batch = pipe.batch(step)
-        params, mem, alpha, loss, wire, backlog = jstep(
-            params, mem, alpha, {"tokens": jnp.asarray(batch["tokens"])})
+        params, mem, ctx, loss, wire, eff = jstep(
+            params, mem, ctx, {"tokens": jnp.asarray(batch["tokens"])})
         tparams, state, m = train_step(tparams, state, batch, run)
         np.testing.assert_allclose(m["loss"], float(loss), rtol=1e-5)
-        np.testing.assert_allclose(float(state.alpha_prev), float(alpha),
+        np.testing.assert_allclose(float(state.alpha_prev), float(ctx[0]),
                                    rtol=1e-5)
-        assert m["wire_bytes"] == float(wire)
-        np.testing.assert_allclose(m["ef_backlog"], float(backlog),
-                                   rtol=1e-3)
+        assert np.float32(state.gamma).view(np.int32) == \
+            np.asarray(ctx[2], np.float32).view(np.int32), step
+        assert (m["wire_bytes"], m["effective_wire_bytes"]) == \
+            (float(wire), float(eff))
+        np.testing.assert_allclose(m["ef_backlog"],
+                                   float(ctx[4].ef_backlog), rtol=1e-3)
         _assert_tree_close(params, tparams, params, f"step {step} params")
         _assert_tree_close(mem, state.memory, params, f"step {step} memory")
 

@@ -97,7 +97,7 @@ def test_worker_compress_aggregate_matches_jax(kw):
     eta = np.float32(0.7)
     j_upd, j_mem, j_wire, j_eff, j_tel = _jax_exchange(
         tree, mem, eta, JCompressor(**kw))
-    t_upd, t_mem, t_wire, t_tel = worker_compress_aggregate(
+    t_upd, t_mem, t_wire, t_eff, t_tel = worker_compress_aggregate(
         to_torch(tree), to_torch(mem), eta, Compressor(**kw))
     for name in tree:
         np.testing.assert_array_equal(np.asarray(j_upd[name]),
@@ -105,7 +105,7 @@ def test_worker_compress_aggregate_matches_jax(kw):
         np.testing.assert_array_equal(np.asarray(j_mem[name]),
                                       t_mem[name].numpy(), err_msg=name)
     assert float(j_wire) == float(t_wire)
-    assert float(j_eff) == float(t_wire)
+    assert float(j_eff) == float(t_eff) == float(t_wire)
     for field in ("ef_backlog", "cosine", "decode_error", "eff_gamma"):
         np.testing.assert_allclose(float(getattr(j_tel, field)),
                                    float(getattr(t_tel, field)), rtol=1e-5,
@@ -136,7 +136,7 @@ def test_encode_decode_buckets_match_jax(value_bits):
         tv, ti = compression.block_extract_sparse(torch.from_numpy(x2), tc)
         np.testing.assert_array_equal(np.asarray(ji), ti.numpy())
         np.testing.assert_array_equal(np.asarray(jv), tv.numpy())
-        jrows[ln.index], trows[ln.index] = (jv, ji, None), (tv, ti)
+        jrows[ln.index], trows[ln.index] = (jv, ji, None), (tv, ti, None)
     # jitted, as the JAX trainer runs it: XLA turns the scale's division
     # by qmax into a multiplication by its reciprocal, and eager JAX
     # divides (the two differ in the last bit of some scales)
