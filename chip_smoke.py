@@ -86,10 +86,22 @@ Phases, each fatal on failure (no phase catches and continues):
    memory bit-identical; 2 steps of ``--gamma-schedule ef-coupled`` at
    32-bit values on perleaf, finite losses; one profiled perleaf step at
    gamma_t 0.04, as in 4b;
+4f. the trainer's other optimizer kinds at full width, gamma 0.01,
+   with the counts set to 0 just before each run and read just after:
+   ``--opt nonadaptive --eta 0.1`` for 2 steps (phase 4's launches a
+   step, 6,528,000 B a step, alpha 0.1, no Armijo trial), ``--opt sls``
+   for 2 (no kernel launch, the dense 440,478,720 B a step, at least one
+   trial a step), ``--opt sgd`` and ``--opt dense`` for 1 each (no
+   launch, 440,478,720 B), ``--microbatches 2`` for 2 (phase 4's
+   launches, finite losses); step times and peak memory; then ``--opt
+   sgd --eta inf --max-consecutive-skips 2``, which must raise
+   ``DivergenceError`` at step 1 with no good step before it; one
+   profiled ``nonadaptive`` step and one at 2 microbatches, as in 4b;
 5. run the 2-layer smoke variants on the card and on the CPU (the plain
    versions, which the CPU tests hold against the JAX package), through
-   the trainer for 2 steps (also on ``--transport perleaf --max-gamma
-   0.1``), through CSGD-ASSS for 3 and through serving
+   the trainer for 2 steps (``--opt csgd_asss``, ``nonadaptive`` and
+   ``sls``, and on ``--transport perleaf --max-gamma 0.1``), through
+   CSGD-ASSS for 3 and through serving
    (qwen1.5-4b and rwkv6-1.6b, ctx 96, 4 tokens), and compare: equal
    greedy tokens and logits within 1e-4 of max|logits| for serving;
 6. print the kernels as one JSON line, the card line, and last
@@ -165,6 +177,9 @@ ADAPTIVE_STEPS, EF_COUPLED_STEPS = 3, 2
 #: effective at gamma_t 0.04, 0.07 and 0.1 (k_b_t 41, 72, 102 of 102)
 ADAPTIVE_STATIC = 32_978_608
 ADAPTIVE_EFFECTIVE = [13_302_448, 23_301_808, 32_978_608]
+#: phase 4f: one worker's bytes a step at gamma 0.01 with 32-bit values
+#: (the compressing kinds) and of the dense exchange, 4 B a parameter
+COMPRESSED_BYTES, DENSE_BYTES = 6_528_000, 440_478_720
 
 
 def fail(msg: str) -> None:
@@ -266,8 +281,8 @@ def kernel_group(name: str) -> str:
     return "other"
 
 
-def profile_step(dev, cfg, comp, label="trainer",
-                 transport="bucketed") -> None:
+def profile_step(dev, cfg, comp, label="trainer", transport="bucketed",
+                 kind="csgd_asss", microbatches=1) -> None:
     """One warm full-width train step under torch.profiler: device time
     by kernel group and the device's idle share of the step."""
     from repro_torch.comm.exchange import init_process_group
@@ -277,7 +292,8 @@ def profile_step(dev, cfg, comp, label="trainer",
     from repro_torch.launch.train_step import init_train_state, train_step
     from repro_torch.models import lm
     run = RunConfig(model=cfg, shape=ShapeConfig(256, 8),
-                    optimizer=OptimizerConfig(compressor=comp,
+                    microbatches=microbatches,
+                    optimizer=OptimizerConfig(kind=kind, compressor=comp,
                                               transport=transport))
     created = init_process_group(dev)
     try:
@@ -297,9 +313,11 @@ def profile_step(dev, cfg, comp, label="trainer",
     spans = report_profile(label, prof, wall_ms,
                            ("ef_stats_telemetry_kernel", "ef_apply_kernel",
                             "pack_words_kernel", "unpack_words_kernel"))
-    if len(spans) != 4 or min(spans.values()) <= 0:
-        fail(f"the profiler saw {label} train_step spans {spans}, want 4 "
-             "timed")
+    # no armijo span where the kind does not search
+    want = 4 if kind in ("csgd_asss", "sls") else 3
+    if len(spans) != want or min(spans.values()) <= 0:
+        fail(f"the profiler saw {label} train_step spans {spans}, want "
+             f"{want} timed")
 
 
 def profiled(dev, fn):
@@ -851,6 +869,77 @@ def transports_agree(dev, cfg) -> None:
     print(f"transports on the card: perleaf == bucketed bit for bit over "
           f"{len(a[0])} parameter and {len(a[1])} EF memory leaves at "
           f"gamma_t 0.07 (effective bytes {float(a[3])})", flush=True)
+
+
+def kinds_trainer(dev, shapes) -> None:
+    """Phase 4f: the trainer's other optimizer kinds and microbatches at
+    full width through ``launch.train``, the launch counts set to 0
+    just before each run and read just after; then a run made
+    non-finite that must raise ``DivergenceError``."""
+    from repro_torch.core.health import DivergenceError
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    if 4 * sum(int(np.prod(sh)) for sh in shapes) != DENSE_BYTES:
+        fail(f"paper-lm-100m holds {sum(int(np.prod(sh)) for sh in shapes)}"
+             f" parameters, not {DENSE_BYTES // 4}")
+    one_codec = dict(ef_stats_telemetry=1, ef_apply=1, pack_words=1,
+                     unpack_words=1)
+    base = MAIN_ARGS + ["--gamma", "0.01"]
+    for label, extra, steps, per_step, nbytes in (
+            ("nonadaptive", ["--opt", "nonadaptive", "--eta", "0.1"], 2,
+             one_codec, COMPRESSED_BYTES),
+            ("sls", ["--opt", "sls"], 2, {}, DENSE_BYTES),
+            ("sgd", ["--opt", "sgd"], 1, {}, DENSE_BYTES),
+            ("dense", ["--opt", "dense"], 1, {}, DENSE_BYTES),
+            ("csgd_asss microbatches 2", ["--microbatches", "2"], 2,
+             one_codec, COMPRESSED_BYTES)):
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launch_counts()
+        log = train.main(base + extra + ["--steps", str(steps)])
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        print(f"kinds [{label}]: launches {counts}; step_s "
+              f"{[round(x['step_s'], 4) for x in log]}; wire bytes "
+              f"{[x['wire_bytes'] for x in log]}, effective "
+              f"{[x['effective_wire_bytes'] for x in log]}; losses "
+              f"{[x['loss'] for x in log]}; alpha "
+              f"{[x['alpha'] for x in log]}; n_evals "
+              f"{[x['n_evals'] for x in log]}; peak memory "
+              f"{peak / 2**30:.2f} GiB", flush=True)
+        for name, c in counts.items():
+            if c != per_step.get(name, 0) * steps:
+                fail(f"[kinds {label}] {name} launched {c} times in "
+                     f"{steps} steps, want {per_step.get(name, 0) * steps}")
+        if len(log) != steps or not all(np.isfinite(x["loss"])
+                                        for x in log) \
+                or any(x["steps_skipped"] for x in log):
+            fail(f"[kinds {label}] non-finite loss or skipped steps: "
+                 f"{[x['loss'] for x in log]}")
+        if any((x["wire_bytes"], x["effective_wire_bytes"])
+               != (nbytes, nbytes) for x in log):
+            fail(f"[kinds {label}] bytes {[x['wire_bytes'] for x in log]}, "
+                 f"want {nbytes} a step")
+        searched = label in ("sls", "csgd_asss microbatches 2")
+        if not all(x["n_evals"] >= 1 if searched else
+                   (x["n_evals"] == 0 and x["alpha"] == float(np.float32(
+                       0.1))) for x in log):
+            fail(f"[kinds {label}] alpha {[x['alpha'] for x in log]}, "
+                 f"n_evals {[x['n_evals'] for x in log]}")
+    ops.reset_launch_counts()
+    try:
+        log = train.main(base + ["--opt", "sgd", "--eta", "inf",
+                                 "--max-consecutive-skips", "2",
+                                 "--steps", "5"])
+    except DivergenceError as e:
+        if (e.step, e.last_good_step, e.consecutive) != (1, -1, 2) \
+                or any(ops.launch_counts().values()):
+            fail(f"DivergenceError at step {e.step}, last good step "
+                 f"{e.last_good_step}, {e.consecutive} skips, launches "
+                 f"{ops.launch_counts()}; want step 1, -1, 2 and none")
+        print(f"kinds [sgd --eta inf --max-consecutive-skips 2]: raised "
+              f"DivergenceError: {e}", flush=True)
+    else:
+        fail(f"--eta inf ran {len(log)} steps without DivergenceError")
 
 
 def run_csgd(dev, cfg, comp, steps) -> dict:
@@ -1484,17 +1573,25 @@ def main() -> None:
                                       max_gamma=0.1, value_bits=8),
                  "adaptive perleaf, gamma_t 0.04", transport="perleaf")
 
+    # ---- 4f. the other optimizer kinds, microbatches, the breaker -------
+    kinds_trainer(dev, shapes)
+    profile_step(dev, cfg, comp, "trainer nonadaptive", kind="nonadaptive")
+    profile_step(dev, cfg, comp, "trainer microbatches 2", microbatches=2)
+
     # ---- 5. small input: the card against the CPU's plain path ----------
     small = ["--smoke", "--steps", "2", "--seq-len", "33", "--global-batch",
              "4", "--compress-method", "block_topk", "--log-every", "1"]
-    on_card = train.main(small)
-    on_cpu = train.main(small + ["--device", "cpu"])
-    for a, b in zip(on_card, on_cpu):
-        if abs(a["loss"] - b["loss"]) > 1e-4 * abs(b["loss"]) \
-                or a["wire_bytes"] != b["wire_bytes"]:
-            fail(f"smoke run on the card {a} disagrees with the CPU {b}")
-    print(f"smoke card vs cpu: losses {[x['loss'] for x in on_card]} vs "
-          f"{[x['loss'] for x in on_cpu]}", flush=True)
+    for kind in ("csgd_asss", "nonadaptive", "sls"):
+        on_card = train.main(small + ["--opt", kind])
+        on_cpu = train.main(small + ["--opt", kind, "--device", "cpu"])
+        for a, b in zip(on_card, on_cpu):
+            if abs(a["loss"] - b["loss"]) > 1e-4 * abs(b["loss"]) \
+                    or a["wire_bytes"] != b["wire_bytes"]:
+                fail(f"{kind} smoke run on the card {a} disagrees with the "
+                     f"CPU {b}")
+        print(f"{kind} smoke card vs cpu: losses "
+              f"{[x['loss'] for x in on_card]} vs "
+              f"{[x['loss'] for x in on_cpu]}", flush=True)
     adaptive = small + ["--transport", "perleaf", "--max-gamma", "0.1",
                         "--gamma-schedule", "linear", "--gamma-ramp-steps",
                         "1"]

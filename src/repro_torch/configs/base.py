@@ -66,23 +66,81 @@ class ShapeConfig:
     global_batch: int
 
 
+#: the optimizer kinds of the JAX trainer's plain path; ``acgd`` is not
+#: ported (its Nesterov velocity goes with the compressed downlink)
+KINDS = ("csgd_asss", "nonadaptive", "sgd", "sls", "dense")
+#: kinds that compress with error feedback (EF memory, packed exchange)
+COMPRESSING = ("csgd_asss", "nonadaptive")
+#: kinds that run the Armijo search
+SEARCHING = ("csgd_asss", "sls")
+#: fields of JAX paths the port lacks: (the only value taken, the feature)
+NOT_PORTED = {
+    "local_steps": (1, "local steps (Qsparse-local, _local_steps_worker)"),
+    "shard_local_topk": (False, "shard-local top-k under a model mesh"),
+    "downlink": ("dense", "the compressed downlink (comm/downlink.py)")}
+
+
 @dataclasses.dataclass(frozen=True)
 class OptimizerConfig:
-    """The csgd_asss optimizer (the port's only kind so far)."""
+    """The data-parallel trainer's optimizer: ``csgd_asss`` (the paper's
+    DCSGD-ASSS), ``nonadaptive`` (the same EF compression at a constant
+    step ``eta``), ``sls`` (the Armijo search with a dense exchange),
+    ``sgd`` and ``dense`` (one path: a dense exchange at ``eta``)."""
 
+    kind: str = "csgd_asss"
     armijo: ArmijoConfig = ArmijoConfig()
     compressor: Compressor = Compressor()
     # per-round compression level (core/gamma.py); the schedule moves
     # gamma_t when compressor.max_gamma > 0 sizes the ragged wire budget
     gamma_controller: GammaControllerConfig = GammaControllerConfig()
+    eta: float = 0.1              # the step of nonadaptive, sgd and dense
     # exchange schedule, validated against the comm.transport registry:
     # "bucketed" (one flat all_gather a step) or "perleaf" (the reference,
     # one all_gather a leaf)
     transport: str = "bucketed"
+    # circuit breaker: a non-finite round (loss or decoded update) skips
+    # the parameter write with all carried optimizer state frozen; this
+    # many CONSECUTIVE skips raise DivergenceError on the host
+    # (core/health.py).  0 disables the gate: non-finite rounds write
+    # through.
+    max_consecutive_skips: int = 25
+    # the JAX package's, not ported: only the defaults are taken
+    local_steps: int = 1
+    shard_local_topk: bool = False
+    downlink: str = "dense"
 
     def __post_init__(self):
         from repro_torch.comm.transport import validate_transport
         validate_transport(self.transport)
+        for name, (default, feature) in NOT_PORTED.items():
+            if getattr(self, name) != default:
+                raise ValueError(f"{name}={getattr(self, name)!r}: "
+                                 f"{feature} is not ported (the port takes "
+                                 f"only {default!r})")
+        if self.kind == "acgd":
+            raise ValueError(
+                "kind='acgd' (the JAX package's Nesterov-accelerated "
+                "compressed GD, core/acgd.py) is not ported")
+        if self.kind not in KINDS:
+            raise ValueError(f"unknown optimizer kind {self.kind!r} "
+                             f"(want one of {KINDS})")
+        # the JAX trainer's own checks (build_train_step)
+        if self.gamma_controller.schedule == "armijo-coupled" and \
+                self.kind not in SEARCHING:
+            raise ValueError(
+                f"gamma schedule 'armijo-coupled' needs an Armijo-searching "
+                f"optimizer (csgd_asss | sls), got kind={self.kind!r} — use "
+                f"'fixed' or 'linear'")
+        if self.gamma_controller.schedule == "ef-coupled" and \
+                self.kind not in COMPRESSING:
+            raise ValueError(
+                f"gamma schedule 'ef-coupled' needs a compressing optimizer "
+                f"(csgd_asss | nonadaptive | acgd) — only those produce the "
+                f"CompressionTelemetry it couples to, got kind={self.kind!r}")
+        if self.max_consecutive_skips < 0:
+            raise ValueError(
+                f"max_consecutive_skips must be >= 0 (0 disables the "
+                f"breaker), got {self.max_consecutive_skips}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,6 +148,12 @@ class RunConfig:
     model: ModelConfig
     shape: ShapeConfig
     optimizer: OptimizerConfig = OptimizerConfig()
+    microbatches: int = 1          # gradient accumulation per worker
+
+    def __post_init__(self):
+        if self.microbatches < 1:
+            raise ValueError(
+                f"microbatches must be >= 1, got {self.microbatches}")
 
 
 def smoke_variant(cfg: ModelConfig) -> ModelConfig:

@@ -1,16 +1,25 @@
-"""Training entry point of the port: DCSGD-ASSS on the data-parallel process
-group (twin of ``src/repro/launch/train.py``, the flags its csgd_asss
-path reads on the ``bucketed`` and ``perleaf`` transports, plus
+"""Training entry point of the port: the data-parallel trainer on the
+process group (twin of ``src/repro/launch/train.py``, the flags of its
+plain path on the ``bucketed`` and ``perleaf`` transports, plus
 ``--device``).
 
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --compress-method block_topk --steps 4
 
-runs paper-lm-100m on the GPU; ``--smoke --device cpu`` runs the 2-layer
-variant on the CPU with the kernels' plain versions.  Several GPUs:
-``torchrun --nproc-per-node N -m repro_torch.launch.train ...`` (one
-process per GPU; each takes its rows of the global batch).  Without
-CUDA and without ``--device cpu`` it raises: it never falls back.
+runs DCSGD-ASSS on paper-lm-100m on the GPU; ``--smoke --device cpu``
+runs the 2-layer variant on the CPU with the kernels' plain versions.
+Several GPUs: ``torchrun --nproc-per-node N -m repro_torch.launch.train
+...`` (one process per GPU; each takes its rows of the global batch).
+Without CUDA and without ``--device cpu`` it raises: it never falls
+back.
+
+``--opt`` picks the optimizer: ``csgd_asss`` (default), ``nonadaptive``
+(the same EF compression at the constant step ``--eta``), ``sls`` (the
+Armijo search with a dense exchange), ``sgd`` or ``dense`` (a dense
+exchange at ``--eta``).  ``--microbatches M`` sums each worker's
+gradient over M row groups of its batch.  ``--max-consecutive-skips N``
+raises ``DivergenceError`` after N consecutive non-finite steps (0
+writes them through).
 
 The adaptive budget: ``--max-gamma 0.1 --gamma-schedule linear`` (or
 ``armijo-coupled``, ``ef-coupled``) compresses each round at the
@@ -31,10 +40,12 @@ import torch.distributed as dist
 from repro_torch.comm.exchange import init_process_group
 from repro_torch.comm.transport import transport_names
 from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.configs.base import OptimizerConfig, RunConfig, ShapeConfig
+from repro_torch.configs.base import KINDS, OptimizerConfig, RunConfig, \
+    ShapeConfig
 from repro_torch.core.armijo import ArmijoConfig
 from repro_torch.core.compression import Compressor
 from repro_torch.core.gamma import SCHEDULES, GammaControllerConfig
+from repro_torch.core.health import check_divergence
 from repro_torch.data.synthetic import TokenPipeline
 from repro_torch.launch.train_step import init_train_state, train_step
 from repro_torch.models import lm
@@ -65,10 +76,13 @@ def parse_args(argv=None):
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--seq-len", type=int, default=256)
     ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--opt", default="csgd_asss", choices=list(KINDS))
     ap.add_argument("--gamma", type=float, default=0.01)
     ap.add_argument("--compress-method", default="topk",
                     choices=["topk", "block_topk", "none"],
                     help="block_topk = fused CUDA kernel path")
+    ap.add_argument("--eta", type=float, default=0.1)
     # ---- adaptive per-round compression (DESIGN.md §9) ----
     ap.add_argument("--max-gamma", type=float, default=0.0,
                     help="> 0: static ragged-wire budget; gamma becomes "
@@ -102,6 +116,12 @@ def parse_args(argv=None):
                          "flat packed all_gather + batched launches; "
                          "perleaf = one collective per leaf (bit-exact "
                          "reference; the ragged kernels when adaptive)")
+    ap.add_argument("--max-consecutive-skips", type=int,
+                    default=OptimizerConfig.max_consecutive_skips,
+                    help="step-level circuit breaker: this many consecutive "
+                         "non-finite (skipped) rounds raise "
+                         "DivergenceError naming the last good step "
+                         "(0 disables the gate)")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--out", default=None, help="JSON metrics log")
     return ap.parse_args(argv)
@@ -115,7 +135,10 @@ def main(argv=None) -> list[dict]:
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     run = RunConfig(
         model=cfg, shape=ShapeConfig(args.seq_len, args.global_batch),
+        microbatches=args.microbatches,
         optimizer=OptimizerConfig(
+            kind=args.opt, eta=args.eta,
+            max_consecutive_skips=args.max_consecutive_skips,
             armijo=ArmijoConfig(theory_safe=args.theory_safe),
             compressor=Compressor(
                 gamma=args.gamma, method=args.compress_method,
@@ -150,6 +173,8 @@ def main(argv=None) -> list[dict]:
                 torch.cuda.synchronize(device)
             m["step"] = step
             m["step_s"] = time.perf_counter() - t0
+            # host-side breaker, as the JAX trainer's loop runs it
+            check_divergence(m, run.optimizer.max_consecutive_skips)
             if step % args.log_every == 0 or step == args.steps - 1:
                 log.append(m)
                 if rank == 0:
@@ -161,7 +186,11 @@ def main(argv=None) -> list[dict]:
                           f"gamma={m['gamma']:.4g} "
                           f"backlog={m['ef_backlog']:.3g} "
                           f"cos={m['ef_cosine']:.3f} "
-                          f"step_s={m['step_s']:.3f}", flush=True)
+                          f"step_s={m['step_s']:.3f}"
+                          + (f" skips={m['steps_skipped']:.0f}"
+                             f" quar={m['rows_quarantined']:.0f}"
+                             if m["steps_skipped"] or m["rows_quarantined"]
+                             else ""), flush=True)
         if args.out and rank == 0:
             os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
             with open(args.out, "w") as f:

@@ -1,13 +1,17 @@
-"""The data-parallel DCSGD-ASSS train step (twin of the ``csgd_asss``
-subset of ``worker_fn`` in ``src/repro/launch/train_step.py``).
+"""The data-parallel train step (twin of the plain body of ``worker_fn``
+in ``src/repro/launch/train_step.py``: no federated cohort, gossip,
+overlap, downlink, faults, shard-local top-k, local steps or acgd).
 
 Each worker — one process of the data-parallel group, one device —
 
-  grads  <- autograd over its batch
-  alpha  <- Armijo search on the same batch             (Algorithm 3 l.4)
+  grads  <- autograd over its batch, summed over its microbatches
+  alpha  <- Armijo search on the first microbatch        (Algorithm 3 l.4)
+            (csgd_asss, sls; the other kinds step at a constant eta)
   gamma  <- the gamma controller's round (core/gamma.py)
-  eta    <- scale_for(gamma) * alpha
+  eta    <- scale_for(gamma) * alpha, or eta
   update <- compress + all-gather the packed payload     (Algorithm 3 l.5-7)
+            (csgd_asss, nonadaptive), or a dense all-reduce (sls, sgd,
+            dense)
   params <- params - update, unless the loss or the update is non-finite
 
 The controller reads this round's search and this worker's own
@@ -15,11 +19,12 @@ compression telemetry of the previous round, which the previous step
 read back with its metrics in one transfer; workers may so compress at
 different gamma_t, and every row is decoded at its own count.
 
-The finite check skips the step as the JAX package's breaker does: the
+The finite check is the JAX package's breaker (core/health.py): with
+``max_consecutive_skips > 0`` a failed check skips the step — the
 parameters and every carried optimizer quantity stay as they were, while
-the step counter and the byte counters advance.  The host-side
-``DivergenceError`` after many consecutive skips and gradient
-accumulation over microbatches are not ported yet.
+the step counter, the byte counters and the health counters advance —
+and the caller raises ``DivergenceError`` after that many consecutive
+skips (``check_divergence``); with 0 non-finite rounds write through.
 """
 from __future__ import annotations
 
@@ -30,14 +35,16 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch.comm.exchange import all_reduce_mean
+from repro_torch.configs.base import COMPRESSING, SEARCHING
 from repro_torch.core.armijo import armijo_search, next_alpha_max, \
     next_evals_ema, tree_sqnorm
-from repro_torch.core.dcsgd import worker_compress_aggregate
+from repro_torch.core.dcsgd import dense_aggregate, worker_compress_aggregate
 from repro_torch.core.error_feedback import init_ef
 from repro_torch.core.gamma import gamma_init, gamma_update
+from repro_torch.core.health import HealthState, advance_health, all_finite
 from repro_torch.core.telemetry import CompressionTelemetry, SearchTelemetry
 from repro_torch.models import lm
-from repro_torch.utils import tree_leaves, tree_map, value_and_grad
+from repro_torch.utils import tree_map, value_and_grad
 
 f32 = np.float32
 
@@ -54,71 +61,121 @@ class TrainState:
 
     step: int
     alpha_prev: np.float32
-    memory: dict                  # EF memory, f32 leaves like params
+    memory: dict | None           # EF memory, f32 leaves like params;
+                                  # None for the kinds that do not compress
     n_evals_ema: np.float32
     gamma: np.float32
     telemetry: CompressionTelemetry  # own previous round, host float32
     cum_wire_bytes: np.float32
     cum_eff_bytes: np.float32
-    steps_skipped: int
+    health: HealthState
 
 
 def init_train_state(params, run_cfg) -> TrainState:
     opt = run_cfg.optimizer
     return TrainState(
         step=0, alpha_prev=f32(opt.armijo.alpha0),
-        memory=init_ef(params),
+        memory=init_ef(params) if opt.kind in COMPRESSING else None,
         n_evals_ema=f32(0.0),
         gamma=gamma_init(opt.gamma_controller, opt.compressor),
         # neutral: zero backlog, perfect alignment
         telemetry=CompressionTelemetry(ef_backlog=f32(0.0), cosine=f32(1.0),
                                        decode_error=f32(0.0),
                                        eff_gamma=f32(1.0)),
-        cum_wire_bytes=f32(0.0), cum_eff_bytes=f32(0.0), steps_skipped=0)
+        cum_wire_bytes=f32(0.0), cum_eff_bytes=f32(0.0),
+        health=HealthState())
 
 
-def _all_finite(tree) -> torch.Tensor:
-    ok = None
-    for leaf in tree_leaves(tree):
-        f = torch.isfinite(leaf).all()
-        ok = f if ok is None else ok & f
-    return ok
+def microbatch_mean(total: torch.Tensor, micro: int) -> torch.Tensor:
+    """``total / micro`` in place, as jitted XLA divides by a constant:
+    a product with f32(1/micro), which differs from a division in the
+    last bit for a third of f32 values at micro 3."""
+    return total.mul_(float(f32(1.0) / f32(micro)))
+
+
+def _accumulated_grads(params, batch: dict, cfg, micro: int):
+    """``(loss, grads, probe, f0)`` over ``micro`` row groups of the
+    local batch: loss and grads summed in f32 from zero in microbatch
+    order, then their mean; ``probe`` is the first microbatch and ``f0``
+    its loss, where the Armijo search runs."""
+    if micro == 1:
+        loss, grads = value_and_grad(lambda p: lm.loss_fn(p, batch, cfg),
+                                     params)
+        return loss, grads, batch, loss
+    n = next(iter(batch.values())).shape[0]
+    if n % micro:
+        raise ValueError(f"the local batch of {n} rows does not split into "
+                         f"{micro} microbatches")
+    rows = n // micro
+    loss_sum, grads, probe, f0 = None, None, None, None
+    for i in range(micro):
+        mb = {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
+        lo, g = value_and_grad(lambda p: lm.loss_fn(p, mb, cfg), params)
+        if i == 0:
+            probe, f0 = mb, lo
+            loss_sum = torch.zeros((), dtype=torch.float32,
+                                   device=lo.device)
+            grads = tree_map(lambda p: torch.zeros(
+                p.shape, dtype=torch.float32, device=p.device), params)
+        loss_sum = loss_sum + lo
+        tree_map(lambda acc, x: acc.add_(x), grads, g)
+        del g
+    return microbatch_mean(loss_sum, micro), tree_map(
+        lambda x: microbatch_mean(x, micro), grads), probe, f0
 
 
 def train_step(params, state: TrainState, batch: dict, run_cfg, group=None):
     """One step on this worker's local ``batch``.  Returns
     ``(params, state, metrics)``; metrics are means over the group, as
-    host floats."""
+    host floats, and this worker's health counters."""
     opt = run_cfg.optimizer
     cfg = run_cfg.model
     # the spans split a step's host time for a profiler (chip_smoke.py)
     with record_function("train_step.grad"):
-        loss, grads = value_and_grad(
-            lambda p: lm.loss_fn(p, batch, cfg), params)
+        loss, grads, probe, f0 = _accumulated_grads(
+            params, batch, cfg, run_cfg.microbatches)
         gsq = tree_sqnorm(grads)
-    with record_function("train_step.armijo"):
-        res = armijo_search(lambda p: lm.loss_fn(p, batch, cfg), params,
-                            grads, next_alpha_max(state.alpha_prev,
-                                                  opt.armijo),
-                            opt.armijo, f0=loss, grad_sqnorm=gsq)
+    if opt.kind in SEARCHING:
+        with record_function("train_step.armijo"):
+            res = armijo_search(lambda p: lm.loss_fn(p, probe, cfg), params,
+                                grads, next_alpha_max(state.alpha_prev,
+                                                      opt.armijo),
+                                opt.armijo, f0=f0, grad_sqnorm=gsq)
+        alpha, n_evals = res.alpha, res.n_evals
+        search = SearchTelemetry(alpha=alpha, alpha_prev=state.alpha_prev,
+                                 n_evals=f32(n_evals),
+                                 n_evals_ema=state.n_evals_ema)
+        new_alpha, new_ema = alpha, next_evals_ema(state.n_evals_ema,
+                                                   n_evals)
+    else:
+        alpha, n_evals, search = f32(opt.eta), 0, None
+        new_alpha, new_ema = state.alpha_prev, state.n_evals_ema
     gamma_t = gamma_update(
         opt.gamma_controller, opt.compressor, state.gamma, state.step,
-        search=SearchTelemetry(alpha=res.alpha, alpha_prev=state.alpha_prev,
-                               n_evals=f32(res.n_evals),
-                               n_evals_ema=state.n_evals_ema),
-        compression=state.telemetry)
-    eta = opt.armijo.scale_for(gamma_t) * res.alpha
+        search=search, compression=state.telemetry)
+    # the scaled step of both searching kinds, sls included (the
+    # trainer's rule, not core/baselines.SLS's a = 1)
+    eta = opt.armijo.scale_for(gamma_t) * alpha if search is not None \
+        else alpha
     with record_function("train_step.exchange"):
-        updates, new_mem, wire, eff, tel = worker_compress_aggregate(
-            grads, state.memory, eta, opt.compressor, group,
-            stacked_mask=lm.stacked_mask(params), gamma_t=gamma_t,
-            transport=opt.transport)
+        if opt.kind in COMPRESSING:
+            updates, new_mem, wire, eff, tel = worker_compress_aggregate(
+                grads, state.memory, eta, opt.compressor, group,
+                stacked_mask=lm.stacked_mask(params), gamma_t=gamma_t,
+                transport=opt.transport)
+        else:
+            updates, wire = dense_aggregate(grads, eta, group)
+            eff, new_mem = wire, state.memory
+            # no compression: the telemetry is carried unchanged
+            tel = CompressionTelemetry(*(
+                torch.tensor(float(getattr(state.telemetry, f)),
+                             device=loss.device) for f in TELEMETRY_FIELDS))
 
     with record_function("train_step.metrics"):
         local = torch.stack(
             [loss.float(), gsq.float()]
             + [torch.tensor(float(x), device=loss.device)
-               for x in (res.alpha, res.n_evals, gamma_t, wire, eff)]
+               for x in (alpha, n_evals, gamma_t, wire, eff)]
             + [tel.ef_backlog, tel.cosine])
         # one host transfer: the group means and this worker's own
         # telemetry, which the next round's controller reads
@@ -134,17 +191,22 @@ def train_step(params, state: TrainState, batch: dict, run_cfg, group=None):
     # the decoded aggregate is the same on every worker, so the gate
     # needs no collective beyond the loss mean above
     step_ok = bool(np.isfinite(metrics["loss"])) and bool(
-        _all_finite(updates))
-    skipped = state.steps_skipped + (0 if step_ok else 1)
-    metrics["steps_skipped"] = float(skipped)
-    if not step_ok:
+        all_finite(updates))
+    # rows_quarantined advances by 0 until the faulty transport, whose
+    # verdicts count the rows, is ported
+    health = advance_health(state.health, step_ok, state.step, 0.0)
+    metrics.update(steps_skipped=float(health.steps_skipped),
+                   consecutive_skips=float(health.consecutive_skips),
+                   last_good_step=float(health.last_good_step),
+                   rows_quarantined=float(health.rows_quarantined))
+    if not step_ok and opt.max_consecutive_skips > 0:
         return params, dataclasses.replace(
             state, step=state.step + 1, cum_wire_bytes=cum_wire,
-            cum_eff_bytes=cum_eff, steps_skipped=skipped), metrics
+            cum_eff_bytes=cum_eff, health=health), metrics
     new_params = tree_map(lambda p, u: (p.float() - u).to(p.dtype),
                           params, updates)
     return new_params, TrainState(
-        step=state.step + 1, alpha_prev=res.alpha, memory=new_mem,
-        n_evals_ema=next_evals_ema(state.n_evals_ema, res.n_evals),
-        gamma=gamma_t, telemetry=tel, cum_wire_bytes=cum_wire,
-        cum_eff_bytes=cum_eff, steps_skipped=skipped), metrics
+        step=state.step + 1, alpha_prev=new_alpha, memory=new_mem,
+        n_evals_ema=new_ema, gamma=gamma_t, telemetry=tel,
+        cum_wire_bytes=cum_wire, cum_eff_bytes=cum_eff,
+        health=health), metrics
