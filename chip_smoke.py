@@ -97,10 +97,25 @@ Phases, each fatal on failure (no phase catches and continues):
    sgd --eta inf --max-consecutive-skips 2``, which must raise
    ``DivergenceError`` at step 1 with no good step before it; one
    profiled ``nonadaptive`` step and one at 2 microbatches, as in 4b;
+4g. the trainer's runtime beyond one step at full width, gamma 0.01,
+   the counts set to 0 just before each run and read just after:
+   ``--local-steps 2 --microbatches 2`` for 2 rounds, as ``csgd_asss``
+   and as ``nonadaptive`` (1 launch of each of the four training kernels
+   a round, 6,528,000 B a round, at least one Armijo trial a round,
+   finite losses; round times and peak memory); ``--ef-dtype bfloat16``
+   for 2 steps (phase 4's launches; every EF memory leaf bf16 on the
+   card, 220,239,360 B); checkpoints: 2 steps with ``--ckpt-dir``
+   (under ``_smoke_ckpt/`` beside this script, deleted afterwards)
+   ``--ckpt-every 1``, step 2 restored onto the card bit-identical to
+   the parameters and EF memory the run ended with, the save and
+   restore seconds and the bytes on disk, then ``--steps 4 --resume``,
+   which must log steps 2 and 3; one profiled local-steps round, as in
+   4b, with one ``train_step.local_step`` span a local step;
 5. run the 2-layer smoke variants on the card and on the CPU (the plain
    versions, which the CPU tests hold against the JAX package), through
    the trainer for 2 steps (``--opt csgd_asss``, ``nonadaptive`` and
-   ``sls``, and on ``--transport perleaf --max-gamma 0.1``), through
+   ``sls``, ``--local-steps 2 --microbatches 2``, ``--ef-dtype
+   bfloat16``, and on ``--transport perleaf --max-gamma 0.1``), through
    CSGD-ASSS for 3 and through serving
    (qwen1.5-4b and rwkv6-1.6b, ctx 96, 4 tokens), and compare: equal
    greedy tokens and logits within 1e-4 of max|logits| for serving;
@@ -180,6 +195,10 @@ ADAPTIVE_EFFECTIVE = [13_302_448, 23_301_808, 32_978_608]
 #: phase 4f: one worker's bytes a step at gamma 0.01 with 32-bit values
 #: (the compressing kinds) and of the dense exchange, 4 B a parameter
 COMPRESSED_BYTES, DENSE_BYTES = 6_528_000, 440_478_720
+#: phase 4g: local-steps rounds, bf16 EF steps, and the EF memory of
+#: paper-lm-100m in each dtype
+LOCAL_ROUNDS, BF16_STEPS = 2, 2
+EF_BYTES = {"float32": 440_478_720, "bfloat16": 220_239_360}
 
 
 def fail(msg: str) -> None:
@@ -282,9 +301,11 @@ def kernel_group(name: str) -> str:
 
 
 def profile_step(dev, cfg, comp, label="trainer", transport="bucketed",
-                 kind="csgd_asss", microbatches=1) -> None:
+                 kind="csgd_asss", microbatches=1, local_steps=1) -> None:
     """One warm full-width train step under torch.profiler: device time
-    by kernel group and the device's idle share of the step."""
+    by kernel group and the device's idle share of the step (a
+    local-steps round: one ``train_step.local_step`` span a local
+    step)."""
     from repro_torch.comm.exchange import init_process_group
     from repro_torch.configs.base import OptimizerConfig, RunConfig, \
         ShapeConfig
@@ -294,7 +315,8 @@ def profile_step(dev, cfg, comp, label="trainer", transport="bucketed",
     run = RunConfig(model=cfg, shape=ShapeConfig(256, 8),
                     microbatches=microbatches,
                     optimizer=OptimizerConfig(kind=kind, compressor=comp,
-                                              transport=transport))
+                                              transport=transport,
+                                              local_steps=local_steps))
     created = init_process_group(dev)
     try:
         params = lm.init_params(cfg, seed=0, device=dev)
@@ -313,11 +335,20 @@ def profile_step(dev, cfg, comp, label="trainer", transport="bucketed",
     spans = report_profile(label, prof, wall_ms,
                            ("ef_stats_telemetry_kernel", "ef_apply_kernel",
                             "pack_words_kernel", "unpack_words_kernel"))
-    # no armijo span where the kind does not search
-    want = 4 if kind in ("csgd_asss", "sls") else 3
+    # no armijo span where the kind does not search; a local-steps round
+    # has local_step spans in place of grad and armijo
+    want = 3 if local_steps > 1 or kind not in ("csgd_asss", "sls") else 4
     if len(spans) != want or min(spans.values()) <= 0:
         fail(f"the profiler saw {label} train_step spans {spans}, want "
              f"{want} timed")
+    if local_steps > 1:
+        n = sum(ev.count for ev in prof.key_averages()
+                if ev.key == "train_step.local_step"
+                and ev.device_type == torch.autograd.DeviceType.CPU)
+        print(f"  {n} train_step.local_step spans", flush=True)
+        if n != local_steps:
+            fail(f"the profiler saw {n} local_step spans in the {label} "
+                 f"round, want {local_steps}")
 
 
 def profiled(dev, fn):
@@ -940,6 +971,132 @@ def kinds_trainer(dev, shapes) -> None:
               f"DivergenceError: {e}", flush=True)
     else:
         fail(f"--eta inf ran {len(log)} steps without DivergenceError")
+
+
+def runtime_trainer(dev, root: Path) -> None:
+    """Phase 4g: the trainer's runtime beyond one step at full width
+    through ``launch.train``, the launch counts set to 0 just before
+    each run and read just after: local-steps rounds (``csgd_asss`` and
+    ``nonadaptive``), bf16 EF memory, and checkpoints saved, resumed and
+    restored on the card."""
+    import shutil
+
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.launch.train_step import init_train_state
+    from repro_torch.models import lm
+    from repro_torch.utils import tree_leaves
+    one_codec = dict(ef_stats_telemetry=1, ef_apply=1, pack_words=1,
+                     unpack_words=1)
+    base = MAIN_ARGS + ["--gamma", "0.01"]
+
+    def checked_run(label, extra, steps):
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launch_counts()
+        log, params, state = train.run(base + extra + ["--steps",
+                                                       str(steps)])
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        print(f"runtime [{label}]: launches {counts}; step_s "
+              f"{[round(x['step_s'], 4) for x in log]}; wire bytes "
+              f"{[x['wire_bytes'] for x in log]}; losses "
+              f"{[x['loss'] for x in log]}; alpha "
+              f"{[x['alpha'] for x in log]}; n_evals "
+              f"{[x['n_evals'] for x in log]}; peak memory "
+              f"{peak / 2**30:.2f} GiB", flush=True)
+        for name, c in counts.items():
+            if c != one_codec.get(name, 0) * steps:
+                fail(f"[runtime {label}] {name} launched {c} times in "
+                     f"{steps} rounds, want {one_codec.get(name, 0) * steps}")
+        if len(log) != steps or not all(np.isfinite(x["loss"])
+                                        for x in log) \
+                or any(x["steps_skipped"] for x in log):
+            fail(f"[runtime {label}] non-finite loss or skipped rounds: "
+                 f"{[x['loss'] for x in log]}")
+        if any((x["wire_bytes"], x["effective_wire_bytes"])
+               != (COMPRESSED_BYTES, COMPRESSED_BYTES) for x in log):
+            fail(f"[runtime {label}] bytes {[x['wire_bytes'] for x in log]}"
+                 f", want {COMPRESSED_BYTES} a round")
+        if not all(x["n_evals"] >= 1 for x in log):
+            fail(f"[runtime {label}] n_evals {[x['n_evals'] for x in log]}:"
+                 " every local step runs the Armijo search")
+        return log, params, state
+
+    local = ["--local-steps", "2", "--microbatches", "2"]
+    checked_run("local steps 2", local, LOCAL_ROUNDS)
+    checked_run("local steps 2, nonadaptive",
+                local + ["--opt", "nonadaptive", "--eta", "0.1"],
+                LOCAL_ROUNDS)
+    _, _, state = checked_run("ef-dtype bfloat16",
+                              ["--ef-dtype", "bfloat16"], BF16_STEPS)
+    mem = tree_leaves(state.memory)
+    mem_bytes = sum(m.numel() * m.element_size() for m in mem)
+    if not all(m.dtype == torch.bfloat16 and m.is_cuda for m in mem) \
+            or mem_bytes != EF_BYTES["bfloat16"]:
+        fail(f"[runtime ef-dtype bfloat16] EF memory "
+             f"{sorted({str(m.dtype) for m in mem})}, {mem_bytes} B; want "
+             f"bf16 leaves on the card, {EF_BYTES['bfloat16']} B")
+    del state, mem
+
+    # checkpoints: 2 steps saved after each, then --resume to 4
+    tmp = root / "_smoke_ckpt"
+    shutil.rmtree(tmp, ignore_errors=True)
+    try:
+        d = str(tmp / "run")
+        _, params, state = train.run(base + ["--steps", "2", "--ckpt-dir",
+                                             d, "--ckpt-every", "1"])
+        rank_dir = train.rank_dir(d, 0)
+        step_dir = Path(rank_dir) / "step_0000000002"
+        if ckpt.all_steps(rank_dir) != [1, 2] or state.step != 2:
+            fail(f"checkpoints {ckpt.all_steps(rank_dir)} after 2 steps, "
+                 "want [1, 2]")
+        on_disk = sum(f.stat().st_size for f in step_dir.iterdir())
+        cfg = get_config("paper-lm-100m")
+        skel = lm.init_params(cfg, seed=1, device=dev)
+        skeleton = {"params": skel, "state": init_train_state(
+            skel, RunConfig(model=cfg, shape=ShapeConfig(256, 8)))}
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        tree, meta = ckpt.restore(rank_dir, skeleton, step=2)
+        torch.cuda.synchronize(dev)
+        restore_s = time.perf_counter() - t0
+        del skeleton, skel
+        saved = tree_leaves(params) + tree_leaves(state.memory)
+        back = tree_leaves(tree["params"]) + tree_leaves(
+            tree["state"].memory)
+        if meta != {"step": 2, "world_size": 1} or len(saved) != len(
+                back) or not all(b.is_cuda and torch.equal(a, b)
+                                 for a, b in zip(saved, back)) \
+                or tree["state"].alpha_prev != state.alpha_prev:
+            fail(f"the checkpoint of step 2 ({meta}) does not restore on "
+                 "the card bit-identical to the tensors saved")
+        del tree, back, saved
+        t0 = time.perf_counter()
+        ckpt.save(str(tmp / "timed"), 2, {"params": params, "state": state})
+        save_s = time.perf_counter() - t0
+        del params, state
+        shutil.rmtree(tmp / "timed")
+        print(f"runtime [checkpoint]: step 2 restored on the card "
+              f"bit-identical (params and EF memory); save {save_s:.3f} s, "
+              f"restore {restore_s:.3f} s; {on_disk} B on disk (EF memory "
+              f"float32, {2 * EF_BYTES['float32']} B of tensors)",
+              flush=True)
+        log, _, state = train.run(base + ["--steps", "4", "--ckpt-dir", d,
+                                          "--resume"])
+        print(f"runtime [resume]: logged steps {[x['step'] for x in log]}, "
+              f"losses {[x['loss'] for x in log]}, step_s "
+              f"{[round(x['step_s'], 4) for x in log]}", flush=True)
+        if [x["step"] for x in log] != [2, 3] or state.step != 4 \
+                or not all(np.isfinite(x["loss"]) for x in log):
+            fail(f"--resume logged steps {[x['step'] for x in log]} and "
+                 f"ended at step {state.step}: want a resume at step 2, "
+                 "steps [2, 3], finite losses")
+        del state
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def run_csgd(dev, cfg, comp, steps) -> dict:
@@ -1578,18 +1735,27 @@ def main() -> None:
     profile_step(dev, cfg, comp, "trainer nonadaptive", kind="nonadaptive")
     profile_step(dev, cfg, comp, "trainer microbatches 2", microbatches=2)
 
+    # ---- 4g. local steps, bf16 EF memory, checkpoints --------------------
+    runtime_trainer(dev, root)
+    profile_step(dev, cfg, comp, "trainer local steps 2", microbatches=2,
+                 local_steps=2)
+
     # ---- 5. small input: the card against the CPU's plain path ----------
     small = ["--smoke", "--steps", "2", "--seq-len", "33", "--global-batch",
              "4", "--compress-method", "block_topk", "--log-every", "1"]
-    for kind in ("csgd_asss", "nonadaptive", "sls"):
-        on_card = train.main(small + ["--opt", kind])
-        on_cpu = train.main(small + ["--opt", kind, "--device", "cpu"])
+    for label, extra in (
+            ("csgd_asss", []), ("nonadaptive", ["--opt", "nonadaptive"]),
+            ("sls", ["--opt", "sls"]),
+            ("local steps 2", ["--local-steps", "2", "--microbatches", "2"]),
+            ("ef-dtype bfloat16", ["--ef-dtype", "bfloat16"])):
+        on_card = train.main(small + extra)
+        on_cpu = train.main(small + extra + ["--device", "cpu"])
         for a, b in zip(on_card, on_cpu):
             if abs(a["loss"] - b["loss"]) > 1e-4 * abs(b["loss"]) \
                     or a["wire_bytes"] != b["wire_bytes"]:
-                fail(f"{kind} smoke run on the card {a} disagrees with the "
-                     f"CPU {b}")
-        print(f"{kind} smoke card vs cpu: losses "
+                fail(f"{label} smoke run on the card {a} disagrees with "
+                     f"the CPU {b}")
+        print(f"{label} smoke card vs cpu: losses "
               f"{[x['loss'] for x in on_card]} vs "
               f"{[x['loss'] for x in on_cpu]}", flush=True)
     adaptive = small + ["--transport", "perleaf", "--max-gamma", "0.1",

@@ -73,9 +73,10 @@ KINDS = ("csgd_asss", "nonadaptive", "sgd", "sls", "dense")
 COMPRESSING = ("csgd_asss", "nonadaptive")
 #: kinds that run the Armijo search
 SEARCHING = ("csgd_asss", "sls")
+#: EF memory dtypes of the trainer
+EF_DTYPES = ("float32", "bfloat16")
 #: fields of JAX paths the port lacks: (the only value taken, the feature)
 NOT_PORTED = {
-    "local_steps": (1, "local steps (Qsparse-local, _local_steps_worker)"),
     "shard_local_topk": (False, "shard-local top-k under a model mesh"),
     "downlink": ("dense", "the compressed downlink (comm/downlink.py)")}
 
@@ -104,8 +105,14 @@ class OptimizerConfig:
     # (core/health.py).  0 disables the gate: non-finite rounds write
     # through.
     max_consecutive_skips: int = 25
-    # the JAX package's, not ported: only the defaults are taken
+    # EF memory dtype: float32 or bfloat16 (each transport reads it as f32
+    # and writes m' back with one rounding); JAX's int8 is refused
+    ef_dtype: str = "float32"
+    # local Armijo-SGD steps per exchange round (Qsparse-local-style, the
+    # compressing kinds only; the other kinds ignore it, as JAX's do):
+    # each takes one of ``microbatches == local_steps`` row groups
     local_steps: int = 1
+    # the JAX package's, not ported: only the defaults are taken
     shard_local_topk: bool = False
     downlink: str = "dense"
 
@@ -137,6 +144,21 @@ class OptimizerConfig:
                 f"gamma schedule 'ef-coupled' needs a compressing optimizer "
                 f"(csgd_asss | nonadaptive | acgd) — only those produce the "
                 f"CompressionTelemetry it couples to, got kind={self.kind!r}")
+        if self.ef_dtype == "int8":
+            raise ValueError(
+                "ef_dtype='int8': the JAX trainer stores the residual into "
+                "int8 memory with a float->int8 convert, which truncates "
+                "every |residual| < 1 to 0 and so drops error feedback; it "
+                "is not a quantized EF and is not ported — for int8 EF "
+                "memory use single-node CSGD's quantized EF "
+                "(core/csgd.py, CSGDConfig(ef_dtype='int8'): per-block "
+                "absmax scales)")
+        if self.ef_dtype not in EF_DTYPES:
+            raise ValueError(f"unknown ef_dtype {self.ef_dtype!r} (want one "
+                             f"of {EF_DTYPES})")
+        if self.local_steps < 1:
+            raise ValueError(
+                f"local_steps must be >= 1, got {self.local_steps}")
         if self.max_consecutive_skips < 0:
             raise ValueError(
                 f"max_consecutive_skips must be >= 0 (0 disables the "
@@ -154,6 +176,14 @@ class RunConfig:
         if self.microbatches < 1:
             raise ValueError(
                 f"microbatches must be >= 1, got {self.microbatches}")
+        opt, micro = self.optimizer, self.microbatches
+        # JAX's build-time contract (build_train_step), word for word
+        if opt.local_steps > 1 and opt.kind in COMPRESSING \
+                and micro != opt.local_steps:
+            raise ValueError(
+                f"local_steps={opt.local_steps} requires microbatches == "
+                f"local_steps (got microbatches={micro}): each local Armijo "
+                f"step consumes exactly one microbatch of the global batch")
 
 
 def smoke_variant(cfg: ModelConfig) -> ModelConfig:

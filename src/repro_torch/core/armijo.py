@@ -120,3 +120,23 @@ def next_evals_ema(ema, n_evals) -> np.float32:
     rounding (the product of two f32 is exact in a double)."""
     return f32(float(f32(0.9)) * float(f32(ema))
                + float(f32(0.1) * f32(n_evals)))
+
+
+def reciprocal_product(x, n) -> np.float32:
+    """``x / n`` for a constant ``n`` as jitted XLA computes it: a product
+    with f32(1/n), which differs from a division in the last bit (at n 3
+    for a third of integer-valued x; at n 1.2, ``alpha_max / omega``, for
+    a quarter of values)."""
+    return f32(f32(x) * (f32(1.0) / f32(n)))
+
+
+def local_evals_ema(ema, evals, local_steps: int) -> np.float32:
+    """The local-steps round's running mean ``0.9 * ema + 0.1 * evals /
+    H`` as jitted XLA computes it in JAX's worker, where the breaker's
+    select takes the result: the constants fold into c = f32(0.1) *
+    f32(1/H), ``0.9 * ema`` rounds, and ``evals * c`` is added to it in
+    one fused multiply-add.  (Without the select XLA fuses the other
+    product instead; the breaker is on by default.)"""
+    c = f32(0.1) * (f32(1.0) / f32(local_steps))
+    return f32(float(f32(evals)) * float(c)
+               + float(f32(0.9) * f32(ema)))

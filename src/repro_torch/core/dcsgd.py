@@ -30,6 +30,10 @@ send different counts; each row is decoded at its own), the masked mass
 stays in the EF residual, and the effective byte count prices only the
 valid fields.  The gossip, overlap, downlink and faulty transports of the
 JAX package are not ported.
+
+The EF memory may be f32 or bf16: every path, the dense leaves'
+included, reads it as f32 before the kernels and writes m' back with
+one rounding to the memory's dtype.
 """
 from __future__ import annotations
 

@@ -26,22 +26,36 @@ The adaptive budget: ``--max-gamma 0.1 --gamma-schedule linear`` (or
 controller's gamma_t inside payload rows sized for 10%;
 ``--transport perleaf`` encodes them leaf by leaf through the ragged
 pack/unpack kernels.
+
+``--local-steps H --microbatches H`` takes H local Armijo-SGD steps a
+round and exchanges the model delta once (the compressing kinds);
+``--ef-dtype bfloat16`` keeps the EF memory in bf16.
+
+Checkpoints: ``--ckpt-dir D`` saves ``{"params", "state"}`` after every
+``--ckpt-every`` completed steps and at the end, under
+``D/rank_<r:03d>/step_<n:010d>`` (``checkpoint/checkpoint.py``), where
+n counts completed steps; ``--resume`` restores the newest step every
+rank has committed and runs steps n ... ``--steps`` - 1, so a resumed
+run equals an uninterrupted one.  (The JAX CLI labels the state
+after step s as s and so replays batch s on resume.)
 """
 from __future__ import annotations
 
 import argparse
 import json
+import logging
 import os
 import time
 
 import torch
 import torch.distributed as dist
 
+from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.comm.exchange import init_process_group
 from repro_torch.comm.transport import transport_names
 from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.configs.base import KINDS, OptimizerConfig, RunConfig, \
-    ShapeConfig
+from repro_torch.configs.base import EF_DTYPES, KINDS, OptimizerConfig, \
+    RunConfig, ShapeConfig
 from repro_torch.core.armijo import ArmijoConfig
 from repro_torch.core.compression import Compressor
 from repro_torch.core.gamma import SCHEDULES, GammaControllerConfig
@@ -49,6 +63,8 @@ from repro_torch.core.health import check_divergence
 from repro_torch.data.synthetic import TokenPipeline
 from repro_torch.launch.train_step import init_train_state, train_step
 from repro_torch.models import lm
+
+logger = logging.getLogger(__name__)
 
 
 def resolve_device(name: str) -> torch.device:
@@ -122,18 +138,91 @@ def parse_args(argv=None):
                          "non-finite (skipped) rounds raise "
                          "DivergenceError naming the last good step "
                          "(0 disables the gate)")
+    ap.add_argument("--local-steps", type=int, default=1,
+                    help="local Armijo-SGD steps per exchange round "
+                         "(csgd_asss | nonadaptive; needs --microbatches "
+                         "equal to it)")
+    ap.add_argument("--ef-dtype", default="float32",
+                    help=f"EF memory dtype, one of {EF_DTYPES} (int8 "
+                         "raises: see OptimizerConfig)")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--resume", action="store_true")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--out", default=None, help="JSON metrics log")
     return ap.parse_args(argv)
 
 
+def _min_max_over_ranks(x: int, device) -> tuple[int, int]:
+    """(min, max) of an int over the process group, in one all-reduce."""
+    t = torch.tensor([-x, x], dtype=torch.int64, device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return -int(t[0]), int(t[1])
+
+
+def rank_dir(ckpt_dir: str, rank: int) -> str:
+    return os.path.join(ckpt_dir, f"rank_{rank:03d}")
+
+
+def resume(ckpt_dir: str, tree_like, device):
+    """Restore this rank's part of the newest step every rank has
+    committed: ``(tree, metadata)``, or None when no rank has a
+    checkpoint.  A step whose files are corrupt on some rank is skipped
+    by all ranks together (a warning names it) for the next older
+    common one, as ``checkpoint.restore`` falls back; a skeleton
+    mismatch raises on every rank.  Raises ``ValueError`` when the
+    checkpoints were saved by another number of workers."""
+    W, rank = dist.get_world_size(), dist.get_rank()
+    saved = sorted(n for n in os.listdir(ckpt_dir)
+                   if n.startswith("rank_")) if os.path.isdir(ckpt_dir) \
+        else []
+    if saved and saved != [f"rank_{r:03d}" for r in range(W)]:
+        raise ValueError(f"--resume: {ckpt_dir} holds checkpoints of "
+                         f"{len(saved)} workers ({saved}), this run has {W}")
+    mine = ckpt.all_steps(rank_dir(ckpt_dir, rank))
+    lo, hi = _min_max_over_ranks(mine[-1] if mine else -1, device)
+    if hi < 0:
+        return None
+    while True:
+        if lo < 0:
+            raise FileNotFoundError(
+                f"no step of {ckpt_dir} is committed and intact on all "
+                f"{W} ranks")
+        status, err = 1, None
+        try:
+            out = ckpt.restore(rank_dir(ckpt_dir, rank), tree_like, step=lo)
+        except AssertionError as e:
+            status, err = -1, e
+        except ckpt.CORRUPTION_ERRORS as e:
+            status, err = 0, e
+        worst = _min_max_over_ranks(status, device)[0]
+        if worst == 1:
+            return out
+        if worst < 0:
+            raise err if err is not None else AssertionError(
+                f"another rank's checkpoint at step {lo} does not match "
+                "its skeleton")
+        logger.warning("checkpoint step_%010d of %s is not intact on every "
+                       "rank (%s) — falling back to the next older common "
+                       "step", lo, ckpt_dir, err)
+        older = [s for s in mine if s < lo]
+        lo = _min_max_over_ranks(older[-1] if older else -1, device)[0]
+
+
 def main(argv=None) -> list[dict]:
     """Run the CLI; returns the logged metrics (one dict per logged step,
     with ``step`` and ``step_s``, the step's wall seconds)."""
+    return run(argv)[0]
+
+
+def run(argv=None):
+    """Run the CLI; returns ``(log, params, state)``: the logged metrics
+    as :func:`main` returns them, and this worker's final parameters and
+    ``TrainState``."""
     args = parse_args(argv)
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    run = RunConfig(
+    run_cfg = RunConfig(
         model=cfg, shape=ShapeConfig(args.seq_len, args.global_batch),
         microbatches=args.microbatches,
         optimizer=OptimizerConfig(
@@ -147,34 +236,50 @@ def main(argv=None) -> list[dict]:
                 schedule=args.gamma_schedule, gamma_min=args.gamma_min,
                 ramp_steps=args.gamma_ramp_steps, ef_target=args.ef_target,
                 ef_band=args.ef_band),
-            transport=args.transport))
+            transport=args.transport, ef_dtype=args.ef_dtype,
+            local_steps=args.local_steps))
 
     created = init_process_group(device)
     try:
         W, rank = dist.get_world_size(), dist.get_rank()
-        B = run.shape.global_batch
+        B = run_cfg.shape.global_batch
         if B % W:
             raise SystemExit(f"--global-batch {B} does not split over {W} "
                              "workers")
         rows = slice(rank * B // W, (rank + 1) * B // W)
         params = lm.init_params(cfg, seed=0, device=device)
-        state = init_train_state(params, run)
+        state = init_train_state(params, run_cfg)
+        start = 0
+        if args.resume and args.ckpt_dir:
+            got = resume(args.ckpt_dir, {"params": params, "state": state},
+                         device)
+            if got is not None:
+                tree, meta = got
+                params, state = tree["params"], tree["state"]
+                start = meta["step"]
+                if state.step != start or meta["world_size"] != W:
+                    raise ValueError(f"checkpoint metadata {meta} does not "
+                                     f"match its state (step {state.step}, "
+                                     f"{W} workers)")
+                if rank == 0:
+                    print(f"resumed from step {start}", flush=True)
         pipe = TokenPipeline(vocab_size=cfg.vocab_size,
-                             seq_len=run.shape.seq_len, global_batch=B)
+                             seq_len=run_cfg.shape.seq_len, global_batch=B)
         log = []
-        for step in range(args.steps):
+        saved = None
+        for step in range(start, args.steps):
             batch = {k: v[rows].to(device)
                      for k, v in pipe.batch(step).items()}
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             t0 = time.perf_counter()
-            params, state, m = train_step(params, state, batch, run)
+            params, state, m = train_step(params, state, batch, run_cfg)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             m["step"] = step
             m["step_s"] = time.perf_counter() - t0
             # host-side breaker, as the JAX trainer's loop runs it
-            check_divergence(m, run.optimizer.max_consecutive_skips)
+            check_divergence(m, run_cfg.optimizer.max_consecutive_skips)
             if step % args.log_every == 0 or step == args.steps - 1:
                 log.append(m)
                 if rank == 0:
@@ -191,14 +296,27 @@ def main(argv=None) -> list[dict]:
                              f" quar={m['rows_quarantined']:.0f}"
                              if m["steps_skipped"] or m["rows_quarantined"]
                              else ""), flush=True)
+            # labelled by completed steps: a resume runs the next batch
+            if args.ckpt_dir and args.ckpt_every > 0 \
+                    and state.step % args.ckpt_every == 0:
+                saved = _save(args.ckpt_dir, rank, W, params, state)
+        if args.ckpt_dir and saved != state.step:
+            _save(args.ckpt_dir, rank, W, params, state)
         if args.out and rank == 0:
             os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
             with open(args.out, "w") as f:
                 json.dump(log, f, indent=1)
-        return log
+        return log, params, state
     finally:
         if created:
             dist.destroy_process_group()
+
+
+def _save(ckpt_dir: str, rank: int, W: int, params, state) -> int:
+    ckpt.save(rank_dir(ckpt_dir, rank), state.step,
+              {"params": params, "state": state},
+              metadata={"step": state.step, "world_size": W})
+    return state.step
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
 """The data-parallel train step (twin of the plain body of ``worker_fn``
-in ``src/repro/launch/train_step.py``: no federated cohort, gossip,
-overlap, downlink, faults, shard-local top-k, local steps or acgd).
+in ``src/repro/launch/train_step.py`` and of its local-steps round,
+``_local_steps_worker``: no federated cohort, gossip, overlap, downlink,
+faults, shard-local top-k or acgd).
 
 Each worker — one process of the data-parallel group, one device —
 
@@ -19,6 +20,14 @@ compression telemetry of the previous round, which the previous step
 read back with its metrics in one transfer; workers may so compress at
 different gamma_t, and every row is decoded at its own count.
 
+With ``local_steps`` H > 1 a compressing kind instead takes H local
+Armijo-SGD steps, one on each of H microbatches, and exchanges the model
+delta once at eta 1 through the same EF compression and kernels
+(``_local_steps_step``): one exchange per H model updates.
+
+The EF memory is f32 or bf16 (``OptimizerConfig.ef_dtype``); every
+transport reads it as f32 and writes m' back with one rounding.
+
 The finite check is the JAX package's breaker (core/health.py): with
 ``max_consecutive_skips > 0`` a failed check skips the step — the
 parameters and every carried optimizer quantity stay as they were, while
@@ -36,8 +45,8 @@ from torch.profiler import record_function
 
 from repro_torch.comm.exchange import all_reduce_mean
 from repro_torch.configs.base import COMPRESSING, SEARCHING
-from repro_torch.core.armijo import armijo_search, next_alpha_max, \
-    next_evals_ema, tree_sqnorm
+from repro_torch.core.armijo import armijo_search, local_evals_ema, \
+    next_alpha_max, next_evals_ema, reciprocal_product, tree_sqnorm
 from repro_torch.core.dcsgd import dense_aggregate, worker_compress_aggregate
 from repro_torch.core.error_feedback import init_ef
 from repro_torch.core.gamma import gamma_init, gamma_update
@@ -61,8 +70,9 @@ class TrainState:
 
     step: int
     alpha_prev: np.float32
-    memory: dict | None           # EF memory, f32 leaves like params;
-                                  # None for the kinds that do not compress
+    memory: dict | None           # EF memory, leaves like params in
+                                  # ef_dtype (f32 or bf16); None for the
+                                  # kinds that do not compress
     n_evals_ema: np.float32
     gamma: np.float32
     telemetry: CompressionTelemetry  # own previous round, host float32
@@ -75,7 +85,8 @@ def init_train_state(params, run_cfg) -> TrainState:
     opt = run_cfg.optimizer
     return TrainState(
         step=0, alpha_prev=f32(opt.armijo.alpha0),
-        memory=init_ef(params) if opt.kind in COMPRESSING else None,
+        memory=init_ef(params, getattr(torch, opt.ef_dtype))
+        if opt.kind in COMPRESSING else None,
         n_evals_ema=f32(0.0),
         gamma=gamma_init(opt.gamma_controller, opt.compressor),
         # neutral: zero backlog, perfect alignment
@@ -127,8 +138,13 @@ def _accumulated_grads(params, batch: dict, cfg, micro: int):
 def train_step(params, state: TrainState, batch: dict, run_cfg, group=None):
     """One step on this worker's local ``batch``.  Returns
     ``(params, state, metrics)``; metrics are means over the group, as
-    host floats, and this worker's health counters."""
+    host floats, and this worker's health counters.  With
+    ``local_steps > 1`` a compressing kind takes the local-steps round
+    (``_local_steps_step``), exactly where JAX's ``worker_fn`` does; the
+    other kinds ignore ``local_steps``, as JAX's do."""
     opt = run_cfg.optimizer
+    if opt.local_steps > 1 and opt.kind in COMPRESSING:
+        return _local_steps_step(params, state, batch, run_cfg, group)
     cfg = run_cfg.model
     # the spans split a step's host time for a profiler (chip_smoke.py)
     with record_function("train_step.grad"):
@@ -170,7 +186,85 @@ def train_step(params, state: TrainState, batch: dict, run_cfg, group=None):
             tel = CompressionTelemetry(*(
                 torch.tensor(float(getattr(state.telemetry, f)),
                              device=loss.device) for f in TELEMETRY_FIELDS))
+    return _finish_round(
+        params, state, run_cfg, group, loss=loss, gsq=gsq, alpha=alpha,
+        n_evals=n_evals, gamma_t=gamma_t, updates=updates, new_mem=new_mem,
+        wire=wire, eff=eff, tel=tel, new_alpha=new_alpha, new_ema=new_ema)
 
+
+def _local_steps_step(params, state: TrainState, batch: dict, run_cfg,
+                      group=None):
+    """The twin of JAX's ``_local_steps_worker``: H = ``local_steps``
+    Armijo-SGD steps on this worker's H microbatches (rows ``[i*B/H,
+    (i+1)*B/H)``, JAX's reshape), then ONE EF-compressed exchange of the
+    model delta at eta 1.
+
+    Each local step searches from the ``alpha_max`` the previous one
+    carried, with its own loss as f0, and steps by ``a_scale * alpha``
+    (no theory-safe clamp: gamma_t is known only after the H steps) —
+    for ``nonadaptive`` too, as JAX's worker has no branch on the kind.
+    The local update ``p - eta*g`` rounds once, as jitted XLA contracts
+    it (``torch.add`` with ``alpha`` is one fused multiply-add on the
+    CPU).  The carried scalars follow jitted XLA bit for bit:
+    ``alpha_prev = amax / omega`` and ``evals / H`` are products with a
+    reciprocal, the running mean is ``local_evals_ema``."""
+    opt = run_cfg.optimizer
+    cfg = run_cfg.model
+    H = opt.local_steps
+    n = next(iter(batch.values())).shape[0]
+    if n % H:
+        raise ValueError(f"the local batch of {n} rows does not split into "
+                         f"{H} local steps")
+    rows = n // H
+    p_loc, amax, evals = params, next_alpha_max(state.alpha_prev,
+                                                opt.armijo), f32(0.0)
+    loss_sum, alpha = None, None
+    for i in range(H):
+        mb = {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
+        with record_function("train_step.local_step"):
+            lo, g = value_and_grad(lambda p: lm.loss_fn(p, mb, cfg), p_loc)
+            res = armijo_search(lambda p: lm.loss_fn(p, mb, cfg), p_loc, g,
+                                amax, opt.armijo, f0=lo,
+                                grad_sqnorm=tree_sqnorm(g))
+            eta = float(f32(opt.armijo.a_scale) * res.alpha)
+            p_loc = tree_map(lambda p, gg: torch.add(
+                p.float(), gg.float(), alpha=-eta).to(p.dtype), p_loc, g)
+            del g
+        amax = next_alpha_max(res.alpha, opt.armijo)
+        evals = f32(evals + f32(res.n_evals))
+        alpha = res.alpha
+        loss_sum = lo.float() if loss_sum is None else loss_sum + lo
+    evals_mean = reciprocal_product(evals, H)
+    gamma_t = gamma_update(
+        opt.gamma_controller, opt.compressor, state.gamma, state.step,
+        search=SearchTelemetry(alpha=alpha, alpha_prev=state.alpha_prev,
+                               n_evals=evals_mean,
+                               n_evals_ema=state.n_evals_ema),
+        compression=state.telemetry)
+    with record_function("train_step.exchange"):
+        delta = tree_map(lambda a, b: a.float() - b.float(), params, p_loc)
+        del p_loc
+        updates, new_mem, wire, eff, tel = worker_compress_aggregate(
+            delta, state.memory, f32(1.0), opt.compressor, group,
+            stacked_mask=lm.stacked_mask(params), gamma_t=gamma_t,
+            transport=opt.transport)
+        del delta
+    return _finish_round(
+        params, state, run_cfg, group,
+        loss=microbatch_mean(loss_sum, H),
+        gsq=torch.zeros((), device=loss_sum.device), alpha=alpha,
+        n_evals=evals_mean, gamma_t=gamma_t, updates=updates,
+        new_mem=new_mem, wire=wire, eff=eff, tel=tel,
+        new_alpha=reciprocal_product(amax, opt.armijo.omega),
+        new_ema=local_evals_ema(state.n_evals_ema, evals, H))
+
+
+def _finish_round(params, state: TrainState, run_cfg, group, *, loss, gsq,
+                  alpha, n_evals, gamma_t, updates, new_mem, wire, eff, tel,
+                  new_alpha, new_ema):
+    """The round's metrics (one host transfer), the breaker and the new
+    state, shared by the plain and the local-steps round."""
+    opt = run_cfg.optimizer
     with record_function("train_step.metrics"):
         local = torch.stack(
             [loss.float(), gsq.float()]

@@ -2,7 +2,8 @@
 the gamma controller, the theory-safe step scale, the ragged wire rows
 and their per-row codec, the ``perleaf`` and ``bucketed`` exchanges at a
 per-round gamma_t, single-node CSGD-ASSS under each schedule, the train
-CLI, and the exchange's byte counts at paper-lm-100m's widths.
+CLI, the exchange's byte counts at paper-lm-100m's widths, and
+benchmarks/collective_bytes.py's per-step bytes for every ported config.
 
 The JAX side runs jitted, as its trainer runs it; the exchange in a
 1-device ``shard_map`` (as tests/test_torch_wire.py runs it), its EF ops
@@ -535,6 +536,32 @@ def test_paper_lm_exchange_bytes(value_bits):
         w, e = plan_wire_bytes(bucket.build_bucket_plan(shapes, stacked, c),
                                c)
         assert float(w) == float(e) == want
+
+
+@pytest.mark.parametrize("gamma", [0.01, 0.04, 0.10])
+@pytest.mark.parametrize("arch", ["paper-lm-100m", "qwen1.5-4b",
+                                  "rwkv6-1.6b"])
+def test_collective_bytes_match_jax(arch, gamma):
+    """benchmarks/collective_bytes.py's table for every ported config: the
+    port's ``tree_wire_bytes`` over its own parameter tree (shapes only,
+    under FakeTensorMode: no weights made) and the dense bytes equal the
+    JAX package's over ``jax.eval_shape`` of its model."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.configs import get_config
+    model = build_model(jax_config(arch))
+    jtree = jax.eval_shape(model.init, jax.ShapeDtypeStruct((2,),
+                                                            jnp.uint32))
+    with FakeTensorMode():
+        ttree = lm.init_params(get_config(arch))
+    tleaves = tree_flatten(ttree)[0]
+    assert [tuple(x.shape) for x in tleaves] == \
+        [tuple(x.shape) for x in jax.tree.leaves(jtree)]
+    dense = sum(x.size * 4 for x in jax.tree.leaves(jtree))
+    assert sum(x.numel() * 4 for x in tleaves) == dense
+    wire = jcomp.tree_wire_bytes(jtree, JCompressor(gamma=gamma))
+    assert compression.tree_wire_bytes(ttree, Compressor(gamma=gamma)) == \
+        wire
+    assert 0 < wire < dense
 
 
 # ---------------------------------------------------------------------------

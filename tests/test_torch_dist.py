@@ -11,8 +11,13 @@ the rank order of the gather, the own-row slice and the dense all-reduce.
 With an adaptive compressor the two workers compress at different
 gamma_t, so their rows carry different counts: each decodes the other's
 rows at the sender's count, on both transports.
+
+Two workers through the trainer's CLI save their own state under
+``rank_<r>``; resumed, they equal an uninterrupted two-worker run bit for
+bit, and another world size cannot resume their checkpoints.
 """
 import multiprocessing as mp
+import os
 import socket
 
 import pytest
@@ -113,3 +118,85 @@ def test_two_workers_at_different_gamma_t(transport):
     got = _two_workers_against_singles(True, transport)
     assert got[0][2] == got[1][2]
     assert got[0][3] < got[1][3] < got[0][2]
+
+
+# ---------------------------------------------------------------------------
+# checkpoints of two workers: save, resume, and another world size
+# ---------------------------------------------------------------------------
+
+SMOKE = ["--device", "cpu", "--smoke", "--seq-len", "33", "--global-batch",
+         "4", "--compress-method", "block_topk", "--log-every", "1"]
+
+
+def _final_arrays(d, rank):
+    from repro_torch.checkpoint import checkpoint as ckpt
+    d = os.path.join(d, f"rank_{rank:03d}")
+    z = np.load(os.path.join(d, f"step_{ckpt.latest_step(d):010d}",
+                             "arrays.npz"))
+    return {k: np.atleast_1d(z[k]).view(np.uint8) for k in z.files}
+
+
+def _ckpt_worker(rank, port, queue, root):
+    """Rank ``rank`` of two: 4 steps straight, then 2 steps and a resume
+    to 4 in another directory; returns both logs and final arrays."""
+    from repro_torch.launch import train
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=2, rank=rank)
+    try:
+        straight, split = os.path.join(root, "straight"), \
+            os.path.join(root, "split")
+        log = train.main(SMOKE + ["--steps", "4", "--ckpt-dir", straight])
+        first = train.main(SMOKE + ["--steps", "2", "--ckpt-dir", split,
+                                    "--ckpt-every", "1"])
+        second = train.main(SMOKE + ["--steps", "4", "--ckpt-dir", split,
+                                     "--resume"])
+        queue.put((rank, (log, first, second,
+                          _final_arrays(straight, rank),
+                          _final_arrays(split, rank))))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_two_workers_resume_equals_uninterrupted(tmp_path):
+    """Each rank saves its own worker state under ``rank_<r>``; a resumed
+    two-worker run equals an uninterrupted one bit for bit (metrics and
+    every rank's final parameters, EF memory and scalars).  Resuming
+    those checkpoints with one worker raises."""
+    from repro_torch.launch import train
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=_ckpt_worker,
+                         args=(r, port, queue, str(tmp_path)))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    got = dict(queue.get(timeout=240) for _ in procs)
+    for p in procs:
+        p.join(timeout=60)
+        assert not p.is_alive() and p.exitcode == 0
+    drop = ("step_s",)
+    for rank in range(2):
+        log, first, second, a_straight, a_split = got[rank]
+        assert [m["step"] for m in second] == [2, 3]
+        assert [{k: v for k, v in m.items() if k not in drop}
+                for m in first + second] == \
+            [{k: v for k, v in m.items() if k not in drop} for m in log]
+        assert sorted(a_straight) == sorted(a_split)
+        for k in a_straight:
+            np.testing.assert_array_equal(a_straight[k], a_split[k],
+                                          err_msg=f"rank {rank} {k}")
+    # the two ranks hold different EF memory: a rank's own state is saved
+    assert any(not np.array_equal(got[0][3][k], got[1][3][k])
+               for k in got[0][3])
+    created = exchange.init_process_group(torch.device("cpu"))
+    try:
+        with pytest.raises(ValueError, match="checkpoints of 2 workers"):
+            train.main(SMOKE + ["--steps", "5", "--ckpt-dir",
+                                str(tmp_path / "split"), "--resume"])
+    finally:
+        if created:
+            dist.destroy_process_group()

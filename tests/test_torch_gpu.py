@@ -709,3 +709,86 @@ def test_perleaf_exchange_on_card(cuda, value_bits):
             torch.testing.assert_close(getattr(out[4], f).cpu(),
                                        getattr(want[4], f), rtol=1e-5,
                                        atol=0)
+
+
+# --------------------------------------------------------------------------
+# the trainer beyond one step: local steps, bf16 EF memory, checkpoints
+# --------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("opt_kw,micro", [
+    (dict(local_steps=2), 2), (dict(local_steps=2, kind="nonadaptive"), 2),
+    (dict(ef_dtype="bfloat16"), 1)], ids=["local-steps", "local-nonadaptive",
+                                          "bf16-ef"])
+def test_trainer_rounds_on_card(cuda, opt_kw, micro, tmp_path):
+    """Two rounds of the smoke trainer on the card: one launch of each
+    training kernel a round (a local-steps round exchanges once), bf16
+    EF memory leaves where asked, the bytes and, within rel 1e-4, the
+    losses of the CPU's plain path; then the state saved from the card
+    and restored onto it, bit for bit."""
+    import dataclasses
+    import socket
+
+    import torch.distributed as dist
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import OptimizerConfig, RunConfig, \
+        ShapeConfig
+    from repro_torch.core.compression import Compressor
+    from repro_torch.data.synthetic import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train_step import init_train_state, train_step
+    from repro_torch.models import lm
+    from repro_torch.utils import tree_leaves
+    run = RunConfig(model=get_smoke_config("paper-lm-100m"),
+                    shape=ShapeConfig(33, 4), microbatches=micro,
+                    optimizer=OptimizerConfig(
+                        compressor=Compressor(gamma=0.01,
+                                              method="block_topk"),
+                        **opt_kw))
+    pipe = TokenPipeline(vocab_size=run.model.vocab_size, seq_len=33,
+                         global_batch=4)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    # one group for both runs: gloo for the CPU's, NCCL for the card's
+    dist.init_process_group("cpu:gloo,cuda:nccl",
+                            init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        logs = {}
+        for dev in ("cpu", cuda):
+            params = lm.init_params(run.model, seed=0, device=dev)
+            state = init_train_state(params, run)
+            ops.reset_launch_counts()
+            logs[str(dev)] = []
+            for t in range(2):
+                batch = {k: v.to(dev) for k, v in pipe.batch(t).items()}
+                params, state, m = train_step(params, state, batch, run)
+                logs[str(dev)].append(m)
+            counts = ops.launch_counts()
+    finally:
+        dist.destroy_process_group()
+    assert counts == dict(dict.fromkeys(counts, 0), ef_stats_telemetry=2,
+                          ef_apply=2, pack_words=2, unpack_words=2)
+    want_dt = getattr(torch, opt_kw.get("ef_dtype", "float32"))
+    assert all(x.dtype == want_dt and x.is_cuda
+               for x in tree_leaves(state.memory))
+    for a, b in zip(logs[str(cuda)], logs["cpu"]):
+        assert a["wire_bytes"] == b["wire_bytes"]
+        assert abs(a["loss"] - b["loss"]) <= 1e-4 * abs(b["loss"])
+        assert a["n_evals"] >= 1
+    tree = {"params": params, "state": state}
+    ckpt.save(str(tmp_path), state.step, tree)
+    skel = lm.init_params(run.model, seed=1, device=cuda)
+    out, _ = ckpt.restore(str(tmp_path), {
+        "params": skel, "state": init_train_state(skel, run)})
+    assert dataclasses.replace(out["state"], memory=None) == \
+        dataclasses.replace(state, memory=None)
+    for a, b in zip(tree_leaves(tree["params"]) + tree_leaves(state.memory),
+                    tree_leaves(out["params"])
+                    + tree_leaves(out["state"].memory)):
+        assert b.is_cuda and a.dtype == b.dtype
+        assert torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16
+                           else a, b.view(torch.int16)
+                           if b.dtype == torch.bfloat16 else b)

@@ -430,7 +430,7 @@ def test_schedule_kind_errors_match_jax(kind, schedule):
 
 @pytest.mark.parametrize("kw,match", [
     (dict(kind="acgd"), "acgd"), (dict(kind="adam"), "unknown optimizer"),
-    (dict(local_steps=2), "local steps"),
+    (dict(ef_dtype="int8"), "int8"),
     (dict(shard_local_topk=True), "shard-local top-k"),
     (dict(downlink="compressed"), "downlink"),
     (dict(max_consecutive_skips=-1), "max_consecutive_skips must be >= 0")])
