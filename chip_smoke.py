@@ -111,11 +111,34 @@ Phases, each fatal on failure (no phase catches and continues):
    restore seconds and the bytes on disk, then ``--steps 4 --resume``,
    which must log steps 2 and 3; one profiled local-steps round, as in
    4b, with one ``train_step.local_step`` span a local step;
+4h. ACGD and the compressed downlink at full width, gamma 0.01 unless
+   said, the counts set to 0 just before each run and read just after:
+   ``--opt acgd --eta 0.1 --momentum 0.9`` for 2 steps (1 launch of each
+   of the four training kernels a step and no other, 6,528,000 B a step,
+   alpha 0.1, no Armijo trial, every velocity leaf f32 on the card,
+   440,478,720 B); ``--downlink compressed`` (``csgd_asss``) for 2
+   (phase 4's launches, so the downlink launches none; 6,528,000 B up
+   and down a step, static and effective; cum_effective_wire_bytes
+   26,112,000 after 2 steps; the server memory 110,100,480 f32 words on
+   the card); ``--opt acgd --downlink compressed --transport perleaf
+   --max-gamma 0.1 --gamma 0.04 --downlink-gamma 0.04 --value-bits 8``
+   for 2 (9 EF pairs and 18 launches of each ragged codec kernel a step,
+   effective bytes 13,302,448 and static 32,978,608 each way);
+   ``roundtrip_rows`` bit-identical to ``decode_rows(encode_rows)``
+   through the CUDA codec at every compressed leaf's rows at 32 and 8
+   bits and ragged at count 41 of 102; one profiled warm step of ``acgd
+   --downlink compressed``, as in 4b, with the ``train_step.downlink``
+   span, then the server round alone under the profiler (its sort and
+   its other passes, no kernel of the port); single-node ACGD
+   (``repro_torch.core.acgd.acgd``, ``block_topk``, eta 0.1, mu 0.9) on
+   the model and batches of 4c for 3 steps, checked as 4c checks
+   CSGD-ASSS, and one profiled step;
 5. run the 2-layer smoke variants on the card and on the CPU (the plain
    versions, which the CPU tests hold against the JAX package), through
-   the trainer for 2 steps (``--opt csgd_asss``, ``nonadaptive`` and
-   ``sls``, ``--local-steps 2 --microbatches 2``, ``--ef-dtype
-   bfloat16``, and on ``--transport perleaf --max-gamma 0.1``), through
+   the trainer for 2 steps (``--opt csgd_asss``, ``nonadaptive``,
+   ``sls`` and ``acgd``, ``--local-steps 2 --microbatches 2``,
+   ``--ef-dtype bfloat16``, ``--downlink compressed``, and on
+   ``--transport perleaf --max-gamma 0.1``), through
    CSGD-ASSS for 3 and through serving
    (qwen1.5-4b and rwkv6-1.6b, ctx 96, 4 tokens), and compare: equal
    greedy tokens and logits within 1e-4 of max|logits| for serving;
@@ -199,6 +222,10 @@ COMPRESSED_BYTES, DENSE_BYTES = 6_528_000, 440_478_720
 #: paper-lm-100m in each dtype
 LOCAL_ROUNDS, BF16_STEPS = 2, 2
 EF_BYTES = {"float32": 440_478_720, "bfloat16": 220_239_360}
+#: phase 4h: trainer steps of each acgd / downlink run, single-node ACGD
+#: steps, and the server EF memory of paper-lm-100m (its compressed
+#: leaves' entries, f32)
+ACGD_STEPS, ACGD_SINGLE_STEPS, SERVER_WORDS = 2, 3, 110_100_480
 
 
 def fail(msg: str) -> None:
@@ -1099,12 +1126,215 @@ def runtime_trainer(dev, root: Path) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def run_csgd(dev, cfg, comp, steps) -> dict:
-    """Phase 4c: single-node CSGD-ASSS on the full-width model through
-    the library entry point; returns the launch counts of the run."""
-    from repro_torch.core.armijo import ArmijoConfig
+def acgd_downlink_trainer(dev) -> None:
+    """Phase 4h: ``--opt acgd`` and ``--downlink compressed`` at full
+    width through ``launch.train``, the launch counts set to 0 just
+    before each run and read just after."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.utils import tree_leaves
+    one_codec = dict(ef_stats_telemetry=1, ef_apply=1, pack_words=1,
+                     unpack_words=1)
+    ragged = dict(ef_stats_telemetry=9, ef_apply=9, pack_words_ragged=18,
+                  unpack_words_ragged=18)
+    base = MAIN_ARGS + ["--steps", str(ACGD_STEPS)]
+    for label, extra, per_step, up, down in (
+            ("acgd", ["--opt", "acgd", "--eta", "0.1", "--momentum", "0.9",
+                      "--gamma", "0.01"], one_codec,
+             (COMPRESSED_BYTES, COMPRESSED_BYTES), None),
+            ("downlink compressed", ["--downlink", "compressed", "--gamma",
+                                     "0.01"], one_codec,
+             (COMPRESSED_BYTES, COMPRESSED_BYTES),
+             (COMPRESSED_BYTES, COMPRESSED_BYTES)),
+            ("acgd downlink perleaf", ["--opt", "acgd", "--downlink",
+                                       "compressed", "--transport",
+                                       "perleaf", "--max-gamma", "0.1",
+                                       "--gamma", "0.04", "--downlink-gamma",
+                                       "0.04", "--value-bits", "8"], ragged,
+             (ADAPTIVE_STATIC, ADAPTIVE_EFFECTIVE[0]),
+             (ADAPTIVE_STATIC, ADAPTIVE_EFFECTIVE[0]))):
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launch_counts()
+        log, _, state = train.run(base + extra)
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        pairs = {d: [(x.get(f"{p}wire_bytes"),
+                      x.get(f"{p}effective_wire_bytes")) for x in log]
+                 for d, p in (("up", ""), ("down", "downlink_"))}
+        print(f"acgd/downlink [{label}]: launches {counts}; step_s "
+              f"{[round(x['step_s'], 4) for x in log]}; losses "
+              f"{[x['loss'] for x in log]}; alpha "
+              f"{[x['alpha'] for x in log]}; n_evals "
+              f"{[x['n_evals'] for x in log]}; (static, effective) bytes "
+              f"up {pairs['up']}, down {pairs['down']}; cum_effective "
+              f"{[x['cum_effective_wire_bytes'] for x in log]}; peak "
+              f"memory {peak / 2**30:.2f} GiB", flush=True)
+        for name, c in counts.items():
+            if c != per_step.get(name, 0) * ACGD_STEPS:
+                fail(f"[{label}] {name} launched {c} times in {ACGD_STEPS} "
+                     f"steps, want {per_step.get(name, 0) * ACGD_STEPS}")
+        if len(log) != ACGD_STEPS or not all(np.isfinite(x["loss"])
+                                             for x in log) \
+                or any(x["steps_skipped"] for x in log):
+            fail(f"[{label}] non-finite loss or skipped steps: "
+                 f"{[x['loss'] for x in log]}")
+        if any((x["wire_bytes"], x["effective_wire_bytes"]) != up
+               for x in log):
+            fail(f"[{label}] uplink bytes, want {up} a step")
+        if down is None:
+            if any("downlink_wire_bytes" in x for x in log) \
+                    or state.downlink is not None:
+                fail(f"[{label}] a downlink without --downlink compressed")
+        else:
+            if any((x["downlink_wire_bytes"],
+                    x["downlink_effective_wire_bytes"]) != down
+                   for x in log):
+                fail(f"[{label}] downlink bytes, want {down} a step")
+            want_cum = ACGD_STEPS * (up[1] + down[1])
+            if log[-1]["cum_effective_wire_bytes"] != want_cum:
+                fail(f"[{label}] cum_effective_wire_bytes "
+                     f"{log[-1]['cum_effective_wire_bytes']}, want "
+                     f"{want_cum}")
+            mem = state.downlink.memory
+            if mem.dtype != torch.float32 or not mem.is_cuda \
+                    or mem.numel() != SERVER_WORDS:
+                fail(f"[{label}] server memory {mem.dtype} {mem.device} "
+                     f"{mem.numel()} words, want f32 on the card, "
+                     f"{SERVER_WORDS}")
+            print(f"  server memory: {mem.numel()} f32 words "
+                  f"({mem.numel() * 4} B) on {mem.device}", flush=True)
+        if "acgd" in label:
+            if not all(x["n_evals"] == 0 and x["alpha"] == float(
+                    np.float32(0.1)) for x in log):
+                fail(f"[{label}] alpha {[x['alpha'] for x in log]}, n_evals "
+                     f"{[x['n_evals'] for x in log]}: want 0.1 and 0")
+            vel = tree_leaves(state.velocity)
+            nbytes = sum(v.numel() * v.element_size() for v in vel)
+            if not all(v.dtype == torch.float32 and v.is_cuda for v in vel) \
+                    or nbytes != DENSE_BYTES:
+                fail(f"[{label}] velocity {nbytes} B, want f32 leaves on "
+                     f"the card, {DENSE_BYTES} B")
+            print(f"  velocity: {len(vel)} f32 leaves, {nbytes} B on the "
+                  "card", flush=True)
+        del state
+
+
+def check_roundtrip(dev, gen, shapes, stacked) -> None:
+    """Phase 4h: ``roundtrip_rows`` against ``decode_rows(encode_rows)``
+    through the CUDA codec, bit for bit, at the downlink's rows of every
+    compressed leaf of paper-lm-100m: 32-bit and 8-bit values at gamma
+    0.01, and ragged 8-bit rows at count 41 of 102."""
+    from repro_torch.comm import wire
+    from repro_torch.comm.downlink import downlink_plan
+    from repro_torch.core.compression import Compressor
+    from repro_torch.core.leafmath import compress_leaf, leaf_count
+    for label, comp, gamma_t in (
+            ("32-bit", Compressor(gamma=0.01, method="block_topk"), None),
+            ("8-bit", Compressor(gamma=0.01, method="block_topk",
+                                 value_bits=8), None),
+            ("ragged 8-bit", Compressor(gamma=0.04, method="block_topk",
+                                        max_gamma=0.1, value_bits=8),
+             np.float32(0.04))):
+        rows = 0
+        for ln in downlink_plan(shapes, stacked, comp).leaves:
+            if ln.dense:
+                continue
+            x = torch.randn((ln.L, ln.d), generator=gen, device=dev) * 1e-3
+            vals, idx, _ = compress_leaf(x, comp, ln.stacked)
+            count = leaf_count(comp, ln.spec, gamma_t, ln.d)
+            counts = None if count is None else wire.row_counts(
+                count, ln.L, dev)
+            rv, ri = wire.roundtrip_rows(vals, idx, ln.spec, counts=counts)
+            wv, wi = wire.decode_rows(wire.encode_rows(
+                vals, idx, ln.spec, counts=counts), ln.spec)
+            torch.cuda.synchronize(dev)
+            if not (torch.equal(rv.view(torch.int32), wv.view(torch.int32))
+                    and torch.equal(ri, wi)):
+                fail(f"roundtrip_rows differs from the CUDA codec's round "
+                     f"trip at {label}, leaf {ln.index} ({ln.L}, {ln.d})")
+            rows += ln.L
+        print(f"roundtrip_rows [{label}]: bit-identical to decode_rows("
+              f"encode_rows) through the CUDA codec over {rows} rows"
+              + (f" at count {comp.block_k_t(gamma_t)} of "
+                 f"{comp.block_k()}" if gamma_t is not None else ""),
+              flush=True)
+
+
+def profile_downlink(dev, cfg) -> None:
+    """Phase 4h: one warm full-width step of ``acgd --downlink
+    compressed`` at gamma 0.01 under torch.profiler, as in 4b (the host
+    time of the ``train_step.downlink`` span among the spans); then the
+    server round alone (``apply_downlink`` on that step's mean updates'
+    shapes, from one batch's gradients) under the profiler: its sort,
+    the downlink's ``block_extract_sparse``, and its other passes."""
+    from repro_torch.comm.downlink import apply_downlink
+    from repro_torch.comm.exchange import init_process_group
+    from repro_torch.configs.base import OptimizerConfig, RunConfig, \
+        ShapeConfig
+    from repro_torch.core.compression import Compressor
+    from repro_torch.data.synthetic import TokenPipeline
+    from repro_torch.launch.train_step import init_train_state, train_step
+    from repro_torch.models import lm
+    from repro_torch.utils import tree_flatten, value_and_grad
+    comp = Compressor(gamma=0.01, method="block_topk")
+    run = RunConfig(model=cfg, shape=ShapeConfig(256, 8),
+                    optimizer=OptimizerConfig(kind="acgd", compressor=comp,
+                                              downlink="compressed"))
+    created = init_process_group(dev)
+    try:
+        params = lm.init_params(cfg, seed=0, device=dev)
+        state = init_train_state(params, run)
+        pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=256,
+                             global_batch=8)
+        for step in range(2):
+            batch = {k: v.to(dev) for k, v in pipe.batch(step).items()}
+            params, state, _ = train_step(params, state, batch, run)
+        batch = {k: v.to(dev) for k, v in pipe.batch(2).items()}
+        prof, wall_ms = profiled(
+            dev, lambda: train_step(params, state, batch, run))
+        spans = report_profile(
+            "acgd downlink", prof, wall_ms,
+            ("ef_stats_telemetry_kernel", "ef_apply_kernel",
+             "pack_words_kernel", "unpack_words_kernel"))
+        if len(spans) != 4 or "train_step.downlink" not in spans \
+                or min(spans.values()) <= 0:
+            fail(f"the profiler saw acgd downlink spans {spans}, want "
+                 "grad, exchange, downlink and metrics, each timed")
+        _, grads = value_and_grad(lambda p: lm.loss_fn(p, batch, cfg),
+                                  params)
+        flat = [g.float() * 1e-2 for g in tree_flatten(grads)[0]]
+        flat_s = tree_flatten(lm.stacked_mask(params))[0]
+        del grads
+        server = state.downlink
+        server_prof, server_ms = profiled(
+            dev, lambda: apply_downlink(flat, flat_s, comp, server))
+    finally:
+        if created:
+            torch.distributed.destroy_process_group()
+    groups = {}
+    for ev in server_prof.key_averages():
+        us = getattr(ev, "self_device_time_total", 0)
+        if us > 0 and ev.device_type != torch.autograd.DeviceType.CPU:
+            g = kernel_group(ev.key)
+            groups[g] = groups.get(g, 0.0) + us / 1e3
+    ported = [g for g in groups if g.endswith("_kernel")]
+    if ported or "sort" not in groups:
+        fail(f"the server round alone ran {sorted(groups)}: want a sort "
+             "and no kernel of the port")
+    busy = sum(groups.values())
+    print(f"profile [server round alone]: {server_ms:.2f} ms wall "
+          f"(profiler on), device busy {busy:.3f} ms: sort (the "
+          f"downlink's block_extract_sparse) {groups['sort']:.3f} ms, "
+          f"other passes {busy - groups['sort']:.3f} ms "
+          + ", ".join(f"{k} {v:.3f}" for k, v in sorted(groups.items())),
+          flush=True)
+
+
+def run_single(dev, cfg, comp, steps, label, make_opt) -> dict:
+    """Phases 4c and 4h: a single-node optimizer (``make_opt(compressor)``
+    -> CSGD-ASSS or ACGD) on the full-width model through the library
+    entry point; returns the launch counts of the run."""
     from repro_torch.core.compression import Compressor, tree_wire_bytes
-    from repro_torch.core.csgd import CSGDConfig, csgd_asss
     from repro_torch.data.synthetic import TokenPipeline
     from repro_torch.kernels import ops
     from repro_torch.models import lm
@@ -1125,8 +1355,7 @@ def run_csgd(dev, cfg, comp, steps) -> dict:
     n_leaves = sum(p.numel() >= comp.min_compress_size
                    for p in tree_leaves(params))
     want_bytes = float(tree_wire_bytes(params, comp))
-    opt = csgd_asss(CSGDConfig(armijo=ArmijoConfig(), compressor=Recording(
-        gamma=comp.gamma, method=comp.method)))
+    opt = make_opt(Recording(gamma=comp.gamma, method=comp.method))
     state = opt.init(params)
     pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=256,
                          global_batch=8)
@@ -1142,11 +1371,12 @@ def run_csgd(dev, cfg, comp, steps) -> dict:
         loss = float(aux.loss)
         torch.cuda.synchronize(dev)
         log.append(dict(step_s=time.perf_counter() - t0, loss=loss,
-                        alpha=float(aux.alpha), n_evals=aux.n_evals,
+                        alpha=float(getattr(aux, "alpha", aux.eta)),
+                        n_evals=getattr(aux, "n_evals", 0),
                         wire_bytes=float(aux.wire_bytes)))
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated(dev)
-    print(f"csgd: launches {counts}; step_s "
+    print(f"{label}: launches {counts}; step_s "
           f"{[round(x['step_s'], 4) for x in log]}; losses "
           f"{[x['loss'] for x in log]}; alpha {[x['alpha'] for x in log]}; "
           f"n_evals {[x['n_evals'] for x in log]}; wire bytes "
@@ -1156,20 +1386,20 @@ def run_csgd(dev, cfg, comp, steps) -> dict:
         want = n_leaves * steps if name in ("block_stats",
                                             "threshold_split") else 0
         if n != want:
-            fail(f"[csgd] {name} launched {n} times in {steps} steps over "
-                 f"{n_leaves} compressed leaves, want {want}")
+            fail(f"[{label}] {name} launched {n} times in {steps} steps "
+                 f"over {n_leaves} compressed leaves, want {want}")
     if not all(np.isfinite(x["loss"]) for x in log):
-        fail(f"[csgd] non-finite loss: {[x['loss'] for x in log]}")
+        fail(f"[{label}] non-finite loss: {[x['loss'] for x in log]}")
     if any(x["wire_bytes"] != want_bytes for x in log):
-        fail(f"[csgd] wire bytes {[x['wire_bytes'] for x in log]} != "
+        fail(f"[{label}] wire bytes {[x['wire_bytes'] for x in log]} != "
              f"accounted {want_bytes}")
     if not torch.equal(seen["sent"] + seen["resid"], seen["x"]):
-        fail("[csgd] sent + residual != acc on the largest leaf")
-    print(f"csgd: EF identity exact on a {seen['n']}-element leaf; "
+        fail(f"[{label}] sent + residual != acc on the largest leaf")
+    print(f"{label}: EF identity exact on a {seen['n']}-element leaf; "
           f"{int((seen['sent'] != 0).sum())} entries sent", flush=True)
     seen.clear()
     batch = {k: v.to(dev) for k, v in pipe.batch(steps).items()}
-    report_profile("csgd", *profiled(dev, lambda: opt.step(
+    report_profile(label, *profiled(dev, lambda: opt.step(
         lambda p: lm.loss_fn(p, batch, cfg), params, state)),
         ("block_stats_kernel", "threshold_split_kernel"))
     return counts
@@ -1524,7 +1754,10 @@ def main() -> None:
     sys.path.insert(0, str(root / "src"))
     from repro_torch.comm.bucket import build_bucket_plan
     from repro_torch.configs import get_config
+    from repro_torch.core.acgd import AcgdConfig, acgd
+    from repro_torch.core.armijo import ArmijoConfig
     from repro_torch.core.compression import Compressor
+    from repro_torch.core.csgd import CSGDConfig, csgd_asss
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import ef_topk, wire_pack
     from repro_torch.launch import train
@@ -1718,7 +1951,9 @@ def main() -> None:
                  "trainer gamma 0.1")
 
     # ---- 4c. single-node CSGD-ASSS at full width through its kernels -----
-    csgd_counts = run_csgd(dev, cfg, comp, CSGD_STEPS)
+    csgd_counts = run_single(dev, cfg, comp, CSGD_STEPS, "csgd",
+                             lambda c: csgd_asss(CSGDConfig(
+                                 armijo=ArmijoConfig(), compressor=c)))
 
     # ---- 4d. serving at full width through its kernels -------------------
     serve_counts = run_serving(dev)
@@ -1740,6 +1975,14 @@ def main() -> None:
     profile_step(dev, cfg, comp, "trainer local steps 2", microbatches=2,
                  local_steps=2)
 
+    # ---- 4h. ACGD and the compressed downlink ---------------------------
+    acgd_downlink_trainer(dev)
+    check_roundtrip(dev, gen, shapes, stacked)
+    profile_downlink(dev, cfg)
+    run_single(dev, cfg, comp, ACGD_SINGLE_STEPS, "acgd single-node",
+               lambda c: acgd(AcgdConfig(compressor=c, eta=0.1,
+                                         momentum=0.9)))
+
     # ---- 5. small input: the card against the CPU's plain path ----------
     small = ["--smoke", "--steps", "2", "--seq-len", "33", "--global-batch",
              "4", "--compress-method", "block_topk", "--log-every", "1"]
@@ -1747,12 +1990,16 @@ def main() -> None:
             ("csgd_asss", []), ("nonadaptive", ["--opt", "nonadaptive"]),
             ("sls", ["--opt", "sls"]),
             ("local steps 2", ["--local-steps", "2", "--microbatches", "2"]),
-            ("ef-dtype bfloat16", ["--ef-dtype", "bfloat16"])):
+            ("ef-dtype bfloat16", ["--ef-dtype", "bfloat16"]),
+            ("acgd", ["--opt", "acgd"]),
+            ("downlink compressed", ["--downlink", "compressed"])):
         on_card = train.main(small + extra)
         on_cpu = train.main(small + extra + ["--device", "cpu"])
         for a, b in zip(on_card, on_cpu):
-            if abs(a["loss"] - b["loss"]) > 1e-4 * abs(b["loss"]) \
-                    or a["wire_bytes"] != b["wire_bytes"]:
+            if abs(a["loss"] - b["loss"]) > 1e-4 * abs(b["loss"]) or any(
+                    a.get(k) != b.get(k) for k in (
+                        "wire_bytes", "downlink_effective_wire_bytes",
+                        "cum_effective_wire_bytes")):
                 fail(f"{label} smoke run on the card {a} disagrees with "
                      f"the CPU {b}")
         print(f"{label} smoke card vs cpu: losses "

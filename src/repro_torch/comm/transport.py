@@ -18,7 +18,9 @@ the compressor is adaptive); ``sums`` is a
 
 The port registers ``bucketed`` and ``perleaf`` (both in
 ``core/dcsgd.py``); the JAX package's stateful transports (gossip,
-overlap, faulty) are not ported.
+overlap, faulty), which carry state of their own across rounds, are not
+ported.  The ``stateful`` flag is kept so that the compressed downlink,
+which needs a single global aggregate, refuses them as JAX's does.
 """
 from __future__ import annotations
 
@@ -30,20 +32,22 @@ from typing import Callable
 class Transport:
     name: str
     exchange: Callable
+    stateful: bool = False
     description: str = ""
 
 
 _REGISTRY: dict[str, Transport] = {}
 
 
-def register_transport(name: str, *, description: str = ""):
+def register_transport(name: str, *, stateful: bool = False,
+                       description: str = ""):
     """Decorator: register an exchange function under ``name``; a second,
     different function under one name is an error."""
     def deco(fn: Callable) -> Callable:
         prev = _REGISTRY.get(name)
         if prev is not None and prev.exchange is not fn:
             raise ValueError(f"transport {name!r} already registered")
-        _REGISTRY[name] = Transport(name, fn, description)
+        _REGISTRY[name] = Transport(name, fn, stateful, description)
         return fn
     return deco
 

@@ -19,6 +19,11 @@ Row layout (uint32 words)::
 
 Fields and words are uint32 bit patterns carried in int32 tensors (see
 ``repro_torch/kernels/ref.py``).  Counts are (R,) int32 tensors.
+
+:func:`roundtrip_rows` is ``decode_rows(encode_rows(...))`` without the
+packed words: the compressed downlink (``comm/downlink.py``) decodes its
+payload rows through it and launches no pack/unpack kernel, as the JAX
+package's launches none.
 """
 from __future__ import annotations
 
@@ -268,4 +273,27 @@ def decode_rows(payload: torch.Tensor, spec: WireSpec):
                                 spec.value_bits, counts=counts,
                                 period=period)
     scale_words = payload[:, off - 1:off] if spec.value_bits <= 8 else None
+    return fields_to_rows(ifields, vfields, scale_words, counts, spec)
+
+
+def roundtrip_rows(vals: torch.Tensor, idx: torch.Tensor, spec: WireSpec, *,
+                   counts: torch.Tensor | None = None):
+    """``decode_rows(encode_rows(vals, idx, ...))`` without packed words:
+    :func:`row_fields` composed with :func:`fields_to_rows`, bit for bit
+    the literal round trip and no kernel launch.  A packed field keeps the
+    low ``value_bits`` / ``index_bits`` of its int32 field, so the
+    quantized fields (two's complement in int32) are cut to their low
+    bits here, as the pack cuts them; ``fields_to_rows`` folds them back
+    to signed values.  On a ragged spec the fields past each row's count
+    are zeroed first, as the ragged pack kernels zero them, so a masked
+    entry decodes to value 0 at its block's base index."""
+    header, ifields, vfields, counts = row_fields(vals, idx, spec,
+                                                  counts=counts)
+    if spec.value_bits <= 8:
+        vfields = vfields & ((1 << spec.value_bits) - 1)
+    if spec.ragged:
+        m = field_mask(spec.k, counts, spec.count_period)
+        ifields = torch.where(m, ifields, 0)
+        vfields = torch.where(m, vfields, 0)
+    scale_words = header[:, -1:] if spec.value_bits <= 8 else None
     return fields_to_rows(ifields, vfields, scale_words, counts, spec)

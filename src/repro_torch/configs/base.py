@@ -66,27 +66,30 @@ class ShapeConfig:
     global_batch: int
 
 
-#: the optimizer kinds of the JAX trainer's plain path; ``acgd`` is not
-#: ported (its Nesterov velocity goes with the compressed downlink)
-KINDS = ("csgd_asss", "nonadaptive", "sgd", "sls", "dense")
+#: the optimizer kinds of the JAX trainer's plain path
+KINDS = ("csgd_asss", "nonadaptive", "acgd", "sgd", "sls", "dense")
 #: kinds that compress with error feedback (EF memory, packed exchange)
-COMPRESSING = ("csgd_asss", "nonadaptive")
+COMPRESSING = ("csgd_asss", "nonadaptive", "acgd")
+#: kinds whose round takes ``local_steps`` > 1 (JAX's worker_fn dispatches
+#: only these to ``_local_steps_worker``; acgd refuses local steps)
+LOCAL_STEP_KINDS = ("csgd_asss", "nonadaptive")
 #: kinds that run the Armijo search
 SEARCHING = ("csgd_asss", "sls")
 #: EF memory dtypes of the trainer
 EF_DTYPES = ("float32", "bfloat16")
 #: fields of JAX paths the port lacks: (the only value taken, the feature)
 NOT_PORTED = {
-    "shard_local_topk": (False, "shard-local top-k under a model mesh"),
-    "downlink": ("dense", "the compressed downlink (comm/downlink.py)")}
+    "shard_local_topk": (False, "shard-local top-k under a model mesh")}
 
 
 @dataclasses.dataclass(frozen=True)
 class OptimizerConfig:
     """The data-parallel trainer's optimizer: ``csgd_asss`` (the paper's
     DCSGD-ASSS), ``nonadaptive`` (the same EF compression at a constant
-    step ``eta``), ``sls`` (the Armijo search with a dense exchange),
-    ``sgd`` and ``dense`` (one path: a dense exchange at ``eta``)."""
+    step ``eta``), ``acgd`` (the same at ``eta`` on the Nesterov
+    direction ``momentum·v' + g``, core/acgd.py), ``sls`` (the Armijo
+    search with a dense exchange), ``sgd`` and ``dense`` (one path: a
+    dense exchange at ``eta``)."""
 
     kind: str = "csgd_asss"
     armijo: ArmijoConfig = ArmijoConfig()
@@ -94,7 +97,10 @@ class OptimizerConfig:
     # per-round compression level (core/gamma.py); the schedule moves
     # gamma_t when compressor.max_gamma > 0 sizes the ragged wire budget
     gamma_controller: GammaControllerConfig = GammaControllerConfig()
-    eta: float = 0.1              # the step of nonadaptive, sgd and dense
+    eta: float = 0.1              # the step of nonadaptive, acgd, sgd, dense
+    # acgd: Nesterov mu (arXiv 2002.11364); like JAX's trainer config,
+    # no band is checked here (core/acgd.AcgdConfig checks [0, 1))
+    momentum: float = 0.9
     # exchange schedule, validated against the comm.transport registry:
     # "bucketed" (one flat all_gather a step) or "perleaf" (the reference,
     # one all_gather a leaf)
@@ -112,22 +118,68 @@ class OptimizerConfig:
     # compressing kinds only; the other kinds ignore it, as JAX's do):
     # each takes one of ``microbatches == local_steps`` row groups
     local_steps: int = 1
-    # the JAX package's, not ported: only the defaults are taken
-    shard_local_topk: bool = False
+    # return direction of the aggregate (comm/downlink.py): "dense" (the
+    # f32 mean) or "compressed" (re-compressed through the same wire
+    # format with the server's EF memory, no extra collective)
     downlink: str = "dense"
+    # the downlink payload's ragged counts: fixed | linear only
+    downlink_gamma: GammaControllerConfig = GammaControllerConfig()
+    # the JAX package's, not ported: only the default is taken
+    shard_local_topk: bool = False
 
     def __post_init__(self):
+        from repro_torch.comm.downlink import MODES as DOWNLINK_MODES
         from repro_torch.comm.transport import validate_transport
         validate_transport(self.transport)
+        # JAX's OptimizerConfig checks, then its build_train_step's for
+        # acgd and the downlink, word for word (before the refusal of
+        # shard_local_topk, so that downlink x shard_local_topk raises
+        # JAX's message)
+        if self.downlink not in DOWNLINK_MODES:
+            raise ValueError(f"unknown downlink mode {self.downlink!r} "
+                             f"(want one of {DOWNLINK_MODES})")
+        if self.downlink == "compressed":
+            if self.downlink_gamma.schedule not in ("fixed", "linear"):
+                raise ValueError(
+                    "downlink_gamma supports only the open-loop fixed | "
+                    "linear schedules — the simulated server has no Armijo "
+                    "search or per-worker EF telemetry to couple to "
+                    f"(got {self.downlink_gamma.schedule!r})")
+            if self.transport in ("gossip", "overlap"):
+                raise ValueError(
+                    "downlink='compressed' re-compresses a replicated "
+                    "global aggregate; transport="
+                    f"{self.transport!r} never materializes one "
+                    "(gossip mixes neighbors, overlap applies stale "
+                    "payloads — DESIGN.md §12/§14/§15)")
+        if self.kind == "acgd" and self.local_steps > 1:
+            raise ValueError(
+                "kind='acgd' does not compose with local_steps > 1 — the "
+                "Nesterov velocity advances once per exchange round, not per "
+                "local Armijo step (use kind='csgd_asss' for local steps)")
+        if self.downlink == "compressed":
+            if self.kind not in COMPRESSING:
+                raise ValueError(
+                    f"downlink='compressed' re-compresses the compressed "
+                    f"exchange's aggregate (DESIGN.md §15); "
+                    f"kind={self.kind!r} ships a dense pmean with no "
+                    f"server to simulate — use csgd_asss | nonadaptive | "
+                    f"acgd")
+            if self.shard_local_topk:
+                raise ValueError(
+                    "downlink='compressed' does not compose with "
+                    "shard_local_topk — the server plan is the whole-gradient "
+                    "bucket geometry, not a model shard's")
+            if self.local_steps > 1:
+                raise ValueError(
+                    "downlink='compressed' does not compose with "
+                    "local_steps > 1 yet — the local-steps exchange applies "
+                    "the dense mean delta directly")
         for name, (default, feature) in NOT_PORTED.items():
             if getattr(self, name) != default:
                 raise ValueError(f"{name}={getattr(self, name)!r}: "
                                  f"{feature} is not ported (the port takes "
                                  f"only {default!r})")
-        if self.kind == "acgd":
-            raise ValueError(
-                "kind='acgd' (the JAX package's Nesterov-accelerated "
-                "compressed GD, core/acgd.py) is not ported")
         if self.kind not in KINDS:
             raise ValueError(f"unknown optimizer kind {self.kind!r} "
                              f"(want one of {KINDS})")
@@ -178,7 +230,7 @@ class RunConfig:
                 f"microbatches must be >= 1, got {self.microbatches}")
         opt, micro = self.optimizer, self.microbatches
         # JAX's build-time contract (build_train_step), word for word
-        if opt.local_steps > 1 and opt.kind in COMPRESSING \
+        if opt.local_steps > 1 and opt.kind in LOCAL_STEP_KINDS \
                 and micro != opt.local_steps:
             raise ValueError(
                 f"local_steps={opt.local_steps} requires microbatches == "

@@ -279,7 +279,7 @@ def leaf_effective_wire_bytes(comp: Compressor, shape, gamma_t,
     :meth:`Compressor.leaf_wire_bytes` for non-adaptive compressors.
     Leaves with ndim >= 2 are read as stacked, as :func:`leaf_geometry`
     reads them; the exchange's own figure uses the model's stacked mask
-    (``core.dcsgd.plan_wire_bytes``)."""
+    (``core.leafmath.plan_wire_bytes``)."""
     L, d = leaf_geometry(shape)
     if comp.sparse_k(d) >= d:
         return np.float32(L * d * itemsize)

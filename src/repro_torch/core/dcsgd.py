@@ -28,8 +28,9 @@ at its ``gamma_t``: selection runs at the budget, entries past the
 round's count are masked behind each row's count header (workers may
 send different counts; each row is decoded at its own), the masked mass
 stays in the EF residual, and the effective byte count prices only the
-valid fields.  The gossip, overlap, downlink and faulty transports of the
-JAX package are not ported.
+valid fields.  With ``downlink_ctx`` the mean update then passes the
+server's EF re-compression (``comm/downlink.py``).  The gossip, overlap
+and faulty transports of the JAX package are not ported.
 
 The EF memory may be f32 or bf16: every path, the dense leaves'
 included, reads it as f32 before the kernels and writes m' back with
@@ -42,10 +43,12 @@ import functools
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.profiler import record_function
 
 from repro_torch.comm import wire as wire_fmt
 from repro_torch.comm.bucket import (build_bucket_plan, decode_buckets,
                                      encode_buckets)
+from repro_torch.comm.downlink import DownlinkResult, apply_downlink
 from repro_torch.comm.exchange import (all_reduce_mean, check_bucket_payload,
                                        check_payload, gather_packed)
 from repro_torch.comm.transport import get_transport, register_transport
@@ -53,8 +56,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ref import ef_acc
 from repro_torch.utils import tree_flatten, tree_map, tree_unflatten
 from .compression import Compressor, block_extract_sparse
-from .leafmath import (leaf_2d, leaf_count, per_layer_topk, scatter_layers,
-                       select_and_encode)
+from .leafmath import (leaf_2d, leaf_count, per_layer_topk,
+                       plan_wire_bytes, scatter_layers, select_and_encode)
 from .telemetry import TelemetrySums, sparse_own_sums
 
 f32 = np.float32
@@ -67,37 +70,30 @@ def _plan(shapes, stacked, comp):
     return build_bucket_plan(shapes, stacked, comp)
 
 
-def plan_wire_bytes(plan, comp: Compressor, gamma_t=None):
-    """(wire bytes, effective wire bytes) of one worker's exchange: the
-    payload rows and the f32 dense leaves, and the same with each ragged
-    row priced at its valid fields only (``WireSpec.effective_row_bytes``
-    at the round's count).  f32 sums in tree order, as the JAX package's
-    exchange accumulates them; the two agree unless the compressor is
-    adaptive.  Host float32 scalars, from shapes alone."""
-    wire = eff = f32(0.0)
-    for ln in plan.leaves:
-        if ln.dense:
-            nbytes = f32(ln.L * ln.d * 4)
-            wire, eff = wire + nbytes, eff + nbytes
-            continue
-        wire = wire + f32(ln.L * ln.spec.row_bytes)
-        count = leaf_count(comp, ln.spec, gamma_t, ln.d)
-        eff = eff + (f32(ln.L * ln.spec.row_bytes) if count is None else
-                     f32(ln.L) * ln.spec.effective_row_bytes(count))
-    return wire, eff
-
-
 def worker_compress_aggregate(grads, memory, eta, comp: Compressor,
                               group=None, stacked_mask=None, gamma_t=None,
-                              transport: str = "bucketed"):
+                              transport: str = "bucketed",
+                              downlink_ctx=None):
     """Steps 3-7 of Algorithm 3 for a whole gradient tree.
 
     ``eta``: the step (host scalar or one-element tensor).  ``gamma_t``:
     this worker's round level (adaptive compressors; default
     ``comp.gamma``).  Returns ``(mean_update, new_memory, wire_bytes,
     effective_wire_bytes, telemetry)``; the byte counts are float32 host
-    scalars, the rest tensors on the gradients' device."""
+    scalars, the rest tensors on the gradients' device.
+
+    ``downlink_ctx`` (a :class:`repro_torch.comm.downlink.DownlinkCtx`):
+    the mean update is re-compressed through the server's EF
+    (``comm/downlink.py``) before it is returned, with no extra
+    collective, and a :class:`~repro_torch.comm.downlink.DownlinkResult`
+    (the new server state, the downlink's static and effective bytes) is
+    appended to the return.  The uplink's outputs do not change."""
     tp = get_transport(transport)
+    if downlink_ctx is not None and tp.stateful:
+        raise ValueError(
+            f"downlink_ctx needs a replicated global aggregate to "
+            f"re-compress; transport {transport!r} is stateful "
+            "(gossip/overlap have no single server-side mean)")
     flat_g, structure = tree_flatten(grads)
     flat_m = tree_flatten(memory)[0]
     flat_s = ([g.dim() >= 2 for g in flat_g] if stacked_mask is None
@@ -108,9 +104,16 @@ def worker_compress_aggregate(grads, memory, eta, comp: Compressor,
         gamma_t = f32(comp.gamma)
     updates, new_mem, wire, eff_wire, sums = tp.exchange(
         flat_g, flat_m, flat_s, eta, comp, group, gamma_t)
-    return (tree_unflatten(structure, updates),
-            tree_unflatten(structure, new_mem), wire, eff_wire,
-            sums.finalize())
+    out = (tree_unflatten(structure, new_mem), wire, eff_wire,
+           sums.finalize())
+    if downlink_ctx is None:
+        return (tree_unflatten(structure, updates),) + out
+    # the server round's span, inside the trainer's exchange span
+    with record_function("train_step.downlink"):
+        updates, dl_state, down_wire, down_eff = apply_downlink(
+            updates, flat_s, comp, downlink_ctx.state)
+    return (tree_unflatten(structure, updates),) + out + (
+        DownlinkResult(dl_state, down_wire, down_eff),)
 
 
 def _consume_decoded_leaf(g, m, g2f, g_vals, g_idx, L, d, W, rank,

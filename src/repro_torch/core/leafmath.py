@@ -7,11 +7,14 @@ compressed leaf and the per-block selection of what it sent; for topk
 the EF accumulation and an exact per-layer top-k; either way the
 ``(vals, idx, counts)`` rows that ``comm.bucket.encode_buckets``
 consumes, with the round's valid counts of an adaptive compressor.
+:func:`compress_leaf` is the selection of one leaf alone, without EF,
+which the compressed downlink runs on the server's accumulator.
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch.comm import wire as wire_fmt
@@ -19,6 +22,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ref import ef_acc
 from .compression import Compressor, block_extract_sparse, \
     stable_topk_indices
+
+f32 = np.float32
 
 
 def per_layer_topk(acc2d: torch.Tensor, k: int):
@@ -48,6 +53,21 @@ def leaf_2d(x: torch.Tensor, stacked: bool) -> torch.Tensor:
     return x.reshape(1, -1)
 
 
+def compress_leaf(acc: torch.Tensor, comp: Compressor, stacked: bool):
+    """Per-leaf sparse selection: ``(vals, idx, (L, d))``, the (L, k)
+    wire pairs of the leaf's per-layer rows.  block_topk rows of at least
+    ``min_compress_size`` take the exact per-block top-k_b, every other
+    row the exact per-layer top-k; ties go to the lower index either
+    way."""
+    flat = leaf_2d(acc, stacked)
+    L, d = flat.shape
+    if comp.method == "block_topk" and d >= comp.min_compress_size:
+        vals, idx = block_extract_sparse(flat, comp)
+    else:
+        vals, idx = per_layer_topk(flat, comp.k_for(d))
+    return vals, idx, (L, d)
+
+
 def leaf_count(comp: Compressor, spec, gamma_t, d: int) -> int | None:
     """The round's valid count of a leaf's rows: the per-block ``k_b_t``
     for block-local rows, the row ``k_t`` for flat rows; None unless the
@@ -56,6 +76,26 @@ def leaf_count(comp: Compressor, spec, gamma_t, d: int) -> int | None:
         return None
     return comp.block_k_t(gamma_t) if spec.local \
         else comp.k_t_for(d, gamma_t)
+
+
+def plan_wire_bytes(plan, comp: Compressor, gamma_t=None):
+    """(wire bytes, effective wire bytes) of one worker's exchange: the
+    payload rows and the f32 dense leaves, and the same with each ragged
+    row priced at its valid fields only (``WireSpec.effective_row_bytes``
+    at the round's count).  f32 sums in tree order, as the JAX package's
+    exchange accumulates them; the two agree unless the compressor is
+    adaptive.  Host float32 scalars, from shapes alone."""
+    wire = eff = f32(0.0)
+    for ln in plan.leaves:
+        if ln.dense:
+            nbytes = f32(ln.L * ln.d * 4)
+            wire, eff = wire + nbytes, eff + nbytes
+            continue
+        wire = wire + f32(ln.L * ln.spec.row_bytes)
+        count = leaf_count(comp, ln.spec, gamma_t, ln.d)
+        eff = eff + (f32(ln.L * ln.spec.row_bytes) if count is None else
+                     f32(ln.L) * ln.spec.effective_row_bytes(count))
+    return wire, eff
 
 
 @dataclasses.dataclass

@@ -14,9 +14,10 @@ Without CUDA and without ``--device cpu`` it raises: it never falls
 back.
 
 ``--opt`` picks the optimizer: ``csgd_asss`` (default), ``nonadaptive``
-(the same EF compression at the constant step ``--eta``), ``sls`` (the
-Armijo search with a dense exchange), ``sgd`` or ``dense`` (a dense
-exchange at ``--eta``).  ``--microbatches M`` sums each worker's
+(the same EF compression at the constant step ``--eta``), ``acgd`` (the
+same on the Nesterov direction, ``--momentum`` mu), ``sls`` (the Armijo
+search with a dense exchange), ``sgd`` or ``dense`` (a dense exchange
+at ``--eta``).  ``--microbatches M`` sums each worker's
 gradient over M row groups of its batch.  ``--max-consecutive-skips N``
 raises ``DivergenceError`` after N consecutive non-finite steps (0
 writes them through).
@@ -30,6 +31,12 @@ pack/unpack kernels.
 ``--local-steps H --microbatches H`` takes H local Armijo-SGD steps a
 round and exchanges the model delta once (the compressing kinds);
 ``--ef-dtype bfloat16`` keeps the EF memory in bf16.
+
+``--downlink compressed`` re-compresses the aggregate through the same
+wire format with the server's EF memory (``comm/downlink.py``) at
+``--downlink-gamma`` (0: the uplink's gamma) under
+``--downlink-gamma-schedule`` ``fixed`` or ``linear``; the log line adds
+``down=``, the downlink's effective bytes.
 
 Checkpoints: ``--ckpt-dir D`` saves ``{"params", "state"}`` after every
 ``--ckpt-every`` completed steps and at the end, under
@@ -99,6 +106,10 @@ def parse_args(argv=None):
                     choices=["topk", "block_topk", "none"],
                     help="block_topk = fused CUDA kernel path")
     ap.add_argument("--eta", type=float, default=0.1)
+    ap.add_argument("--momentum", type=float, default=0.9,
+                    help="acgd: Nesterov mu (arXiv 2002.11364); heavy-ball "
+                         "momentum for single-node CSGD lives in "
+                         "repro_torch.core.csgd")
     # ---- adaptive per-round compression (DESIGN.md §9) ----
     ap.add_argument("--max-gamma", type=float, default=0.0,
                     help="> 0: static ragged-wire budget; gamma becomes "
@@ -145,6 +156,21 @@ def parse_args(argv=None):
     ap.add_argument("--ef-dtype", default="float32",
                     help=f"EF memory dtype, one of {EF_DTYPES} (int8 "
                          "raises: see OptimizerConfig)")
+    # ---- compressed downlink (DESIGN.md §15) ----
+    ap.add_argument("--downlink", default="dense",
+                    choices=["dense", "compressed"],
+                    help="return direction of the aggregate: 'dense' ships "
+                         "the full f32 mean (bit-exact reference); "
+                         "'compressed' re-compresses it through the same "
+                         "wire format with server-side error feedback — "
+                         "no extra collective")
+    ap.add_argument("--downlink-gamma", type=float, default=0.0,
+                    help="downlink compression level (0 = the uplink "
+                         "compressor's gamma)")
+    ap.add_argument("--downlink-gamma-schedule", default="fixed",
+                    choices=["fixed", "linear"],
+                    help="open-loop downlink gamma schedule (the simulated "
+                         "server has no telemetry to couple to)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--resume", action="store_true")
@@ -226,7 +252,7 @@ def run(argv=None):
         model=cfg, shape=ShapeConfig(args.seq_len, args.global_batch),
         microbatches=args.microbatches,
         optimizer=OptimizerConfig(
-            kind=args.opt, eta=args.eta,
+            kind=args.opt, eta=args.eta, momentum=args.momentum,
             max_consecutive_skips=args.max_consecutive_skips,
             armijo=ArmijoConfig(theory_safe=args.theory_safe),
             compressor=Compressor(
@@ -237,7 +263,10 @@ def run(argv=None):
                 ramp_steps=args.gamma_ramp_steps, ef_target=args.ef_target,
                 ef_band=args.ef_band),
             transport=args.transport, ef_dtype=args.ef_dtype,
-            local_steps=args.local_steps))
+            local_steps=args.local_steps, downlink=args.downlink,
+            downlink_gamma=GammaControllerConfig(
+                schedule=args.downlink_gamma_schedule,
+                gamma0=args.downlink_gamma)))
 
     created = init_process_group(device)
     try:
@@ -283,10 +312,13 @@ def run(argv=None):
             if step % args.log_every == 0 or step == args.steps - 1:
                 log.append(m)
                 if rank == 0:
+                    down = (f"down={m['downlink_effective_wire_bytes']:.3e}B "
+                            if "downlink_effective_wire_bytes" in m else "")
                     print(f"step {step:5d} loss={m['loss']:.4f} "
                           f"alpha={m['alpha']:.4g} evals={m['n_evals']:.2f} "
                           f"up={m['wire_bytes']:.3e}B "
                           f"eff={m['effective_wire_bytes']:.3e}B "
+                          f"{down}"
                           f"cum={m['cum_effective_wire_bytes']:.3e}B "
                           f"gamma={m['gamma']:.4g} "
                           f"backlog={m['ef_backlog']:.3g} "

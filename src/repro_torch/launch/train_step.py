@@ -1,7 +1,7 @@
 """The data-parallel train step (twin of the plain body of ``worker_fn``
-in ``src/repro/launch/train_step.py`` and of its local-steps round,
-``_local_steps_worker``: no federated cohort, gossip, overlap, downlink,
-faults, shard-local top-k or acgd).
+in ``src/repro/launch/train_step.py``, its acgd round and compressed
+downlink, and its local-steps round, ``_local_steps_worker``: no
+federated cohort, gossip, overlap, faults or shard-local top-k).
 
 Each worker — one process of the data-parallel group, one device —
 
@@ -10,9 +10,14 @@ Each worker — one process of the data-parallel group, one device —
             (csgd_asss, sls; the other kinds step at a constant eta)
   gamma  <- the gamma controller's round (core/gamma.py)
   eta    <- scale_for(gamma) * alpha, or eta
+  send   <- grads, or for acgd the Nesterov direction mu*v' + g with
+            v' = mu*v + g (this worker's own velocity, f32)
   update <- compress + all-gather the packed payload     (Algorithm 3 l.5-7)
-            (csgd_asss, nonadaptive), or a dense all-reduce (sls, sgd,
-            dense)
+            (csgd_asss, nonadaptive, acgd), or a dense all-reduce (sls,
+            sgd, dense)
+  update <- with ``downlink="compressed"``, the server's EF re-compression
+            of the mean update at the downlink's own gamma_t, the same
+            on every worker (comm/downlink.py), with no extra collective
   params <- params - update, unless the loss or the update is non-finite
 
 The controller reads this round's search and this worker's own
@@ -27,6 +32,12 @@ delta once at eta 1 through the same EF compression and kernels
 
 The EF memory is f32 or bf16 (``OptimizerConfig.ef_dtype``); every
 transport reads it as f32 and writes m' back with one rounding.
+
+Under the downlink the metrics add ``downlink_wire_bytes`` and
+``downlink_effective_wire_bytes``; ``cum_effective_wire_bytes`` then
+prices both directions, ``(previous + uplink) + downlink`` with each sum
+rounded to f32 as JAX's does, and the port's own ``cum_wire_bytes``
+adds the downlink's static bytes in the same order.
 
 The finite check is the JAX package's breaker (core/health.py): with
 ``max_consecutive_skips > 0`` a failed check skips the step — the
@@ -43,8 +54,12 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from repro_torch.comm.downlink import DownlinkCtx, DownlinkState, \
+    init_downlink_state
 from repro_torch.comm.exchange import all_reduce_mean
-from repro_torch.configs.base import COMPRESSING, SEARCHING
+from repro_torch.configs.base import COMPRESSING, LOCAL_STEP_KINDS, \
+    SEARCHING
+from repro_torch.core.acgd import nesterov
 from repro_torch.core.armijo import armijo_search, local_evals_ema, \
     next_alpha_max, next_evals_ema, reciprocal_product, tree_sqnorm
 from repro_torch.core.dcsgd import dense_aggregate, worker_compress_aggregate
@@ -53,13 +68,14 @@ from repro_torch.core.gamma import gamma_init, gamma_update
 from repro_torch.core.health import HealthState, advance_health, all_finite
 from repro_torch.core.telemetry import CompressionTelemetry, SearchTelemetry
 from repro_torch.models import lm
-from repro_torch.utils import tree_map, value_and_grad
+from repro_torch.utils import tree_flatten, tree_map, value_and_grad
 
 f32 = np.float32
 
 METRIC_KEYS = ("loss", "grad_sqnorm", "alpha", "n_evals", "gamma",
                "wire_bytes", "effective_wire_bytes", "ef_backlog",
                "ef_cosine")
+DOWNLINK_KEYS = ("downlink_wire_bytes", "downlink_effective_wire_bytes")
 TELEMETRY_FIELDS = ("ef_backlog", "cosine", "decode_error", "eff_gamma")
 
 
@@ -79,10 +95,22 @@ class TrainState:
     cum_wire_bytes: np.float32
     cum_eff_bytes: np.float32
     health: HealthState
+    velocity: dict | None = None     # acgd: the Nesterov buffer, f32
+                                     # leaves like params
+    downlink: DownlinkState | None = None  # the server's state under
+                                           # downlink="compressed"
 
 
 def init_train_state(params, run_cfg) -> TrainState:
     opt = run_cfg.optimizer
+    downlink = None
+    if opt.kind in COMPRESSING and opt.downlink == "compressed":
+        leaves = tree_flatten(params)[0]
+        downlink = init_downlink_state(
+            [p.shape for p in leaves],
+            tree_flatten(lm.stacked_mask(params))[0], opt.compressor,
+            opt.downlink_gamma.resolve(opt.compressor)[0],
+            device=leaves[0].device)
     return TrainState(
         step=0, alpha_prev=f32(opt.armijo.alpha0),
         memory=init_ef(params, getattr(torch, opt.ef_dtype))
@@ -94,7 +122,11 @@ def init_train_state(params, run_cfg) -> TrainState:
                                        decode_error=f32(0.0),
                                        eff_gamma=f32(1.0)),
         cum_wire_bytes=f32(0.0), cum_eff_bytes=f32(0.0),
-        health=HealthState())
+        health=HealthState(),
+        velocity=tree_map(lambda p: torch.zeros(
+            p.shape, dtype=torch.float32, device=p.device), params)
+        if opt.kind == "acgd" else None,
+        downlink=downlink)
 
 
 def microbatch_mean(total: torch.Tensor, micro: int) -> torch.Tensor:
@@ -139,11 +171,12 @@ def train_step(params, state: TrainState, batch: dict, run_cfg, group=None):
     """One step on this worker's local ``batch``.  Returns
     ``(params, state, metrics)``; metrics are means over the group, as
     host floats, and this worker's health counters.  With
-    ``local_steps > 1`` a compressing kind takes the local-steps round
-    (``_local_steps_step``), exactly where JAX's ``worker_fn`` does; the
-    other kinds ignore ``local_steps``, as JAX's do."""
+    ``local_steps > 1`` ``csgd_asss`` and ``nonadaptive`` take the
+    local-steps round (``_local_steps_step``), exactly where JAX's
+    ``worker_fn`` does; ``sls``, ``sgd`` and ``dense`` ignore
+    ``local_steps``, as JAX's do (acgd and the downlink refuse it)."""
     opt = run_cfg.optimizer
-    if opt.local_steps > 1 and opt.kind in COMPRESSING:
+    if opt.local_steps > 1 and opt.kind in LOCAL_STEP_KINDS:
         return _local_steps_step(params, state, batch, run_cfg, group)
     cfg = run_cfg.model
     # the spans split a step's host time for a profiler (chip_smoke.py)
@@ -173,12 +206,31 @@ def train_step(params, state: TrainState, batch: dict, run_cfg, group=None):
     # trainer's rule, not core/baselines.SLS's a = 1)
     eta = opt.armijo.scale_for(gamma_t) * alpha if search is not None \
         else alpha
+    dl_res, new_vel = None, state.velocity
     with record_function("train_step.exchange"):
         if opt.kind in COMPRESSING:
-            updates, new_mem, wire, eff, tel = worker_compress_aggregate(
-                grads, state.memory, eta, opt.compressor, group,
+            send = grads
+            if opt.kind == "acgd":
+                # the Nesterov round: the exchange ships mu*v' + g, and
+                # the gradients are not needed past it
+                new_vel, send = nesterov(state.velocity, grads,
+                                         opt.momentum)
+                del grads
+            ctx = None
+            if state.downlink is not None:
+                # the server round's gamma_t, advanced before the exchange
+                ctx = DownlinkCtx(DownlinkState(
+                    state.downlink.memory, gamma_update(
+                        opt.downlink_gamma, opt.compressor,
+                        state.downlink.gamma, state.step)))
+            out = worker_compress_aggregate(
+                send, state.memory, eta, opt.compressor, group,
                 stacked_mask=lm.stacked_mask(params), gamma_t=gamma_t,
-                transport=opt.transport)
+                transport=opt.transport, downlink_ctx=ctx)
+            del send
+            updates, new_mem, wire, eff, tel = out[:5]
+            if ctx is not None:
+                dl_res = out[5]
         else:
             updates, wire = dense_aggregate(grads, eta, group)
             eff, new_mem = wire, state.memory
@@ -189,7 +241,8 @@ def train_step(params, state: TrainState, batch: dict, run_cfg, group=None):
     return _finish_round(
         params, state, run_cfg, group, loss=loss, gsq=gsq, alpha=alpha,
         n_evals=n_evals, gamma_t=gamma_t, updates=updates, new_mem=new_mem,
-        wire=wire, eff=eff, tel=tel, new_alpha=new_alpha, new_ema=new_ema)
+        wire=wire, eff=eff, tel=tel, new_alpha=new_alpha, new_ema=new_ema,
+        new_vel=new_vel, dl_res=dl_res)
 
 
 def _local_steps_step(params, state: TrainState, batch: dict, run_cfg,
@@ -261,24 +314,34 @@ def _local_steps_step(params, state: TrainState, batch: dict, run_cfg,
 
 def _finish_round(params, state: TrainState, run_cfg, group, *, loss, gsq,
                   alpha, n_evals, gamma_t, updates, new_mem, wire, eff, tel,
-                  new_alpha, new_ema):
+                  new_alpha, new_ema, new_vel=None, dl_res=None):
     """The round's metrics (one host transfer), the breaker and the new
-    state, shared by the plain and the local-steps round."""
+    state, shared by the plain and the local-steps round.  ``dl_res``:
+    the downlink's ``DownlinkResult``, or None."""
     opt = run_cfg.optimizer
+    keys = METRIC_KEYS + (DOWNLINK_KEYS if dl_res is not None else ())
     with record_function("train_step.metrics"):
         local = torch.stack(
             [loss.float(), gsq.float()]
             + [torch.tensor(float(x), device=loss.device)
                for x in (alpha, n_evals, gamma_t, wire, eff)]
-            + [tel.ef_backlog, tel.cosine])
+            + [tel.ef_backlog, tel.cosine]
+            + ([torch.tensor(float(x), device=loss.device)
+                for x in dl_res[1:]] if dl_res is not None else []))
         # one host transfer: the group means and this worker's own
         # telemetry, which the next round's controller reads
         own = torch.stack([getattr(tel, f) for f in TELEMETRY_FIELDS])
         values = torch.cat([all_reduce_mean(local, group), own]).tolist()
-        metrics = dict(zip(METRIC_KEYS, values))
-        tel = CompressionTelemetry(*map(f32, values[len(METRIC_KEYS):]))
+        metrics = dict(zip(keys, values))
+        tel = CompressionTelemetry(*map(f32, values[len(keys):]))
     cum_wire = state.cum_wire_bytes + f32(metrics["wire_bytes"])
     cum_eff = state.cum_eff_bytes + f32(metrics["effective_wire_bytes"])
+    new_downlink = state.downlink
+    if dl_res is not None:
+        # both directions: (previous + uplink) + downlink, each in f32
+        cum_wire = cum_wire + f32(metrics["downlink_wire_bytes"])
+        cum_eff = cum_eff + f32(metrics["downlink_effective_wire_bytes"])
+        new_downlink = dl_res.state
     metrics["cum_wire_bytes"] = float(cum_wire)
     metrics["cum_effective_wire_bytes"] = float(cum_eff)
 
@@ -303,4 +366,6 @@ def _finish_round(params, state: TrainState, run_cfg, group, *, loss, gsq,
         step=state.step + 1, alpha_prev=new_alpha, memory=new_mem,
         n_evals_ema=new_ema, gamma=gamma_t, telemetry=tel,
         cum_wire_bytes=cum_wire, cum_eff_bytes=cum_eff,
-        health=health), metrics
+        health=health,
+        velocity=state.velocity if new_vel is None else new_vel,
+        downlink=new_downlink), metrics

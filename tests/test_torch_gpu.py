@@ -792,3 +792,195 @@ def test_trainer_rounds_on_card(cuda, opt_kw, micro, tmp_path):
         assert torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16
                            else a, b.view(torch.int16)
                            if b.dtype == torch.bfloat16 else b)
+
+
+# --------------------------------------------------------------------------
+# ACGD and the compressed downlink
+# --------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("transport,value_bits", [("bucketed", 32),
+                                                  ("perleaf", 8)])
+def test_downlink_exchange_on_card(cuda, transport, value_bits):
+    """One exchange with the server round at a 10% budget (uplink gamma_t
+    0.04, downlink 0.02) on the card against the plain versions on the
+    CPU: updates, EF memory, server memory and both directions' bytes bit
+    for bit; the server round launches no kernel (the counts equal the
+    exchange's without it)."""
+    import socket
+
+    import torch.distributed as dist
+    from repro_torch.comm import downlink as dl
+    from repro_torch.core.compression import Compressor
+    from repro_torch.core.dcsgd import worker_compress_aggregate
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(5)
+    tree = {"a": rng.standard_normal((3, 4096)), "b": rng.standard_normal(
+        (5000,)), "tiny": rng.standard_normal((50,)),
+        "c": rng.standard_normal((2, 4, 900))}
+    tree = {k: torch.from_numpy(v.astype(np.float32))
+            for k, v in tree.items()}
+    mem = {k: 0.05 * torch.flip(v, [-1]) for k, v in tree.items()}
+    comp = Compressor(gamma=0.01, max_gamma=0.1, method="block_topk",
+                      value_bits=value_bits, min_compress_size=64)
+    shapes = [tree[k].shape for k in sorted(tree)]
+    stacked = [tree[k].dim() >= 2 for k in sorted(tree)]
+    server = dl.init_downlink_state(shapes, stacked, comp, 0.02)
+    server = dl.DownlinkState(
+        0.01 * torch.randn(server.memory.shape,
+                           generator=torch.Generator().manual_seed(2)),
+        server.gamma)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("cpu:gloo,cuda:nccl",
+                            init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        def run(device, with_server=True):
+            ctx = dl.DownlinkCtx(dl.DownlinkState(
+                server.memory.to(device), server.gamma)) \
+                if with_server else None
+            return worker_compress_aggregate(
+                {k: v.to(device) for k, v in tree.items()},
+                {k: v.to(device) for k, v in mem.items()}, np.float32(0.7),
+                comp, gamma_t=np.float32(0.04), transport=transport,
+                downlink_ctx=ctx)
+        want = run("cpu")
+        ops.reset_launch_counts()
+        got = run(cuda)
+        counts = ops.launch_counts()
+        ops.reset_launch_counts()
+        run(cuda, with_server=False)
+        plain = ops.launch_counts()
+    finally:
+        dist.destroy_process_group()
+    assert counts == plain and sum(counts.values()) > 0
+    for i in (0, 1):
+        for k in tree:
+            torch.testing.assert_close(got[i][k].cpu(), want[i][k],
+                                       rtol=0, atol=0)
+    assert got[2:4] == want[2:4]
+    torch.testing.assert_close(got[5].state.memory.cpu(),
+                               want[5].state.memory, rtol=0, atol=0)
+    assert got[5][1:] == want[5][1:] and got[5].state.memory.is_cuda
+    assert got[5].eff_wire_bytes < got[5].wire_bytes
+
+
+@pytest.mark.gpu
+def test_roundtrip_rows_matches_the_codec_on_card(cuda):
+    """``roundtrip_rows`` on the card equals ``decode_rows(encode_rows)``
+    through the CUDA codec and the CPU's plain round trip, bit for bit:
+    32- and 8-bit block-local rows, ragged rows at per-row counts."""
+    from repro_torch.comm import wire
+    from repro_torch.core.compression import Compressor
+    from repro_torch.core.leafmath import compress_leaf
+    x = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (4, 5000)).astype(np.float32))
+    for kw, counts in ((dict(gamma=0.01), None),
+                       (dict(gamma=0.01, value_bits=8), None),
+                       (dict(gamma=0.04, max_gamma=0.1, value_bits=8),
+                        [41, 1, 102, 57])):
+        comp = Compressor(method="block_topk", **kw)
+        spec = wire.WireSpec.for_row(comp, 5000)
+        c = None if counts is None else torch.tensor(counts,
+                                                     dtype=torch.int32)
+        vals, idx, _ = compress_leaf(x, comp, True)
+        want = wire.roundtrip_rows(vals, idx, spec, counts=c)
+        gv, gi, cc = vals.to(cuda), idx.to(cuda), \
+            None if c is None else c.to(cuda)
+        got = wire.roundtrip_rows(gv, gi, spec, counts=cc)
+        lit = wire.decode_rows(wire.encode_rows(gv, gi, spec, counts=cc),
+                               spec)
+        for a, b in ((got, want), (got, lit)):
+            torch.testing.assert_close(a[0].cpu(), b[0].cpu(), rtol=0,
+                                       atol=0)
+            torch.testing.assert_close(a[1].cpu(), b[1].cpu(), rtol=0,
+                                       atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("opt_kw", [
+    dict(kind="acgd"), dict(downlink="compressed"),
+    dict(kind="acgd", downlink="compressed", transport="perleaf")],
+    ids=["acgd", "downlink", "acgd-downlink-perleaf"])
+def test_acgd_and_downlink_rounds_on_card(cuda, opt_kw, tmp_path):
+    """Two rounds of the smoke trainer on the card: one launch of each
+    training kernel a round (perleaf: one pair and one codec pair a
+    compressed leaf), none more for the downlink; bytes both ways equal
+    the CPU's and losses within rel 1e-4; the velocity and the server
+    memory f32 on the card, saved and restored onto it bit for bit."""
+    import socket
+
+    import torch.distributed as dist
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import OptimizerConfig, RunConfig, \
+        ShapeConfig
+    from repro_torch.core.compression import Compressor
+    from repro_torch.data.synthetic import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train_step import init_train_state, train_step
+    from repro_torch.models import lm
+    from repro_torch.utils import tree_leaves
+    run = RunConfig(model=get_smoke_config("paper-lm-100m"),
+                    shape=ShapeConfig(33, 4),
+                    optimizer=OptimizerConfig(
+                        compressor=Compressor(gamma=0.01,
+                                              method="block_topk"),
+                        **opt_kw))
+    pipe = TokenPipeline(vocab_size=run.model.vocab_size, seq_len=33,
+                         global_batch=4)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("cpu:gloo,cuda:nccl",
+                            init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        logs = {}
+        for dev in ("cpu", cuda):
+            params = lm.init_params(run.model, seed=0, device=dev)
+            state = init_train_state(params, run)
+            ops.reset_launch_counts()
+            logs[str(dev)] = []
+            for t in range(2):
+                batch = {k: v.to(dev) for k, v in pipe.batch(t).items()}
+                params, state, m = train_step(params, state, batch, run)
+                logs[str(dev)].append(m)
+            counts = ops.launch_counts()
+    finally:
+        dist.destroy_process_group()
+    n = 1
+    if opt_kw.get("transport") == "perleaf":
+        from repro_torch.comm.downlink import downlink_plan
+        from repro_torch.utils import tree_flatten
+        n = len(downlink_plan(
+            [p.shape for p in tree_leaves(params)],
+            tree_flatten(lm.stacked_mask(params))[0],
+            run.optimizer.compressor).compressed_ids)
+    assert counts == dict(dict.fromkeys(counts, 0), ef_stats_telemetry=2 * n,
+                          ef_apply=2 * n, pack_words=2 * n,
+                          unpack_words=2 * n)
+    keys = ("wire_bytes", "effective_wire_bytes", "cum_effective_wire_bytes",
+            "downlink_wire_bytes", "downlink_effective_wire_bytes")
+    for a, b in zip(logs[str(cuda)], logs["cpu"]):
+        assert [a.get(k) for k in keys] == [b.get(k) for k in keys]
+        assert abs(a["loss"] - b["loss"]) <= 1e-4 * abs(b["loss"])
+    def carried_of(st):
+        return (tree_leaves(st.velocity) if st.velocity is not None
+                else []) + ([st.downlink.memory] if st.downlink is not None
+                            else [])
+    carried = carried_of(state)
+    assert carried and all(x.dtype == torch.float32 and x.is_cuda
+                           for x in carried)
+    ckpt.save(str(tmp_path), state.step, {"params": params, "state": state})
+    skel = lm.init_params(run.model, seed=1, device=cuda)
+    out, _ = ckpt.restore(str(tmp_path), {
+        "params": skel, "state": init_train_state(skel, run)})
+    back = carried_of(out["state"])
+    assert len(back) == len(carried)
+    for a, b in zip(carried, back):
+        assert b.is_cuda and torch.equal(a, b)
+    if state.downlink is not None:
+        assert out["state"].downlink.gamma == state.downlink.gamma

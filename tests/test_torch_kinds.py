@@ -429,16 +429,22 @@ def test_schedule_kind_errors_match_jax(kind, schedule):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(kind="acgd"), "acgd"), (dict(kind="adam"), "unknown optimizer"),
+    (dict(kind="acgd", local_steps=2, microbatches=2), "acgd"),
+    (dict(kind="adam"), "unknown optimizer"),
     (dict(ef_dtype="int8"), "int8"),
     (dict(shard_local_topk=True), "shard-local top-k"),
-    (dict(downlink="compressed"), "downlink"),
+    (dict(downlink="compressed", kind="sls"), "downlink"),
     (dict(max_consecutive_skips=-1), "max_consecutive_skips must be >= 0")])
 def test_config_refuses_what_is_not_ported(kw, match):
-    """acgd and the fields of the JAX paths not ported raise, never run
-    silently as something else."""
+    """The fields of the JAX paths not ported and the combinations JAX's
+    trainer refuses (acgd with local steps, the compressed downlink of a
+    kind that does not compress) raise, never run silently as something
+    else."""
+    kw = dict(kw)
+    micro = kw.pop("microbatches", 1)
     with pytest.raises(ValueError, match=match):
-        OptimizerConfig(**kw)
+        RunConfig(model=get_smoke_config(ARCH), shape=ShapeConfig(SEQ, BATCH),
+                  microbatches=micro, optimizer=OptimizerConfig(**kw))
 
 
 @pytest.mark.parametrize("micro", [2, 3, 7])

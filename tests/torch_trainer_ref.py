@@ -1,0 +1,346 @@
+"""A JAX reference round of the trainer for ``kind="acgd"`` and the
+compressed downlink, shared by tests/test_torch_acgd.py and
+tests/test_torch_downlink.py.
+
+The reference composes ``worker_fn``'s lines
+(src/repro/launch/train_step.py:685-941) from the JAX package's own
+functions — ``armijo_search``, ``gamma_update``, the acgd round's two
+momentum lines as the worker writes them, the downlink's gamma round and
+``worker_compress_aggregate(downlink_ctx=...)``, ``all_finite`` and
+``advance_health`` — jitted, with the model OUTSIDE any mesh (the LM
+step under a mesh fails on this tree, ROADMAP queue 3); only the
+exchange runs in a 1-device ``shard_map``, for its collectives.
+
+:func:`run_both` drives the port's ``train_step`` beside it, each round
+from the reference's parameters, EF memory, velocity and server memory
+(free running, an ulp of one round can split a near-tie at a block's
+threshold in the next and move a whole entry — ROADMAP queue 3), with
+the port's own carried host scalars.  Tolerances as in
+tests/test_torch_kinds.py: loss and alpha rel 1e-5; parameters, EF
+memory, velocity and each leaf's rows of the server memory within 1e-5
+of the parameter leaf's max |p|; gamma_t of both controllers bit for
+bit; n_evals, the byte counts, ``cum_effective_wire_bytes`` and the
+health counters exact.
+"""
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+from jax.sharding import PartitionSpec as P
+
+from repro.comm.downlink import DownlinkCtx as JDownlinkCtx
+from repro.comm.downlink import DownlinkState as JDownlinkState
+from repro.comm.downlink import init_downlink_state as jinit_downlink
+from repro.compat import shard_map
+from repro.configs import get_smoke_config as jax_smoke_config
+from repro.core import ArmijoConfig as JArmijo
+from repro.core import Compressor as JCompressor
+from repro.core.armijo import armijo_search as jarmijo
+from repro.core.armijo import next_alpha_max as jnext_alpha_max
+from repro.core.armijo import tree_sqnorm as jsqnorm
+from repro.core.dcsgd import worker_compress_aggregate as jwca
+from repro.core.gamma import GammaControllerConfig as JGammaCfg
+from repro.core.gamma import gamma_init as jgamma_init
+from repro.core.gamma import gamma_update as jgamma_update
+from repro.core.health import HealthState as JHealth
+from repro.core.health import advance_health as jadvance_health
+from repro.core.health import all_finite as jall_finite
+from repro.core.telemetry import CompressionTelemetry as JTel
+from repro.core.telemetry import SearchTelemetry as JSearch
+from repro.models import build_model
+from repro_torch.comm.downlink import DownlinkState, downlink_plan
+from repro_torch.configs import get_smoke_config
+from repro_torch.configs.base import OptimizerConfig, RunConfig, ShapeConfig
+from repro_torch.convert import to_torch
+from repro_torch.core.compression import Compressor
+from repro_torch.core.gamma import GammaControllerConfig
+from repro_torch.data.synthetic import TokenPipeline
+from repro_torch.launch.train_step import init_train_state, train_step
+from repro_torch.models import lm
+from repro_torch.utils import tree_flatten
+
+ARCH = "paper-lm-100m"
+SEQ, BATCH, GAMMA, STEPS = 33, 6, 0.01, 3
+f32 = np.float32
+
+
+@dataclasses.dataclass(frozen=True)
+class Case:
+    """One trainer configuration, in the terms both packages share."""
+
+    kind: str
+    transport: str = "bucketed"
+    schedule: str = "fixed"
+    max_gamma: float = 0.0
+    value_bits: int = 32
+    gamma: float = GAMMA
+    downlink: str = "dense"
+    downlink_gamma: float = 0.0
+    downlink_schedule: str = "fixed"
+    eta: float = 0.1
+    momentum: float = 0.9
+    max_skips: int = 25
+
+    def comp_kw(self):
+        return dict(gamma=self.gamma, method="block_topk",
+                    value_bits=self.value_bits, max_gamma=self.max_gamma)
+
+    def ctrl_kw(self):
+        return dict(schedule=self.schedule, ramp_steps=2)
+
+    def dl_ctrl_kw(self):
+        return dict(schedule=self.downlink_schedule,
+                    gamma0=self.downlink_gamma, ramp_steps=2)
+
+    def run(self) -> RunConfig:
+        return RunConfig(
+            model=get_smoke_config(ARCH), shape=ShapeConfig(SEQ, BATCH),
+            optimizer=OptimizerConfig(
+                kind=self.kind, eta=self.eta, momentum=self.momentum,
+                max_consecutive_skips=self.max_skips,
+                compressor=Compressor(**self.comp_kw()),
+                gamma_controller=GammaControllerConfig(**self.ctrl_kw()),
+                transport=self.transport, downlink=self.downlink,
+                downlink_gamma=GammaControllerConfig(**self.dl_ctrl_kw())))
+
+
+def case_id(case: Case) -> str:
+    return "-".join(f"{v}" for k, v in dataclasses.asdict(case).items()
+                    if v != getattr(Case, k, None) or k == "kind")
+
+
+@functools.lru_cache(maxsize=None)
+def jax_model():
+    model = build_model(jax_smoke_config(ARCH))
+    return model, model.init(jax.random.PRNGKey(0))
+
+
+@functools.lru_cache(maxsize=None)
+def jax_step(case: Case):
+    """One worker's round of ``worker_fn`` for ``case``, jitted.
+    ``ctx``: (alpha_prev, n_evals_ema, gamma_prev, step, telemetry,
+    health, downlink gamma, cum_eff); ``dl_mem`` the server memory (a
+    0-word placeholder without the downlink)."""
+    model, _ = jax_model()
+    comp = JCompressor(**case.comp_kw())
+    arm = JArmijo()
+    ctrl = JGammaCfg(**case.ctrl_kw())
+    dl_ctrl = JGammaCfg(**case.dl_ctrl_kw())
+    mesh = jax.make_mesh((1,), ("data",))
+    mu = case.momentum
+    acgd_mode = case.kind == "acgd"
+    downlink_mode = case.downlink == "compressed"
+
+    def local_loss(params, batch):
+        return model.loss(params, batch)[0]
+
+    @jax.jit
+    def step(params, mem, vel, dl_mem, ctx, batch):
+        (alpha_prev, ema, gamma_prev, t, tel_prev, health, dl_gamma_prev,
+         cum_eff) = ctx
+        loss, grads = jax.value_and_grad(local_loss)(params, batch)
+        gsq = jsqnorm(grads)
+        # worker_fn:685-719
+        if case.kind == "csgd_asss":
+            res = jarmijo(lambda p: local_loss(p, batch), params, grads,
+                          jnext_alpha_max(alpha_prev, arm), arm,
+                          grad_sqnorm=gsq)
+            new_alpha = res.alpha
+            new_ema = 0.9 * ema + 0.1 * res.n_evals.astype(jnp.float32)
+            alpha_m, evals_m = res.alpha, res.n_evals.astype(jnp.float32)
+            search = JSearch(alpha=res.alpha, alpha_prev=alpha_prev,
+                             n_evals=res.n_evals, n_evals_ema=ema)
+        else:
+            res, search = None, None
+            new_alpha, new_ema = alpha_prev, ema
+            alpha_m, evals_m = jnp.float32(case.eta), jnp.float32(0.0)
+        gamma_t = jgamma_update(ctrl, comp, gamma_prev, t, search=search,
+                                compression=tel_prev)
+        eta = arm.scale_for(gamma_t) * res.alpha if res is not None \
+            else jnp.float32(case.eta)
+        # worker_fn:725-741
+        if acgd_mode:
+            new_vel = jax.tree.map(
+                lambda v, g: mu * v + g.astype(jnp.float32), vel, grads)
+            send = jax.tree.map(
+                lambda v, g: mu * v + g.astype(jnp.float32), new_vel, grads)
+        else:
+            new_vel, send = vel, grads
+        spec = jax.tree.map(lambda _: P(), params)
+        smask = model.stacked_mask(params)
+        # worker_fn:786-800
+        dl_gamma = dl_gamma_prev
+        if downlink_mode:
+            dl_gamma = jgamma_update(dl_ctrl, comp, dl_gamma_prev, t)
+            upd, new_mem, wire, eff, tel, dl_res = shard_map(
+                lambda g, m, e, gt, dm, dg: jwca(
+                    g, m, e, comp, ("data",), stacked_mask=smask,
+                    gamma_t=gt, transport=case.transport,
+                    downlink_ctx=JDownlinkCtx(JDownlinkState(dm, dg))),
+                mesh=mesh, in_specs=(spec, spec, P(), P(), P(), P()),
+                out_specs=(spec, spec, P(), P(), P(), P()),
+                axis_names={"data"})(send, mem, eta, gamma_t, dl_mem,
+                                     dl_gamma)
+            new_dl_mem = dl_res.state.memory
+            dl_wire, dl_eff = dl_res.wire_bytes, dl_res.eff_wire_bytes
+        else:
+            upd, new_mem, wire, eff, tel = shard_map(
+                lambda g, m, e, gt: jwca(
+                    g, m, e, comp, ("data",), stacked_mask=smask,
+                    gamma_t=gt, transport=case.transport),
+                mesh=mesh, in_specs=(spec, spec, P(), P()),
+                out_specs=(spec, spec, P(), P(), P()),
+                axis_names={"data"})(send, mem, eta, gamma_t)
+            new_dl_mem, dl_wire, dl_eff = dl_mem, None, None
+        # worker_fn:836-846
+        new_cum = cum_eff + eff
+        if downlink_mode:
+            new_cum = new_cum + dl_eff
+        new_params = jax.tree.map(
+            lambda p, u: (p.astype(jnp.float32) - u).astype(p.dtype),
+            params, upd)
+        # worker_fn:856-941
+        step_ok = jnp.isfinite(loss) & jall_finite(upd)
+        new_params = jax.tree.map(
+            lambda a, b: jnp.where(step_ok, a, b), new_params, params)
+        new_health = jadvance_health(health, step_ok, t, jnp.float32(0.0))
+        new_ctx = (new_alpha, new_ema, gamma_t, t + 1, tel, new_health,
+                   dl_gamma, new_cum)
+        frozen = (alpha_prev, ema, gamma_prev, t + 1, tel_prev, new_health,
+                  dl_gamma_prev, new_cum)
+        new_ctx, new_mem, new_vel, new_dl_mem = jax.tree.map(
+            lambda a, b: jnp.where(step_ok, a, b),
+            (new_ctx, new_mem, new_vel, new_dl_mem),
+            (frozen, mem, vel, dl_mem))
+        return (new_params, new_mem, new_vel, new_dl_mem, new_ctx,
+                dict(loss=loss, alpha=alpha_m, n_evals=evals_m, wire=wire,
+                     eff=eff, dl_wire=dl_wire, dl_eff=dl_eff),
+                step_ok)
+
+    return step
+
+
+def assert_tree_close(jtree, ttree, ptree, what):
+    """|jax - torch| <= 1e-5 * max|p| per leaf, p the parameter leaf."""
+    for k, v in jtree.items():
+        if isinstance(v, dict):
+            assert_tree_close(v, ttree[k], ptree[k], f"{what}/{k}")
+            continue
+        a, b = np.asarray(v), ttree[k].detach().numpy()
+        scale = float(np.abs(np.asarray(ptree[k])).max())
+        assert np.abs(a - b).max() <= 1e-5 * scale, \
+            f"{what}/{k}: {np.abs(a - b).max()} vs max|p| {scale}"
+
+
+def assert_server_close(jmem, tmem, params, comp):
+    """Each compressed leaf's rows of the flat server memory within 1e-5
+    of that parameter leaf's max |p|."""
+    leaves = tree_flatten(params)[0]
+    plan = downlink_plan([p.shape for p in leaves],
+                         tree_flatten(lm.stacked_mask(params))[0], comp)
+    a, b = np.asarray(jmem), tmem.numpy()
+    assert a.shape == b.shape
+    off = 0
+    for ln in plan.leaves:
+        if ln.dense:
+            continue
+        n = ln.L * ln.d
+        scale = float(np.abs(leaves[ln.index].numpy()).max())
+        err = np.abs(a[off:off + n] - b[off:off + n]).max()
+        assert err <= 1e-5 * scale, f"server memory of leaf {ln.index}: " \
+            f"{err} vs max|p| {scale}"
+        off += n
+    assert off == a.size
+
+
+def _copy(tree):
+    """Fresh device arrays: a jitted round fed its own outputs would
+    compile again (their shardings differ)."""
+    return jax.tree.map(lambda x: jnp.asarray(np.asarray(x)), tree)
+
+
+def run_both(case: Case, steps: int = STEPS):
+    """``steps`` rounds of ``case`` through both packages from JAX's
+    initial weights, checked round by round.  Returns the port's last
+    parameters, its state and its metrics."""
+    model, params = jax_model()
+    comp = JCompressor(**case.comp_kw())
+    jstep = jax_step(case)
+    mem = jax.tree.map(jnp.zeros_like, params)
+    vel = jax.tree.map(jnp.zeros_like, params)
+    if case.downlink == "compressed":
+        flat, _ = jax.tree.flatten(params)
+        dl0 = jinit_downlink(
+            [x.shape for x in flat],
+            jax.tree.flatten(model.stacked_mask(params))[0], comp,
+            JGammaCfg(**case.dl_ctrl_kw()).resolve(comp)[0])
+        dl_mem, dl_gamma = dl0.memory, dl0.gamma
+    else:
+        dl_mem, dl_gamma = jnp.zeros((0,), jnp.float32), jnp.float32(0.0)
+    ctx = (jnp.float32(JArmijo().alpha0), jnp.float32(0.0),
+           jgamma_init(JGammaCfg(**case.ctrl_kw()), comp), jnp.int32(0),
+           JTel.init(), JHealth.init(), dl_gamma, jnp.float32(0.0))
+    run = case.run()
+    tcomp = run.optimizer.compressor
+    state = init_train_state(to_torch(jax.tree.map(np.asarray, params)),
+                             run)
+    assert (state.velocity is None) == (case.kind != "acgd")
+    assert (state.downlink is None) == (case.downlink == "dense")
+    if state.downlink is not None:
+        assert state.downlink.gamma == f32(np.asarray(dl_gamma))
+        assert tuple(state.downlink.memory.shape) == tuple(dl_mem.shape)
+    pipe = TokenPipeline(vocab_size=run.model.vocab_size, seq_len=SEQ,
+                         global_batch=BATCH)
+    log = []
+    for t in range(steps):
+        batch = pipe.batch(t)
+        tparams = to_torch(jax.tree.map(np.asarray, params))
+        state = dataclasses.replace(
+            state, memory=to_torch(jax.tree.map(np.asarray, mem)))
+        if state.velocity is not None:
+            state = dataclasses.replace(
+                state, velocity=to_torch(jax.tree.map(np.asarray, vel)))
+        if state.downlink is not None:
+            state = dataclasses.replace(state, downlink=DownlinkState(
+                torch.from_numpy(np.array(dl_mem)), state.downlink.gamma))
+        (params, mem, vel, dl_mem, ctx, jm, _) = jstep(
+            params, mem, vel, dl_mem, ctx,
+            {"tokens": jnp.asarray(batch["tokens"])})
+        params, mem, vel, dl_mem, ctx = _copy((params, mem, vel, dl_mem,
+                                               ctx))
+        tparams, state, m = train_step(tparams, state, batch, run)
+        log.append(m)
+        np.testing.assert_allclose(m["loss"], float(jm["loss"]), rtol=1e-5)
+        np.testing.assert_allclose(m["alpha"], float(jm["alpha"]),
+                                   rtol=1e-5)
+        assert m["n_evals"] == float(jm["n_evals"]), t
+        if case.kind == "acgd":
+            assert m["alpha"] == float(f32(case.eta)) and m["n_evals"] == 0
+        assert f32(state.gamma).view(np.int32) == \
+            np.asarray(ctx[2], np.float32).view(np.int32), t
+        assert (m["wire_bytes"], m["effective_wire_bytes"]) == \
+            (float(jm["wire"]), float(jm["eff"])), t
+        assert m["cum_effective_wire_bytes"] == float(ctx[7]), t
+        if case.downlink == "compressed":
+            assert (m["downlink_wire_bytes"],
+                    m["downlink_effective_wire_bytes"]) == \
+                (float(jm["dl_wire"]), float(jm["dl_eff"])), t
+            assert f32(state.downlink.gamma).view(np.int32) == \
+                np.asarray(ctx[6], np.float32).view(np.int32), t
+            assert_server_close(dl_mem, state.downlink.memory, tparams,
+                                tcomp)
+        else:
+            assert "downlink_wire_bytes" not in m
+        h = state.health
+        assert (h.steps_skipped, h.consecutive_skips, h.last_good_step) \
+            == (int(ctx[5].steps_skipped), int(ctx[5].consecutive_skips),
+                int(ctx[5].last_good_step)), t
+        assert_tree_close(params, tparams, params, f"step {t} params")
+        assert_tree_close(mem, state.memory, params, f"step {t} memory")
+        if case.kind == "acgd":
+            assert_tree_close(vel, state.velocity, params,
+                              f"step {t} velocity")
+    return tparams, state, log
