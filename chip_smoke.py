@@ -133,11 +133,31 @@ Phases, each fatal on failure (no phase catches and continues):
    (``repro_torch.core.acgd.acgd``, ``block_topk``, eta 0.1, mu 0.9) on
    the model and batches of 4c for 3 steps, checked as 4c checks
    CSGD-ASSS, and one profiled step;
+4i. the overlap transport at full width, gamma 0.01 unless said, the
+   counts set to 0 just before each run and read just after (the
+   ragged codec kernels must stay at 0 in every run):
+   ``--transport overlap --overlap-delay 0 --overlap-chunks 4`` for 3
+   steps at 32- and at 8-bit values against ``bucketed``, bit for bit
+   (parameters, EF memory, wire and effective bytes, gamma_t) with
+   bucketed's launches; at delay 1 (4 chunks) step 1 a zero update with
+   bucketed step 1's EF memory and step 2 bucketed step 1's parameters,
+   bit for bit, ``staleness`` 0 then 1, effective bytes the zero
+   payload's then bucketed step 1's, launches bucketed's; ``--local-steps
+   2 --microbatches 2`` and a 10% budget (``--max-gamma 0.1 --gamma
+   0.04``) for 2 rounds each at delay 1, the adaptive run against
+   bucketed's launches and its step-2 effective bytes against bucketed
+   step 1's, and after each one exchange from its final state with
+   decode(own payload) + m' == m + eta*g bit for bit on the embedding
+   leaf; a delay-1 checkpoint after 2 steps restored on the card and
+   resumed to 4, bit for bit with 4 straight steps; warm step times and
+   peaks (above what earlier runs hold); one profiled delay-1 step,
+   as in 4b, with its ``train_step.overlap_start`` span;
 5. run the 2-layer smoke variants on the card and on the CPU (the plain
    versions, which the CPU tests hold against the JAX package), through
    the trainer for 2 steps (``--opt csgd_asss``, ``nonadaptive``,
    ``sls`` and ``acgd``, ``--local-steps 2 --microbatches 2``,
-   ``--ef-dtype bfloat16``, ``--downlink compressed``, and on
+   ``--ef-dtype bfloat16``, ``--downlink compressed``, ``--transport
+   overlap`` at delay 1 and 0, and on
    ``--transport perleaf --max-gamma 0.1``), through
    CSGD-ASSS for 3 and through serving
    (qwen1.5-4b and rwkv6-1.6b, ctx 96, 4 tokens), and compare: equal
@@ -226,6 +246,9 @@ EF_BYTES = {"float32": 440_478_720, "bfloat16": 220_239_360}
 #: steps, and the server EF memory of paper-lm-100m (its compressed
 #: leaves' entries, f32)
 ACGD_STEPS, ACGD_SINGLE_STEPS, SERVER_WORDS = 2, 3, 110_100_480
+#: phase 4i: steps of each delay-0 run, ring chunks, and the steps of the
+#: local-steps and adaptive runs
+OVERLAP_STEPS, OVERLAP_CHUNKS, OVERLAP_LOCAL = 3, 4, 2
 
 
 def fail(msg: str) -> None:
@@ -363,8 +386,10 @@ def profile_step(dev, cfg, comp, label="trainer", transport="bucketed",
                            ("ef_stats_telemetry_kernel", "ef_apply_kernel",
                             "pack_words_kernel", "unpack_words_kernel"))
     # no armijo span where the kind does not search; a local-steps round
-    # has local_step spans in place of grad and armijo
+    # has local_step spans in place of grad and armijo; the overlap
+    # transport at delay 1 adds its overlap_start span
     want = 3 if local_steps > 1 or kind not in ("csgd_asss", "sls") else 4
+    want += transport == "overlap"
     if len(spans) != want or min(spans.values()) <= 0:
         fail(f"the profiler saw {label} train_step spans {spans}, want "
              f"{want} timed")
@@ -1330,6 +1355,268 @@ def profile_downlink(dev, cfg) -> None:
           flush=True)
 
 
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Two tensors bit for bit: dtype, shape and every byte."""
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+def trees_equal(a, b) -> bool:
+    from repro_torch.utils import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(bits_equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+def overlap_trainer(dev, root: Path) -> None:
+    """Phase 4i: ``--transport overlap`` at full width through
+    ``launch.train``, the launch counts set to 0 just before each run and
+    read just after: delay 0 against bucketed bit for bit (32- and 8-bit
+    values), the delay-1 warm-up and stale aggregate against bucketed
+    bit for bit, local steps and an adaptive budget at delay 1 with the
+    EF identity on the embedding leaf, and a delay-1 checkpoint resumed
+    on the card bit for bit."""
+    import shutil
+
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.comm.bucket import decode_buckets
+    from repro_torch.comm.exchange import init_process_group
+    from repro_torch.comm.overlap import OverlapConfig, OverlapCtx, \
+        init_overlap_state
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import OptimizerConfig, RunConfig, \
+        ShapeConfig
+    from repro_torch.core.compression import Compressor
+    from repro_torch.core.dcsgd import _tree_plan, worker_compress_aggregate
+    from repro_torch.core.leafmath import scatter_layers
+    from repro_torch.data.synthetic import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import ef_acc
+    from repro_torch.launch import train
+    from repro_torch.launch.train_step import init_train_state
+    from repro_torch.models import lm
+    from repro_torch.utils import tree_flatten, tree_leaves, \
+        value_and_grad
+    cfg = get_config("paper-lm-100m")
+    base = MAIN_ARGS + ["--gamma", "0.01"]
+    ov = ["--transport", "overlap", "--overlap-chunks", str(OVERLAP_CHUNKS)]
+
+    def checked_run(label, extra, steps, want=None):
+        """``steps`` steps of ``base + extra``; fails on a non-finite
+        loss, a skipped step, a ragged launch or launches other than
+        ``want`` (a dict of counts) when given."""
+        torch.cuda.reset_peak_memory_stats(dev)
+        # what earlier runs still hold counts in the peak: report both
+        live = torch.cuda.memory_allocated(dev)
+        ops.reset_launch_counts()
+        log, params, state = train.run(base + extra + ["--steps",
+                                                       str(steps)])
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev) - live
+        print(f"overlap [{label}]: launches {counts}; step_s "
+              f"{[round(x['step_s'], 4) for x in log]}; (static, "
+              f"effective) bytes "
+              f"{[(x['wire_bytes'], x['effective_wire_bytes']) for x in log]}"
+              f"; staleness {[x.get('staleness') for x in log]}; losses "
+              f"{[x['loss'] for x in log]}; gamma "
+              f"{[x['gamma'] for x in log]}; peak memory "
+              f"{peak / 2**30:.2f} GiB above the {live / 2**30:.2f} GiB "
+              "live before the run", flush=True)
+        if len(log) != steps or not all(np.isfinite(x["loss"])
+                                        for x in log) \
+                or any(x["steps_skipped"] for x in log):
+            fail(f"[overlap {label}] non-finite loss or skipped steps: "
+                 f"{[x['loss'] for x in log]}")
+        if counts.get("pack_words_ragged") or counts.get(
+                "unpack_words_ragged"):
+            fail(f"[overlap {label}] ragged codec launches {counts}")
+        if want is not None and counts != want:
+            fail(f"[overlap {label}] launches {counts}, want {want}")
+        return log, params, state, counts, peak
+
+    def same_run(label, a, b, keys=("wire_bytes", "effective_wire_bytes",
+                                    "gamma")):
+        """Runs ``a`` and ``b`` (log, params, state): parameters, EF
+        memory and the logged ``keys`` bit for bit."""
+        if not trees_equal(a[1], b[1]) or not trees_equal(a[2].memory,
+                                                          b[2].memory):
+            fail(f"[overlap {label}] parameters or EF memory differ")
+        for k in keys:
+            if [x[k] for x in a[0]] != [x[k] for x in b[0]]:
+                fail(f"[overlap {label}] {k} {[x[k] for x in a[0]]} != "
+                     f"{[x[k] for x in b[0]]}")
+
+    # ---- delay 0: bucketed over the ring, bit for bit --------------------
+    times = {}
+    for bits in ("32", "8"):
+        extra = ["--value-bits", bits]
+        buck = checked_run(f"bucketed {bits}-bit", extra, OVERLAP_STEPS)
+        d0 = checked_run(f"delay 0 {bits}-bit",
+                         extra + ov + ["--overlap-delay", "0"],
+                         OVERLAP_STEPS, want=buck[3])
+        same_run(f"delay 0 {bits}-bit", buck[:3], d0[:3])
+        if any(x["staleness"] != 0.0 for x in d0[0]):
+            fail("[overlap delay 0] staleness must read 0")
+        times[f"bucketed {bits}-bit"] = [x["step_s"] for x in buck[0][1:]]
+        times[f"delay 0 {bits}-bit"] = [x["step_s"] for x in d0[0][1:]]
+        print(f"overlap [delay 0 {bits}-bit]: parameters, EF memory, wire "
+              f"and effective bytes and gamma_t bit-identical to bucketed "
+              f"after {OVERLAP_STEPS} steps; peak {d0[4] / 2**30:.2f} GiB "
+              f"vs {buck[4] / 2**30:.2f}", flush=True)
+        del buck, d0
+
+    # ---- delay 1: the warm-up and the stale aggregate --------------------
+    b1 = checked_run("bucketed 1 step", [], 1)
+    o1 = checked_run("delay 1, 1 step", ov, 1, want=b1[3])
+    init = lm.init_params(cfg, seed=0, device=dev)
+    if not trees_equal(o1[1], init):
+        fail("[overlap delay 1] step 1 moved the parameters: the warm-up "
+             "applies the zero payload")
+    if not trees_equal(o1[2].memory, b1[2].memory):
+        fail("[overlap delay 1] step 1's EF memory differs from bucketed's")
+    zero_eff = float(init_overlap_state(
+        [p.shape for p in tree_leaves(init)],
+        tree_flatten(lm.stacked_mask(init))[0],
+        Compressor(gamma=0.01, method="block_topk")).eff_wire)
+    del init, o1
+    o2 = checked_run("delay 1, 2 steps", ov, 2,
+                     want={k: 2 * v for k, v in b1[3].items()})
+    if not trees_equal(o2[1], b1[1]):
+        fail("[overlap delay 1] the parameters after step 2 differ from "
+             "bucketed's after step 1: step 2 applies step 1's payload")
+    if [x["staleness"] for x in o2[0]] != [0.0, 1.0] or \
+            [x["effective_wire_bytes"] for x in o2[0]] != [
+                zero_eff, b1[0][0]["effective_wire_bytes"]]:
+        fail(f"[overlap delay 1] staleness "
+             f"{[x['staleness'] for x in o2[0]]} (want 0, 1), effective "
+             f"bytes {[x['effective_wire_bytes'] for x in o2[0]]} (want "
+             f"{zero_eff} then bucketed step 1's)")
+    print(f"overlap [delay 1]: step 1 a zero update with bucketed's EF "
+          f"memory, step 2 bucketed step 1's parameters, bit-identical; "
+          f"staleness 0, 1; effective bytes {zero_eff} (the zero payload) "
+          f"then {b1[0][0]['effective_wire_bytes']}; carried payload "
+          f"{o2[2].overlap.payload.numel()} int32 words and "
+          f"{o2[2].overlap.dense.numel()} dense f32 on "
+          f"{o2[2].overlap.payload.device}", flush=True)
+    del b1, o2
+
+    def ef_identity(label, run_cfg, state, eta):
+        """One exchange on the card from ``state`` (its EF memory, carried
+        payload and gamma_t) on a fresh gradient: on the embedding leaf,
+        decode(own current payload) + m' == m + eta*g bit for bit."""
+        params = lm.init_params(cfg, seed=3, device=dev)
+        pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=256,
+                             global_batch=8)
+        batch = {k: v.to(dev) for k, v in pipe.batch(7).items()}
+        _, grads = value_and_grad(lambda p: lm.loss_fn(p, batch, cfg),
+                                  params)
+        opt = run_cfg.optimizer
+        smask = lm.stacked_mask(params)
+        created = init_process_group(dev)
+        try:
+            out = worker_compress_aggregate(
+                grads, state.memory, eta, opt.compressor,
+                stacked_mask=smask, gamma_t=state.gamma,
+                transport="overlap",
+                transport_ctx=OverlapCtx(opt.overlap, state.overlap))
+        finally:
+            if created:
+                torch.distributed.destroy_process_group()
+        flat_g, flat_s = tree_flatten(grads)[0], tree_flatten(smask)[0]
+        plan = _tree_plan(flat_g, flat_s, opt.compressor)
+        lane = max((ln for ln in plan.leaves if not ln.dense),
+                   key=lambda ln: ln.L * ln.d)
+        vals, idx = decode_buckets(plan, out[5].payload[None])[lane.index]
+        own = scatter_layers(vals[0], idx[0], lane.L, lane.d)
+        m = tree_flatten(state.memory)[0][lane.index].reshape(lane.L,
+                                                              lane.d)
+        m2 = tree_flatten(out[1])[0][lane.index].reshape(lane.L, lane.d)
+        acc = ef_acc(m, flat_g[lane.index].reshape(lane.L, lane.d),
+                     torch.tensor([eta], device=dev))
+        if not bits_equal(own + m2, acc):
+            fail(f"[overlap {label}] the EF identity decode(own) + m' == "
+                 f"m + eta*g breaks on leaf {lane.index} ({lane.L}, "
+                 f"{lane.d}) in {int((own + m2 != acc).sum())} entries")
+        print(f"overlap [{label}]: EF identity decode(own) + m' == m + "
+              f"eta*g bit for bit on leaf {lane.index} ({lane.L}, "
+              f"{lane.d}), eta {eta}", flush=True)
+
+    # ---- local steps and an adaptive budget at delay 1 -------------------
+    def overlap_cfg(comp, **kw):
+        return RunConfig(model=cfg, shape=ShapeConfig(256, 8),
+                         microbatches=kw.get("local_steps", 1),
+                         optimizer=OptimizerConfig(
+                             compressor=comp, transport="overlap",
+                             overlap=OverlapConfig(n_chunks=OVERLAP_CHUNKS),
+                             **kw))
+
+    comp01 = Compressor(gamma=0.01, method="block_topk")
+    local = ["--local-steps", "2", "--microbatches", "2"]
+    one_codec = dict.fromkeys(ops.launch_counts(), 0)
+    one_codec.update(ef_stats_telemetry=OVERLAP_LOCAL, ef_apply=OVERLAP_LOCAL,
+                     pack_words=OVERLAP_LOCAL, unpack_words=OVERLAP_LOCAL)
+    lo = checked_run("delay 1, local steps 2", ov + local, OVERLAP_LOCAL,
+                     want=one_codec)
+    ef_identity("delay 1, local steps 2",
+                overlap_cfg(comp01, local_steps=2), lo[2], 1.0)
+    del lo
+    adaptive = ["--max-gamma", "0.1", "--gamma", "0.04"]
+    ab = checked_run("bucketed, adaptive 10%", adaptive, OVERLAP_LOCAL)
+    ao = checked_run("delay 1, adaptive 10%", ov + adaptive, OVERLAP_LOCAL,
+                     want=ab[3])
+    if ao[0][1]["effective_wire_bytes"] != ab[0][0]["effective_wire_bytes"]:
+        fail("[overlap adaptive] step 2 must report the carried step-1 "
+             "effective bytes")
+    ef_identity("delay 1, adaptive 10%", overlap_cfg(Compressor(
+        gamma=0.04, max_gamma=0.1, method="block_topk")), ao[2], 0.05)
+    del ab, ao
+
+    # ---- a delay-1 checkpoint, restored on the card and resumed ----------
+    tmp = root / "_smoke_ckpt"
+    shutil.rmtree(tmp, ignore_errors=True)
+    try:
+        d = str(tmp / "overlap")
+        straight = checked_run("delay 1, 4 steps", ov, 4)
+        times["delay 1"] = [x["step_s"] for x in straight[0][1:]]
+        _, _, saved = train.run(base + ov + ["--steps", "2", "--ckpt-dir",
+                                             d, "--ckpt-every", "2"])
+        skel = lm.init_params(cfg, seed=1, device=dev)
+        tree, _ = ckpt.restore(train.rank_dir(d, 0), {
+            "params": skel,
+            "state": init_train_state(skel, overlap_cfg(comp01))},
+            step=2)
+        back = tree["state"].overlap
+        if not (bits_equal(back.payload, saved.overlap.payload)
+                and bits_equal(back.dense, saved.overlap.dense)
+                and back.payload.device == saved.overlap.payload.device
+                and back.eff_wire == saved.overlap.eff_wire
+                and back.seeded == saved.overlap.seeded == 1.0):
+            fail("[overlap checkpoint] the carried state of step 2 does not "
+                 "restore on the card bit-identical")
+        del tree, back, skel, saved
+        log, params, state = train.run(base + ov + [
+            "--steps", "4", "--ckpt-dir", d, "--resume"])
+        if [x["step"] for x in log] != [2, 3] or not trees_equal(
+                params, straight[1]) or not trees_equal(
+                    state.memory, straight[2].memory) or not (
+                bits_equal(state.overlap.payload,
+                           straight[2].overlap.payload)
+                and bits_equal(state.overlap.dense,
+                               straight[2].overlap.dense)):
+            fail("[overlap checkpoint] a resume from step 2 to 4 differs "
+                 "from 4 uninterrupted steps")
+        print(f"overlap [checkpoint]: step 2 restored on the card with its "
+              f"carried payload; resumed to 4 bit-identical to 4 "
+              f"uninterrupted steps (parameters, EF memory, carried "
+              f"payload); staleness {[x['staleness'] for x in log]}",
+              flush=True)
+        del straight, params, state
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for label, t in times.items():
+        print(f"overlap warm step_s [{label}]: {t}", flush=True)
+
+
 def run_single(dev, cfg, comp, steps, label, make_opt) -> dict:
     """Phases 4c and 4h: a single-node optimizer (``make_opt(compressor)``
     -> CSGD-ASSS or ACGD) on the full-width model through the library
@@ -1983,6 +2270,11 @@ def main() -> None:
                lambda c: acgd(AcgdConfig(compressor=c, eta=0.1,
                                          momentum=0.9)))
 
+    # ---- 4i. the overlap transport: chunked ring, delay-1 double buffer --
+    overlap_trainer(dev, root)
+    profile_step(dev, cfg, comp, "trainer overlap delay 1",
+                 transport="overlap")
+
     # ---- 5. small input: the card against the CPU's plain path ----------
     small = ["--smoke", "--steps", "2", "--seq-len", "33", "--global-batch",
              "4", "--compress-method", "block_topk", "--log-every", "1"]
@@ -1992,14 +2284,18 @@ def main() -> None:
             ("local steps 2", ["--local-steps", "2", "--microbatches", "2"]),
             ("ef-dtype bfloat16", ["--ef-dtype", "bfloat16"]),
             ("acgd", ["--opt", "acgd"]),
-            ("downlink compressed", ["--downlink", "compressed"])):
+            ("downlink compressed", ["--downlink", "compressed"]),
+            ("overlap delay 1", ["--transport", "overlap",
+                                 "--overlap-chunks", "3"]),
+            ("overlap delay 0", ["--transport", "overlap",
+                                 "--overlap-delay", "0"])):
         on_card = train.main(small + extra)
         on_cpu = train.main(small + extra + ["--device", "cpu"])
         for a, b in zip(on_card, on_cpu):
             if abs(a["loss"] - b["loss"]) > 1e-4 * abs(b["loss"]) or any(
                     a.get(k) != b.get(k) for k in (
                         "wire_bytes", "downlink_effective_wire_bytes",
-                        "cum_effective_wire_bytes")):
+                        "cum_effective_wire_bytes", "staleness")):
                 fail(f"{label} smoke run on the card {a} disagrees with "
                      f"the CPU {b}")
         print(f"{label} smoke card vs cpu: losses "

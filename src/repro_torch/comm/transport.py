@@ -16,11 +16,17 @@ working device, ``gamma_t`` the round's host float32 level (None unless
 the compressor is adaptive); ``sums`` is a
 :class:`~repro_torch.core.telemetry.TelemetrySums`.
 
+*Stateful* transports (``stateful=True``) carry state of their own
+across rounds: they take a ``ctx`` keyword and return that state as a
+sixth element::
+
+    fn(..., gamma_t, ctx=ctx) -> (updates, new_mem, wire, eff, sums, state)
+
 The port registers ``bucketed`` and ``perleaf`` (both in
-``core/dcsgd.py``); the JAX package's stateful transports (gossip,
-overlap, faulty), which carry state of their own across rounds, are not
-ported.  The ``stateful`` flag is kept so that the compressed downlink,
-which needs a single global aggregate, refuses them as JAX's does.
+``core/dcsgd.py``) and the stateful ``overlap`` (``comm/overlap.py``); the
+JAX package's stateful gossip and faulty transports are not ported.  The
+compressed downlink, which needs a single global aggregate, refuses a
+stateful transport as JAX's does.
 """
 from __future__ import annotations
 
@@ -53,9 +59,10 @@ def register_transport(name: str, *, stateful: bool = False,
 
 
 def _ensure_registered() -> None:
-    """Import the module that registers the transports (lazily: it
-    imports this package)."""
-    import repro_torch.core.dcsgd  # noqa: F401
+    """Import the modules that register the transports (lazily: they
+    import this package)."""
+    import repro_torch.comm.overlap  # noqa: F401  (registers "overlap")
+    import repro_torch.core.dcsgd  # noqa: F401  (bucketed, perleaf)
 
 
 def transport_names() -> tuple[str, ...]:

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import dataclasses
 
+from repro_torch.comm.overlap import OverlapConfig
 from repro_torch.core.armijo import ArmijoConfig
 from repro_torch.core.compression import Compressor
 from repro_torch.core.gamma import GammaControllerConfig
@@ -70,6 +71,8 @@ class ShapeConfig:
 KINDS = ("csgd_asss", "nonadaptive", "acgd", "sgd", "sls", "dense")
 #: kinds that compress with error feedback (EF memory, packed exchange)
 COMPRESSING = ("csgd_asss", "nonadaptive", "acgd")
+#: kinds the overlap transport takes (JAX's build_train_step)
+OVERLAP_KINDS = ("csgd_asss", "nonadaptive")
 #: kinds whose round takes ``local_steps`` > 1 (JAX's worker_fn dispatches
 #: only these to ``_local_steps_worker``; acgd refuses local steps)
 LOCAL_STEP_KINDS = ("csgd_asss", "nonadaptive")
@@ -102,9 +105,12 @@ class OptimizerConfig:
     # no band is checked here (core/acgd.AcgdConfig checks [0, 1))
     momentum: float = 0.9
     # exchange schedule, validated against the comm.transport registry:
-    # "bucketed" (one flat all_gather a step) or "perleaf" (the reference,
-    # one all_gather a leaf)
+    # "bucketed" (one flat all_gather a step), "perleaf" (the reference,
+    # one all_gather a leaf) or "overlap" (the bucketed schedule over a
+    # chunked ring, shipping the previous step's payload at delay 1)
     transport: str = "bucketed"
+    # overlap ring/staleness knobs; only read when transport="overlap"
+    overlap: OverlapConfig = OverlapConfig()
     # circuit breaker: a non-finite round (loss or decoded update) skips
     # the parameter write with all carried optimizer state frozen; this
     # many CONSECUTIVE skips raise DivergenceError on the host
@@ -175,6 +181,16 @@ class OptimizerConfig:
                     "downlink='compressed' does not compose with "
                     "local_steps > 1 yet — the local-steps exchange applies "
                     "the dense mean delta directly")
+        if self.transport == "overlap":
+            if self.kind not in OVERLAP_KINDS:
+                raise ValueError(
+                    f"transport 'overlap' needs a compressing optimizer "
+                    f"(csgd_asss | nonadaptive), got kind={self.kind!r}")
+            if self.shard_local_topk:
+                raise ValueError(
+                    "transport 'overlap' does not compose with "
+                    "shard_local_topk (the carried payload geometry is the "
+                    "whole-gradient bucket plan, not a model-shard's)")
         for name, (default, feature) in NOT_PORTED.items():
             if getattr(self, name) != default:
                 raise ValueError(f"{name}={getattr(self, name)!r}: "

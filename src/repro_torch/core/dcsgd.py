@@ -12,7 +12,7 @@ Each data-parallel worker (one process of the group):
 while leaves below the compression size travel densely.  Stacked leaves
 (leading axis = layers) are compressed per layer.
 
-Two transports, registered in ``comm/transport.py``:
+Two transports here, registered in ``comm/transport.py``:
 
 * ``bucketed`` (the default) — ONE fused-EF launch pair, ONE flat packed
   all_gather with one plain pack/unpack launch per bucket field section,
@@ -20,17 +20,21 @@ Two transports, registered in ``comm/transport.py``:
 * ``perleaf`` — the reference schedule: per compressed leaf one fused-EF
   launch pair, one packed all_gather and one pack/unpack launch per field
   section (the ragged kernels when the compressor is adaptive), and one
-  all-reduce per dense leaf.
+  all-reduce per dense leaf;
 
-Both give the same updates, EF memory, byte counts and telemetry, bit for
-bit.  With an adaptive compressor (``max_gamma > 0``) a round compresses
-at its ``gamma_t``: selection runs at the budget, entries past the
-round's count are masked behind each row's count header (workers may
-send different counts; each row is decoded at its own), the masked mass
-stays in the EF residual, and the effective byte count prices only the
-valid fields.  With ``downlink_ctx`` the mean update then passes the
-server's EF re-compression (``comm/downlink.py``).  The gossip, overlap
-and faulty transports of the JAX package are not ported.
+and the stateful ``overlap`` (``comm/overlap.py``): the bucketed
+schedule over a chunked ring, shipping the previous round's payload at
+``delay=1``.
+
+``bucketed`` and ``perleaf`` give the same updates, EF memory, byte
+counts and telemetry, bit for bit.  With an adaptive compressor
+(``max_gamma > 0``) a round compresses at its ``gamma_t``: selection
+runs at the budget, entries past the round's count are masked behind
+each row's count header (workers may send different counts; each row
+is decoded at its own), the masked mass stays in the EF residual, and
+the effective byte count prices only the valid fields.  With ``downlink_ctx`` the mean update then passes the
+server's EF re-compression (``comm/downlink.py``).  The gossip and
+faulty transports of the JAX package are not ported.
 
 The EF memory may be f32 or bf16: every path, the dense leaves'
 included, reads it as f32 before the kernels and writes m' back with
@@ -73,7 +77,7 @@ def _plan(shapes, stacked, comp):
 def worker_compress_aggregate(grads, memory, eta, comp: Compressor,
                               group=None, stacked_mask=None, gamma_t=None,
                               transport: str = "bucketed",
-                              downlink_ctx=None):
+                              transport_ctx=None, downlink_ctx=None):
     """Steps 3-7 of Algorithm 3 for a whole gradient tree.
 
     ``eta``: the step (host scalar or one-element tensor).  ``gamma_t``:
@@ -81,6 +85,11 @@ def worker_compress_aggregate(grads, memory, eta, comp: Compressor,
     ``comp.gamma``).  Returns ``(mean_update, new_memory, wire_bytes,
     effective_wire_bytes, telemetry)``; the byte counts are float32 host
     scalars, the rest tensors on the gradients' device.
+
+    ``transport_ctx``: the context a stateful transport needs (``overlap``:
+    a :class:`repro_torch.comm.overlap.OverlapCtx`), None for the
+    stateless ones; a stateful transport appends its new carried state
+    to the return, a 6-tuple as JAX's.
 
     ``downlink_ctx`` (a :class:`repro_torch.comm.downlink.DownlinkCtx`):
     the mean update is re-compressed through the server's EF
@@ -94,6 +103,12 @@ def worker_compress_aggregate(grads, memory, eta, comp: Compressor,
             f"downlink_ctx needs a replicated global aggregate to "
             f"re-compress; transport {transport!r} is stateful "
             "(gossip/overlap have no single server-side mean)")
+    if tp.stateful and transport_ctx is None:
+        raise ValueError(f"transport {transport!r} is stateful and needs "
+                         "transport_ctx")
+    if not tp.stateful and transport_ctx is not None:
+        raise ValueError(f"transport {transport!r} is stateless; "
+                         "transport_ctx must be None")
     flat_g, structure = tree_flatten(grads)
     flat_m = tree_flatten(memory)[0]
     flat_s = ([g.dim() >= 2 for g in flat_g] if stacked_mask is None
@@ -102,12 +117,13 @@ def worker_compress_aggregate(grads, memory, eta, comp: Compressor,
     eta = torch.as_tensor(eta, dtype=torch.float32).to(device).reshape(1)
     if comp.adaptive and gamma_t is None:
         gamma_t = f32(comp.gamma)
-    updates, new_mem, wire, eff_wire, sums = tp.exchange(
-        flat_g, flat_m, flat_s, eta, comp, group, gamma_t)
+    kw = {"ctx": transport_ctx} if tp.stateful else {}
+    updates, new_mem, wire, eff_wire, sums, *new_state = tp.exchange(
+        flat_g, flat_m, flat_s, eta, comp, group, gamma_t, **kw)
     out = (tree_unflatten(structure, new_mem), wire, eff_wire,
            sums.finalize())
     if downlink_ctx is None:
-        return (tree_unflatten(structure, updates),) + out
+        return (tree_unflatten(structure, updates),) + out + tuple(new_state)
     # the server round's span, inside the trainer's exchange span
     with record_function("train_step.downlink"):
         updates, dl_state, down_wire, down_eff = apply_downlink(
@@ -117,15 +133,16 @@ def worker_compress_aggregate(grads, memory, eta, comp: Compressor,
 
 
 def _consume_decoded_leaf(g, m, g2f, g_vals, g_idx, L, d, W, rank,
-                          use_fused, sent, resid, acc2):
-    """Post-gather per-leaf consumer, shared by both transports: the mean
+                          use_fused, sent, resid, acc2, own=None):
+    """Post-gather per-leaf consumer, shared by the transports: the mean
     update, this worker's EF residual (own rows sliced from the gathered
-    decode) and the decoded-side telemetry sums.  Entries past the
-    round's count are absent from the decoded own rows, so they land in
-    the residual."""
+    decode, or ``own`` = (vals, idx) when the gathered rows are not this
+    round's, as under the overlap transport's delay 1) and the
+    decoded-side telemetry sums.  Entries past the round's count are
+    absent from the decoded own rows, so they land in the residual."""
     total = scatter_layers(g_vals, g_idx, L, d)
     mean_dense = total / W
-    own_vals, own_idx = g_vals[rank], g_idx[rank]
+    own_vals, own_idx = (g_vals[rank], g_idx[rank]) if own is None else own
     own_dense = scatter_layers(own_vals, own_idx, L, d)
     if use_fused:
         r = resid + (sent - own_dense)

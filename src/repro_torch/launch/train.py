@@ -1,7 +1,7 @@
 """Training entry point of the port: the data-parallel trainer on the
 process group (twin of ``src/repro/launch/train.py``, the flags of its
-plain path on the ``bucketed`` and ``perleaf`` transports, plus
-``--device``).
+plain path on the ``bucketed``, ``perleaf`` and ``overlap`` transports,
+plus ``--device``).
 
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --compress-method block_topk --steps 4
@@ -38,6 +38,14 @@ wire format with the server's EF memory (``comm/downlink.py``) at
 ``--downlink-gamma-schedule`` ``fixed`` or ``linear``; the log line adds
 ``down=``, the downlink's effective bytes.
 
+``--transport overlap`` ships the bucketed payload over a chunked ring
+of ``--overlap-chunks`` sections; at ``--overlap-delay 1`` (the
+default) each step ships and applies the previous step's payload, its
+collectives posted before the step's gradient (``comm/overlap.py``),
+and at 0 it equals ``bucketed`` bit for bit.  The log line adds
+``stale=``, the ``staleness`` metric: 1 when the applied aggregate is
+one step old, 0 on the warm-up step (a zero update) and at delay 0.
+
 Checkpoints: ``--ckpt-dir D`` saves ``{"params", "state"}`` after every
 ``--ckpt-every`` completed steps and at the end, under
 ``D/rank_<r:03d>/step_<n:010d>`` (``checkpoint/checkpoint.py``), where
@@ -59,6 +67,7 @@ import torch.distributed as dist
 
 from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.comm.exchange import init_process_group
+from repro_torch.comm.overlap import OverlapConfig
 from repro_torch.comm.transport import transport_names
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import EF_DTYPES, KINDS, OptimizerConfig, \
@@ -142,7 +151,20 @@ def parse_args(argv=None):
                     help="compressed-exchange schedule: bucketed = ONE "
                          "flat packed all_gather + batched launches; "
                          "perleaf = one collective per leaf (bit-exact "
-                         "reference; the ragged kernels when adaptive)")
+                         "reference; the ragged kernels when adaptive); "
+                         "overlap = chunked-ring, double-buffered "
+                         "exchange (DESIGN.md §14)")
+    # ---- overlapped exchange (transport=overlap, DESIGN.md §14) ----
+    ap.add_argument("--overlap-chunks", type=int,
+                    default=OverlapConfig.n_chunks,
+                    help="ring chunk count: the payload crosses each link "
+                         "as n_chunks independent point-to-point hops per "
+                         "ring step")
+    ap.add_argument("--overlap-delay", type=int,
+                    default=OverlapConfig.delay, choices=[0, 1],
+                    help="1 = double-buffered: ship the PREVIOUS step's "
+                         "payload so the collective overlaps this step's "
+                         "compute; 0 = synchronous (bit-exact vs bucketed)")
     ap.add_argument("--max-consecutive-skips", type=int,
                     default=OptimizerConfig.max_consecutive_skips,
                     help="step-level circuit breaker: this many consecutive "
@@ -262,7 +284,10 @@ def run(argv=None):
                 schedule=args.gamma_schedule, gamma_min=args.gamma_min,
                 ramp_steps=args.gamma_ramp_steps, ef_target=args.ef_target,
                 ef_band=args.ef_band),
-            transport=args.transport, ef_dtype=args.ef_dtype,
+            transport=args.transport,
+            overlap=OverlapConfig(n_chunks=args.overlap_chunks,
+                                  delay=args.overlap_delay),
+            ef_dtype=args.ef_dtype,
             local_steps=args.local_steps, downlink=args.downlink,
             downlink_gamma=GammaControllerConfig(
                 schedule=args.downlink_gamma_schedule,
@@ -314,11 +339,13 @@ def run(argv=None):
                 if rank == 0:
                     down = (f"down={m['downlink_effective_wire_bytes']:.3e}B "
                             if "downlink_effective_wire_bytes" in m else "")
+                    stale = (f"stale={m['staleness']:.0f} "
+                             if "staleness" in m else "")
                     print(f"step {step:5d} loss={m['loss']:.4f} "
                           f"alpha={m['alpha']:.4g} evals={m['n_evals']:.2f} "
                           f"up={m['wire_bytes']:.3e}B "
                           f"eff={m['effective_wire_bytes']:.3e}B "
-                          f"{down}"
+                          f"{down}{stale}"
                           f"cum={m['cum_effective_wire_bytes']:.3e}B "
                           f"gamma={m['gamma']:.4g} "
                           f"backlog={m['ef_backlog']:.3g} "

@@ -1,7 +1,8 @@
 """The data-parallel train step (twin of the plain body of ``worker_fn``
-in ``src/repro/launch/train_step.py``, its acgd round and compressed
-downlink, and its local-steps round, ``_local_steps_worker``: no
-federated cohort, gossip, overlap, faults or shard-local top-k).
+in ``src/repro/launch/train_step.py``, its acgd round, compressed
+downlink and overlap seam, and its local-steps round,
+``_local_steps_worker``: no federated cohort, gossip, faults or
+shard-local top-k).
 
 Each worker — one process of the data-parallel group, one device —
 
@@ -33,6 +34,16 @@ delta once at eta 1 through the same EF compression and kernels
 The EF memory is f32 or bf16 (``OptimizerConfig.ef_dtype``); every
 transport reads it as f32 and writes m' back with one rounding.
 
+Under ``transport="overlap"`` (``comm/overlap.py``) ``TrainState.overlap``
+carries the previous round's payload and dense accumulators.  At
+``delay=1`` the step posts their collectives (the ring's hops and the
+dense all-reduce) first, in a ``train_step.overlap_start`` span, before
+the gradient or the local steps; the exchange waits on them when it
+decodes and applies that one-round-old aggregate.  The metrics add
+``staleness``, ``delay * seeded`` of the incoming state: 0 on the
+warm-up round (the zero payload, a zero update) and at ``delay=0``,
+else 1.
+
 Under the downlink the metrics add ``downlink_wire_bytes`` and
 ``downlink_effective_wire_bytes``; ``cum_effective_wire_bytes`` then
 prices both directions, ``(previous + uplink) + downlink`` with each sum
@@ -57,6 +68,8 @@ from torch.profiler import record_function
 from repro_torch.comm.downlink import DownlinkCtx, DownlinkState, \
     init_downlink_state
 from repro_torch.comm.exchange import all_reduce_mean
+from repro_torch.comm.overlap import OverlapCtx, OverlapState, \
+    init_overlap_state, post_carried
 from repro_torch.configs.base import COMPRESSING, LOCAL_STEP_KINDS, \
     SEARCHING
 from repro_torch.core.acgd import nesterov
@@ -76,6 +89,7 @@ METRIC_KEYS = ("loss", "grad_sqnorm", "alpha", "n_evals", "gamma",
                "wire_bytes", "effective_wire_bytes", "ef_backlog",
                "ef_cosine")
 DOWNLINK_KEYS = ("downlink_wire_bytes", "downlink_effective_wire_bytes")
+OVERLAP_KEYS = ("staleness",)
 TELEMETRY_FIELDS = ("ef_backlog", "cosine", "decode_error", "eff_gamma")
 
 
@@ -99,18 +113,25 @@ class TrainState:
                                      # leaves like params
     downlink: DownlinkState | None = None  # the server's state under
                                            # downlink="compressed"
+    overlap: OverlapState | None = None    # the carried payload under
+                                           # transport="overlap"
 
 
 def init_train_state(params, run_cfg) -> TrainState:
     opt = run_cfg.optimizer
-    downlink = None
+    downlink = overlap = None
+    leaves = tree_flatten(params)[0]
+    # the geometry the exchange uses: leaf shapes and lm.stacked_mask
+    shapes = [p.shape for p in leaves]
+    stacked = tree_flatten(lm.stacked_mask(params))[0]
     if opt.kind in COMPRESSING and opt.downlink == "compressed":
-        leaves = tree_flatten(params)[0]
         downlink = init_downlink_state(
-            [p.shape for p in leaves],
-            tree_flatten(lm.stacked_mask(params))[0], opt.compressor,
+            shapes, stacked, opt.compressor,
             opt.downlink_gamma.resolve(opt.compressor)[0],
             device=leaves[0].device)
+    if opt.kind in COMPRESSING and opt.transport == "overlap":
+        overlap = init_overlap_state(shapes, stacked, opt.compressor,
+                                     device=leaves[0].device)
     return TrainState(
         step=0, alpha_prev=f32(opt.armijo.alpha0),
         memory=init_ef(params, getattr(torch, opt.ef_dtype))
@@ -126,7 +147,7 @@ def init_train_state(params, run_cfg) -> TrainState:
         velocity=tree_map(lambda p: torch.zeros(
             p.shape, dtype=torch.float32, device=p.device), params)
         if opt.kind == "acgd" else None,
-        downlink=downlink)
+        downlink=downlink, overlap=overlap)
 
 
 def microbatch_mean(total: torch.Tensor, micro: int) -> torch.Tensor:
@@ -176,8 +197,10 @@ def train_step(params, state: TrainState, batch: dict, run_cfg, group=None):
     ``worker_fn`` does; ``sls``, ``sgd`` and ``dense`` ignore
     ``local_steps``, as JAX's do (acgd and the downlink refuse it)."""
     opt = run_cfg.optimizer
+    started = _overlap_start(state, opt, group)
     if opt.local_steps > 1 and opt.kind in LOCAL_STEP_KINDS:
-        return _local_steps_step(params, state, batch, run_cfg, group)
+        return _local_steps_step(params, state, batch, run_cfg, group,
+                                 started)
     cfg = run_cfg.model
     # the spans split a step's host time for a profiler (chip_smoke.py)
     with record_function("train_step.grad"):
@@ -206,7 +229,7 @@ def train_step(params, state: TrainState, batch: dict, run_cfg, group=None):
     # trainer's rule, not core/baselines.SLS's a = 1)
     eta = opt.armijo.scale_for(gamma_t) * alpha if search is not None \
         else alpha
-    dl_res, new_vel = None, state.velocity
+    dl_res, new_ov, new_vel = None, None, state.velocity
     with record_function("train_step.exchange"):
         if opt.kind in COMPRESSING:
             send = grads
@@ -226,11 +249,15 @@ def train_step(params, state: TrainState, batch: dict, run_cfg, group=None):
             out = worker_compress_aggregate(
                 send, state.memory, eta, opt.compressor, group,
                 stacked_mask=lm.stacked_mask(params), gamma_t=gamma_t,
-                transport=opt.transport, downlink_ctx=ctx)
+                transport=opt.transport,
+                transport_ctx=_overlap_ctx(state, opt, started),
+                downlink_ctx=ctx)
             del send
             updates, new_mem, wire, eff, tel = out[:5]
             if ctx is not None:
                 dl_res = out[5]
+            if state.overlap is not None:
+                new_ov = out[5]
         else:
             updates, wire = dense_aggregate(grads, eta, group)
             eff, new_mem = wire, state.memory
@@ -242,11 +269,29 @@ def train_step(params, state: TrainState, batch: dict, run_cfg, group=None):
         params, state, run_cfg, group, loss=loss, gsq=gsq, alpha=alpha,
         n_evals=n_evals, gamma_t=gamma_t, updates=updates, new_mem=new_mem,
         wire=wire, eff=eff, tel=tel, new_alpha=new_alpha, new_ema=new_ema,
-        new_vel=new_vel, dl_res=dl_res)
+        new_vel=new_vel, dl_res=dl_res, new_ov=new_ov)
+
+
+def _overlap_start(state: TrainState, opt, group):
+    """Under the overlap transport at ``delay=1``: post the carried
+    buffers' collectives now, before any of the round's compute (None
+    otherwise)."""
+    if state.overlap is None or opt.overlap.delay != 1:
+        return None
+    with record_function("train_step.overlap_start"):
+        return post_carried(state.overlap, group, opt.overlap.n_chunks)
+
+
+def _overlap_ctx(state: TrainState, opt, started):
+    """The exchange's ``transport_ctx``: None unless the overlap transport
+    carries state."""
+    if state.overlap is None:
+        return None
+    return OverlapCtx(opt.overlap, state.overlap, started)
 
 
 def _local_steps_step(params, state: TrainState, batch: dict, run_cfg,
-                      group=None):
+                      group=None, started=None):
     """The twin of JAX's ``_local_steps_worker``: H = ``local_steps``
     Armijo-SGD steps on this worker's H microbatches (rows ``[i*B/H,
     (i+1)*B/H)``, JAX's reshape), then ONE EF-compressed exchange of the
@@ -297,11 +342,15 @@ def _local_steps_step(params, state: TrainState, batch: dict, run_cfg,
     with record_function("train_step.exchange"):
         delta = tree_map(lambda a, b: a.float() - b.float(), params, p_loc)
         del p_loc
-        updates, new_mem, wire, eff, tel = worker_compress_aggregate(
+        # the overlap seam: at delay 1 the carried payload's collectives,
+        # posted before the H local steps, ship during them
+        out = worker_compress_aggregate(
             delta, state.memory, f32(1.0), opt.compressor, group,
             stacked_mask=lm.stacked_mask(params), gamma_t=gamma_t,
-            transport=opt.transport)
+            transport=opt.transport,
+            transport_ctx=_overlap_ctx(state, opt, started))
         del delta
+        updates, new_mem, wire, eff, tel = out[:5]
     return _finish_round(
         params, state, run_cfg, group,
         loss=microbatch_mean(loss_sum, H),
@@ -309,25 +358,33 @@ def _local_steps_step(params, state: TrainState, batch: dict, run_cfg,
         n_evals=evals_mean, gamma_t=gamma_t, updates=updates,
         new_mem=new_mem, wire=wire, eff=eff, tel=tel,
         new_alpha=reciprocal_product(amax, opt.armijo.omega),
-        new_ema=local_evals_ema(state.n_evals_ema, evals, H))
+        new_ema=local_evals_ema(state.n_evals_ema, evals, H),
+        new_ov=out[5] if state.overlap is not None else None)
 
 
 def _finish_round(params, state: TrainState, run_cfg, group, *, loss, gsq,
                   alpha, n_evals, gamma_t, updates, new_mem, wire, eff, tel,
-                  new_alpha, new_ema, new_vel=None, dl_res=None):
+                  new_alpha, new_ema, new_vel=None, dl_res=None,
+                  new_ov=None):
     """The round's metrics (one host transfer), the breaker and the new
     state, shared by the plain and the local-steps round.  ``dl_res``:
-    the downlink's ``DownlinkResult``, or None."""
+    the downlink's ``DownlinkResult``, or None; ``new_ov``: the overlap
+    transport's new ``OverlapState``, or None."""
     opt = run_cfg.optimizer
-    keys = METRIC_KEYS + (DOWNLINK_KEYS if dl_res is not None else ())
+    keys = METRIC_KEYS + (DOWNLINK_KEYS if dl_res is not None else ()) \
+        + (OVERLAP_KEYS if new_ov is not None else ())
+    # JAX: f32(delay) * seeded of the incoming state, then the mean
+    stale = [f32(opt.overlap.delay) * state.overlap.seeded] \
+        if new_ov is not None else []
     with record_function("train_step.metrics"):
         local = torch.stack(
             [loss.float(), gsq.float()]
             + [torch.tensor(float(x), device=loss.device)
                for x in (alpha, n_evals, gamma_t, wire, eff)]
             + [tel.ef_backlog, tel.cosine]
-            + ([torch.tensor(float(x), device=loss.device)
-                for x in dl_res[1:]] if dl_res is not None else []))
+            + [torch.tensor(float(x), device=loss.device)
+               for x in (list(dl_res[1:]) if dl_res is not None else [])
+               + stale])
         # one host transfer: the group means and this worker's own
         # telemetry, which the next round's controller reads
         own = torch.stack([getattr(tel, f) for f in TELEMETRY_FIELDS])
@@ -368,4 +425,5 @@ def _finish_round(params, state: TrainState, run_cfg, group, *, loss, gsq,
         cum_wire_bytes=cum_wire, cum_eff_bytes=cum_eff,
         health=health,
         velocity=state.velocity if new_vel is None else new_vel,
-        downlink=new_downlink), metrics
+        downlink=new_downlink,
+        overlap=state.overlap if new_ov is None else new_ov), metrics

@@ -474,7 +474,8 @@ def test_adaptive_default_gamma_t_is_the_compressors():
 def test_unknown_transport_is_refused_everywhere():
     from repro_torch.comm import transport
     from repro_torch.configs.base import OptimizerConfig
-    assert transport.transport_names() == ("bucketed", "perleaf")
+    assert transport.transport_names() == ("bucketed", "overlap",
+                                           "perleaf")
     with pytest.raises(ValueError, match="unknown transport 'gossip'"):
         OptimizerConfig(transport="gossip")
     tree, mem = _inputs()

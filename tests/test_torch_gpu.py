@@ -984,3 +984,83 @@ def test_acgd_and_downlink_rounds_on_card(cuda, opt_kw, tmp_path):
         assert b.is_cuda and torch.equal(a, b)
     if state.downlink is not None:
         assert out["state"].downlink.gamma == state.downlink.gamma
+
+
+# --------------------------------------------------------------------------
+# the overlap transport: chunked ring, delay-1 double buffer
+# --------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("delay", [0, 1])
+@pytest.mark.parametrize("value_bits", [8, 32])
+def test_overlap_exchange_on_card(cuda, delay, value_bits):
+    """Two overlap exchanges at a 10% budget (gamma_t 0.04, then 0.07) on
+    the card against the plain versions on the CPU: updates, EF memory,
+    bytes and the carried payload bit for bit; each launches what the
+    bucketed exchange launches (the delay-1 own-row round trip adds
+    none); at delay 1 the first update is zero."""
+    import socket
+
+    import torch.distributed as dist
+    from repro_torch.comm import overlap as ov
+    from repro_torch.core.compression import Compressor
+    from repro_torch.core.dcsgd import worker_compress_aggregate
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(9)
+    tree = {"a": rng.standard_normal((3, 4096)), "b": rng.standard_normal(
+        (5000,)), "tiny": rng.standard_normal((50,)),
+        "c": rng.standard_normal((2, 4, 900))}
+    tree = {k: torch.from_numpy(v.astype(np.float32))
+            for k, v in tree.items()}
+    mem = {k: 0.05 * torch.flip(v, [-1]) for k, v in tree.items()}
+    comp = Compressor(gamma=0.01, max_gamma=0.1, method="block_topk",
+                      value_bits=value_bits, min_compress_size=64)
+    cfg = ov.OverlapConfig(n_chunks=3, delay=delay)
+    shapes = [tree[k].shape for k in sorted(tree)]
+    stacked = [tree[k].dim() >= 2 for k in sorted(tree)]
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("cpu:gloo,cuda:nccl",
+                            init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        def rounds(device, transport):
+            st = ov.init_overlap_state(shapes, stacked, comp, device=device)
+            m = {k: v.to(device) for k, v in mem.items()}
+            outs, counts = [], []
+            for r, gt in enumerate((0.04, 0.07)):
+                ops.reset_launch_counts()
+                out = worker_compress_aggregate(
+                    {k: (v * (1 + r)).to(device) for k, v in tree.items()},
+                    m, np.float32(0.7), comp, gamma_t=np.float32(gt),
+                    transport=transport,
+                    transport_ctx=None if transport == "bucketed" else
+                    ov.OverlapCtx(cfg, st))
+                counts.append(ops.launch_counts())
+                m = out[1]
+                if transport == "overlap":
+                    st = out[5]
+                outs.append(out)
+            return outs, counts
+        want, _ = rounds("cpu", "overlap")
+        got, counts = rounds(cuda, "overlap")
+        _, bucketed = rounds(cuda, "bucketed")
+    finally:
+        dist.destroy_process_group()
+    assert counts == bucketed and all(sum(c.values()) > 0 for c in counts)
+    assert all(c["pack_words_ragged"] == c["unpack_words_ragged"] == 0
+               for c in counts)
+    for g, w in zip(got, want):
+        for i in (0, 1):
+            for k in tree:
+                torch.testing.assert_close(g[i][k].cpu(), w[i][k], rtol=0,
+                                           atol=0)
+        assert g[2:4] == w[2:4]
+        assert g[5].payload.is_cuda and torch.equal(g[5].payload.cpu(),
+                                                    w[5].payload)
+        torch.testing.assert_close(g[5].dense.cpu(), w[5].dense, rtol=0,
+                                   atol=0)
+        assert (g[5].eff_wire, g[5].seeded) == (w[5].eff_wire, 1.0)
+    if delay:
+        assert not any(got[0][0][k].any() for k in tree)

@@ -1,15 +1,20 @@
-"""A JAX reference round of the trainer for ``kind="acgd"`` and the
-compressed downlink, shared by tests/test_torch_acgd.py and
-tests/test_torch_downlink.py.
+"""A JAX reference round of the trainer for ``kind="acgd"``, the
+compressed downlink and the overlap transport, shared by
+tests/test_torch_acgd.py, tests/test_torch_downlink.py and
+tests/test_torch_overlap_train.py.
 
 The reference composes ``worker_fn``'s lines
 (src/repro/launch/train_step.py:685-941) from the JAX package's own
 functions — ``armijo_search``, ``gamma_update``, the acgd round's two
 momentum lines as the worker writes them, the downlink's gamma round and
-``worker_compress_aggregate(downlink_ctx=...)``, ``all_finite`` and
-``advance_health`` — jitted, with the model OUTSIDE any mesh (the LM
-step under a mesh fails on this tree, ROADMAP queue 3); only the
-exchange runs in a 1-device ``shard_map``, for its collectives.
+``worker_compress_aggregate(downlink_ctx=...)`` or its overlap seam
+(``transport_ctx=OverlapCtx``, :742-790, and the ``staleness`` metric),
+``all_finite`` and ``advance_health`` — jitted, with the model OUTSIDE
+any mesh (the LM step under a mesh fails on this tree, ROADMAP queue
+3); only the exchange runs in a 1-device ``shard_map``, for its
+collectives.  With ``local_steps`` H > 1 the round is
+``_local_steps_worker``'s (:381-509): H searched local steps in a
+``lax.scan``, then one exchange of the model delta at eta 1.
 
 :func:`run_both` drives the port's ``train_step`` beside it, each round
 from the reference's parameters, EF memory, velocity and server memory
@@ -34,6 +39,9 @@ from jax.sharding import PartitionSpec as P
 from repro.comm.downlink import DownlinkCtx as JDownlinkCtx
 from repro.comm.downlink import DownlinkState as JDownlinkState
 from repro.comm.downlink import init_downlink_state as jinit_downlink
+from repro.comm.overlap import OverlapConfig as JOverlapConfig
+from repro.comm.overlap import OverlapCtx as JOverlapCtx
+from repro.comm.overlap import init_overlap_state as jinit_overlap
 from repro.compat import shard_map
 from repro.configs import get_smoke_config as jax_smoke_config
 from repro.core import ArmijoConfig as JArmijo
@@ -51,12 +59,15 @@ from repro.core.health import all_finite as jall_finite
 from repro.core.telemetry import CompressionTelemetry as JTel
 from repro.core.telemetry import SearchTelemetry as JSearch
 from repro.models import build_model
+from repro_torch.comm.bucket import decode_buckets
 from repro_torch.comm.downlink import DownlinkState, downlink_plan
+from repro_torch.comm.overlap import OverlapConfig, OverlapState
 from repro_torch.configs import get_smoke_config
 from repro_torch.configs.base import OptimizerConfig, RunConfig, ShapeConfig
 from repro_torch.convert import to_torch
 from repro_torch.core.compression import Compressor
 from repro_torch.core.gamma import GammaControllerConfig
+from repro_torch.core.leafmath import scatter_layers
 from repro_torch.data.synthetic import TokenPipeline
 from repro_torch.launch.train_step import init_train_state, train_step
 from repro_torch.models import lm
@@ -83,6 +94,9 @@ class Case:
     eta: float = 0.1
     momentum: float = 0.9
     max_skips: int = 25
+    overlap_delay: int = 1        # read under transport="overlap"
+    overlap_chunks: int = 3
+    local_steps: int = 1
 
     def comp_kw(self):
         return dict(gamma=self.gamma, method="block_topk",
@@ -95,10 +109,16 @@ class Case:
         return dict(schedule=self.downlink_schedule,
                     gamma0=self.downlink_gamma, ramp_steps=2)
 
+    def overlap(self):
+        return dict(n_chunks=self.overlap_chunks, delay=self.overlap_delay)
+
     def run(self) -> RunConfig:
         return RunConfig(
             model=get_smoke_config(ARCH), shape=ShapeConfig(SEQ, BATCH),
+            microbatches=self.local_steps,
             optimizer=OptimizerConfig(
+                overlap=OverlapConfig(**self.overlap()),
+                local_steps=self.local_steps,
                 kind=self.kind, eta=self.eta, momentum=self.momentum,
                 max_consecutive_skips=self.max_skips,
                 compressor=Compressor(**self.comp_kw()),
@@ -123,7 +143,9 @@ def jax_step(case: Case):
     """One worker's round of ``worker_fn`` for ``case``, jitted.
     ``ctx``: (alpha_prev, n_evals_ema, gamma_prev, step, telemetry,
     health, downlink gamma, cum_eff); ``dl_mem`` the server memory (a
-    0-word placeholder without the downlink)."""
+    0-word placeholder without the downlink); ``ov`` the carried
+    ``OverlapState`` (``()`` without the overlap transport), returned
+    last."""
     model, _ = jax_model()
     comp = JCompressor(**case.comp_kw())
     arm = JArmijo()
@@ -133,12 +155,108 @@ def jax_step(case: Case):
     mu = case.momentum
     acgd_mode = case.kind == "acgd"
     downlink_mode = case.downlink == "compressed"
+    overlap_mode = case.transport == "overlap"
+    ov_cfg = JOverlapConfig(**case.overlap())
+    H = case.local_steps
 
     def local_loss(params, batch):
         return model.loss(params, batch)[0]
 
+    def exchange(send, mem, eta, gamma_t, ov, smask):
+        """The plain exchange, or the overlap seam (worker_fn:775-785,
+        _local_steps_worker:422-435): ``(..., new ov or ())``."""
+        spec = jax.tree.map(lambda _: P(), send)
+        if not overlap_mode:
+            return shard_map(
+                lambda g, m, e, gt: jwca(
+                    g, m, e, comp, ("data",), stacked_mask=smask,
+                    gamma_t=gt, transport=case.transport),
+                mesh=mesh, in_specs=(spec, spec, P(), P()),
+                out_specs=(spec, spec, P(), P(), P()),
+                axis_names={"data"})(send, mem, eta, gamma_t) + ((),)
+        return shard_map(
+            lambda g, m, e, gt, st: jwca(
+                g, m, e, comp, ("data",), stacked_mask=smask, gamma_t=gt,
+                transport="overlap",
+                transport_ctx=JOverlapCtx(cfg=ov_cfg, state=st)),
+            mesh=mesh, in_specs=(spec, spec, P(), P(), P()),
+            out_specs=(spec, spec, P(), P(), P(), P()),
+            axis_names={"data"})(send, mem, eta, gamma_t, ov)
+
+    def finish(params, mem, vel, dl_mem, ov, ctx, upd, new_mem, new_vel,
+               new_dl_mem, new_ov, metrics, loss, new_alpha, new_ema,
+               gamma_t, tel, dl_gamma, eff, dl_eff):
+        """worker_fn:836-941: cum_eff, the parameters, the breaker."""
+        (alpha_prev, ema, gamma_prev, t, tel_prev, health, dl_gamma_prev,
+         cum_eff) = ctx
+        new_cum = cum_eff + eff
+        if downlink_mode:
+            new_cum = new_cum + dl_eff
+        if overlap_mode:
+            metrics["stale"] = jnp.float32(case.overlap_delay) * ov.seeded
+        new_params = jax.tree.map(
+            lambda p, u: (p.astype(jnp.float32) - u).astype(p.dtype),
+            params, upd)
+        step_ok = jnp.isfinite(loss) & jall_finite(upd)
+        new_params = jax.tree.map(
+            lambda a, b: jnp.where(step_ok, a, b), new_params, params)
+        new_health = jadvance_health(health, step_ok, t, jnp.float32(0.0))
+        new_ctx = (new_alpha, new_ema, gamma_t, t + 1, tel, new_health,
+                   dl_gamma, new_cum)
+        frozen = (alpha_prev, ema, gamma_prev, t + 1, tel_prev, new_health,
+                  dl_gamma_prev, new_cum)
+        new_ctx, new_mem, new_vel, new_dl_mem, new_ov = jax.tree.map(
+            lambda a, b: jnp.where(step_ok, a, b),
+            (new_ctx, new_mem, new_vel, new_dl_mem, new_ov),
+            (frozen, mem, vel, dl_mem, ov))
+        return (new_params, new_mem, new_vel, new_dl_mem, new_ctx, metrics,
+                step_ok, new_ov)
+
+    def local_round(params, mem, vel, dl_mem, ctx, batch, ov):
+        """_local_steps_worker:386-449, written as the worker writes it."""
+        alpha_prev, ema, gamma_prev, t, tel_prev = ctx[:5]
+        mbs = jax.tree.map(
+            lambda x: x.reshape(H, x.shape[0] // H, *x.shape[1:]), batch)
+
+        def one(carry, mb):
+            p_loc, amax, ev = carry
+            loss, g = jax.value_and_grad(local_loss)(p_loc, mb)
+            res = jarmijo(lambda p: local_loss(p, mb), p_loc, g, amax, arm,
+                          f0=loss, grad_sqnorm=jsqnorm(g))
+            eta = arm.a_scale * res.alpha
+            p_loc = jax.tree.map(
+                lambda p, gg: (p.astype(jnp.float32)
+                               - eta * gg.astype(jnp.float32)).astype(p.dtype),
+                p_loc, g)
+            return (p_loc, jnext_alpha_max(res.alpha, arm),
+                    ev + res.n_evals.astype(jnp.float32)), (loss, res.alpha)
+
+        (p_end, amax_f, evals), (losses, alphas) = jax.lax.scan(
+            one, (params, jnext_alpha_max(alpha_prev, arm),
+                  jnp.float32(0.0)), mbs)
+        gamma_t = jgamma_update(
+            ctrl, comp, gamma_prev, t,
+            search=JSearch(alpha=alphas[-1], alpha_prev=alpha_prev,
+                           n_evals=evals / H, n_evals_ema=ema),
+            compression=tel_prev)
+        delta = jax.tree.map(
+            lambda a, b: a.astype(jnp.float32) - b.astype(jnp.float32),
+            params, p_end)
+        upd, new_mem, wire, eff, tel, new_ov = exchange(
+            delta, mem, jnp.float32(1.0), gamma_t, ov,
+            model.stacked_mask(params))
+        loss = jnp.mean(losses)
+        metrics = dict(loss=loss, alpha=alphas[-1], n_evals=evals / H,
+                       wire=wire, eff=eff, dl_wire=None, dl_eff=None)
+        return finish(params, mem, vel, dl_mem, ov, ctx, upd, new_mem, vel,
+                      dl_mem, new_ov, metrics, loss, amax_f / arm.omega,
+                      0.9 * ema + 0.1 * evals / H, gamma_t, tel, ctx[6],
+                      eff, None)
+
     @jax.jit
-    def step(params, mem, vel, dl_mem, ctx, batch):
+    def step(params, mem, vel, dl_mem, ctx, batch, ov=()):
+        if H > 1:
+            return local_round(params, mem, vel, dl_mem, ctx, batch, ov)
         (alpha_prev, ema, gamma_prev, t, tel_prev, health, dl_gamma_prev,
          cum_eff) = ctx
         loss, grads = jax.value_and_grad(local_loss)(params, batch)
@@ -173,6 +291,7 @@ def jax_step(case: Case):
         smask = model.stacked_mask(params)
         # worker_fn:786-800
         dl_gamma = dl_gamma_prev
+        new_ov = ov
         if downlink_mode:
             dl_gamma = jgamma_update(dl_ctrl, comp, dl_gamma_prev, t)
             upd, new_mem, wire, eff, tel, dl_res = shard_map(
@@ -187,38 +306,14 @@ def jax_step(case: Case):
             new_dl_mem = dl_res.state.memory
             dl_wire, dl_eff = dl_res.wire_bytes, dl_res.eff_wire_bytes
         else:
-            upd, new_mem, wire, eff, tel = shard_map(
-                lambda g, m, e, gt: jwca(
-                    g, m, e, comp, ("data",), stacked_mask=smask,
-                    gamma_t=gt, transport=case.transport),
-                mesh=mesh, in_specs=(spec, spec, P(), P()),
-                out_specs=(spec, spec, P(), P(), P()),
-                axis_names={"data"})(send, mem, eta, gamma_t)
+            upd, new_mem, wire, eff, tel, new_ov = exchange(
+                send, mem, eta, gamma_t, ov, smask)
             new_dl_mem, dl_wire, dl_eff = dl_mem, None, None
-        # worker_fn:836-846
-        new_cum = cum_eff + eff
-        if downlink_mode:
-            new_cum = new_cum + dl_eff
-        new_params = jax.tree.map(
-            lambda p, u: (p.astype(jnp.float32) - u).astype(p.dtype),
-            params, upd)
-        # worker_fn:856-941
-        step_ok = jnp.isfinite(loss) & jall_finite(upd)
-        new_params = jax.tree.map(
-            lambda a, b: jnp.where(step_ok, a, b), new_params, params)
-        new_health = jadvance_health(health, step_ok, t, jnp.float32(0.0))
-        new_ctx = (new_alpha, new_ema, gamma_t, t + 1, tel, new_health,
-                   dl_gamma, new_cum)
-        frozen = (alpha_prev, ema, gamma_prev, t + 1, tel_prev, new_health,
-                  dl_gamma_prev, new_cum)
-        new_ctx, new_mem, new_vel, new_dl_mem = jax.tree.map(
-            lambda a, b: jnp.where(step_ok, a, b),
-            (new_ctx, new_mem, new_vel, new_dl_mem),
-            (frozen, mem, vel, dl_mem))
-        return (new_params, new_mem, new_vel, new_dl_mem, new_ctx,
-                dict(loss=loss, alpha=alpha_m, n_evals=evals_m, wire=wire,
-                     eff=eff, dl_wire=dl_wire, dl_eff=dl_eff),
-                step_ok)
+        metrics = dict(loss=loss, alpha=alpha_m, n_evals=evals_m, wire=wire,
+                       eff=eff, dl_wire=dl_wire, dl_eff=dl_eff)
+        return finish(params, mem, vel, dl_mem, ov, ctx, upd, new_mem,
+                      new_vel, new_dl_mem, new_ov, metrics, loss, new_alpha,
+                      new_ema, gamma_t, tel, dl_gamma, eff, dl_eff)
 
     return step
 
@@ -256,6 +351,52 @@ def assert_server_close(jmem, tmem, params, comp):
     assert off == a.size
 
 
+def _plan_of(params, comp):
+    leaves = tree_flatten(params)[0]
+    return leaves, downlink_plan([p.shape for p in leaves],
+                                 tree_flatten(lm.stacked_mask(params))[0],
+                                 comp)
+
+
+def to_port_overlap(jst) -> OverlapState:
+    """The port's twin of JAX's carried ``OverlapState`` (uint32 words
+    read as int32: the same bits)."""
+    return OverlapState(
+        payload=torch.from_numpy(np.asarray(jst.payload).view(np.int32)
+                                 .copy()),
+        dense=torch.from_numpy(np.array(jst.dense)),
+        eff_wire=f32(np.asarray(jst.eff_wire)),
+        seeded=f32(np.asarray(jst.seeded)))
+
+
+def assert_overlap_close(jst, tst, params, comp):
+    """The carried state: effective bytes and ``seeded`` bit for bit; each
+    compressed leaf's decoded payload rows and each dense leaf's carried
+    accumulator within 1e-5 of that parameter leaf's max |p| (both sides
+    encode their own gradients, which differ in the last bits)."""
+    leaves, plan = _plan_of(params, comp)
+    assert f32(tst.eff_wire).view(np.int32) == \
+        np.asarray(jst.eff_wire, np.float32).view(np.int32)
+    assert tst.seeded == float(np.asarray(jst.seeded))
+    dec = [decode_buckets(plan, pay[None]) for pay in (
+        to_port_overlap(jst).payload, tst.payload)]
+    off = 0
+    for ln in plan.leaves:
+        scale = float(leaves[ln.index].abs().max())
+        if ln.dense:
+            n = ln.L * ln.d
+            a = np.asarray(jst.dense)[off:off + n]
+            b = tst.dense.numpy()[off:off + n]
+            off += n
+        else:
+            a, b = (scatter_layers(*d[ln.index], ln.L, ln.d).numpy()
+                    for d in dec)
+        err = float(np.abs(a - b).max())
+        assert err <= 1e-5 * scale, f"carried leaf {ln.index}: {err} " \
+            f"vs max|p| {scale}"
+    assert off == tst.dense.numel()
+
+
 def _copy(tree):
     """Fresh device arrays: a jitted round fed its own outputs would
     compile again (their shardings differ)."""
@@ -280,6 +421,11 @@ def run_both(case: Case, steps: int = STEPS):
         dl_mem, dl_gamma = dl0.memory, dl0.gamma
     else:
         dl_mem, dl_gamma = jnp.zeros((0,), jnp.float32), jnp.float32(0.0)
+    ov = ()
+    if case.transport == "overlap":
+        ov = jinit_overlap(
+            [x.shape for x in jax.tree.leaves(params)],
+            jax.tree.leaves(model.stacked_mask(params)), comp)
     ctx = (jnp.float32(JArmijo().alpha0), jnp.float32(0.0),
            jgamma_init(JGammaCfg(**case.ctrl_kw()), comp), jnp.int32(0),
            JTel.init(), JHealth.init(), dl_gamma, jnp.float32(0.0))
@@ -292,6 +438,11 @@ def run_both(case: Case, steps: int = STEPS):
     if state.downlink is not None:
         assert state.downlink.gamma == f32(np.asarray(dl_gamma))
         assert tuple(state.downlink.memory.shape) == tuple(dl_mem.shape)
+    assert (state.overlap is None) == (case.transport != "overlap")
+    if state.overlap is not None:
+        assert tuple(state.overlap.payload.shape) == ov.payload.shape
+        assert_overlap_close(ov, state.overlap, to_torch(
+            jax.tree.map(np.asarray, params)), tcomp)
     pipe = TokenPipeline(vocab_size=run.model.vocab_size, seq_len=SEQ,
                          global_batch=BATCH)
     log = []
@@ -306,11 +457,13 @@ def run_both(case: Case, steps: int = STEPS):
         if state.downlink is not None:
             state = dataclasses.replace(state, downlink=DownlinkState(
                 torch.from_numpy(np.array(dl_mem)), state.downlink.gamma))
-        (params, mem, vel, dl_mem, ctx, jm, _) = jstep(
+        if state.overlap is not None:
+            state = dataclasses.replace(state, overlap=to_port_overlap(ov))
+        (params, mem, vel, dl_mem, ctx, jm, _, ov) = jstep(
             params, mem, vel, dl_mem, ctx,
-            {"tokens": jnp.asarray(batch["tokens"])})
-        params, mem, vel, dl_mem, ctx = _copy((params, mem, vel, dl_mem,
-                                               ctx))
+            {"tokens": jnp.asarray(batch["tokens"])}, ov)
+        params, mem, vel, dl_mem, ov, ctx = _copy((params, mem, vel, dl_mem,
+                                                   ov, ctx))
         tparams, state, m = train_step(tparams, state, batch, run)
         log.append(m)
         np.testing.assert_allclose(m["loss"], float(jm["loss"]), rtol=1e-5)
@@ -334,6 +487,11 @@ def run_both(case: Case, steps: int = STEPS):
                                 tcomp)
         else:
             assert "downlink_wire_bytes" not in m
+        if case.transport == "overlap":
+            assert m["staleness"] == float(jm["stale"]), t
+            assert_overlap_close(ov, state.overlap, tparams, tcomp)
+        else:
+            assert "staleness" not in m
         h = state.health
         assert (h.steps_skipped, h.consecutive_skips, h.last_good_step) \
             == (int(ctx[5].steps_skipped), int(ctx[5].consecutive_skips),
@@ -344,3 +502,45 @@ def run_both(case: Case, steps: int = STEPS):
             assert_tree_close(vel, state.velocity, params,
                               f"step {t} velocity")
     return tparams, state, log
+
+
+# ---- shared by tests/test_torch_overlap_train.py and
+# tests/test_torch_overlap_runtime.py
+
+def overlap_cases(H):
+    """delay 0 and 1 for csgd_asss and nonadaptive, at H local steps."""
+    return [Case(kind, transport="overlap", overlap_delay=delay,
+                 local_steps=H, eta=0.1)
+            for kind in ("csgd_asss", "nonadaptive") for delay in (0, 1)]
+
+
+def check_overlap_rounds(case):
+    """3 rounds against JAX; staleness 0, 1, 1 at delay 1, else 0."""
+    _, state, log = run_both(case)
+    stale = [m["staleness"] for m in log]
+    assert stale == ([0.0, 1.0, 1.0] if case.overlap_delay else [0.0] * 3)
+    assert state.overlap.seeded == 1.0
+
+
+def overlap_run(delay=1, **opt):
+    """The smoke RunConfig of csgd_asss on overlap, with ``opt``."""
+    case = Case("csgd_asss", transport="overlap", overlap_delay=delay)
+    run = case.run()
+    return dataclasses.replace(run, optimizer=dataclasses.replace(
+        run.optimizer, **opt)) if opt else run
+
+
+def assert_bitwise_equal(a, b):
+    """Two trees (dicts, dataclasses, tensors, host scalars) bit for bit."""
+    if dataclasses.is_dataclass(a):
+        for f in dataclasses.fields(a):
+            assert_bitwise_equal(getattr(a, f.name), getattr(b, f.name))
+    elif isinstance(a, dict):
+        for k in a:
+            assert_bitwise_equal(a[k], b[k])
+    elif isinstance(a, torch.Tensor):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a.reshape(-1).view(torch.uint8),
+                           b.reshape(-1).view(torch.uint8))
+    else:
+        assert np.asarray(a).tobytes() == np.asarray(b).tobytes(), (a, b)
