@@ -152,12 +152,25 @@ Phases, each fatal on failure (no phase catches and continues):
    resumed to 4, bit for bit with 4 straight steps; warm step times and
    peaks (above what earlier runs hold); one profiled delay-1 step,
    as in 4b, with its ``train_step.overlap_start`` span;
+4j. the gossip transport at full width on one worker (ring(1): no edge,
+   so no P2P operation), gamma 0.01, the counts set to 0 just before
+   each run and read just after (the ragged codec kernels must stay at
+   0): ``--transport gossip`` for 3 steps at 32- and at 8-bit values
+   against ``bucketed`` from the same seed: EF memory bit for bit,
+   parameters equal (``torch.equal``), wire and effective bytes and
+   gamma_t equal, bucketed's launches, the GossipState at v 0 and lr 1
+   after every step; a checkpoint after 2 steps resumed to 4, bit for
+   bit with 4 straight steps; warm step times and peaks; one profiled
+   warm gossip step beside a bucketed one, as in 4b: the gossip
+   exchange span shows no collective and no NCCL kernel while
+   bucketed's shows its all-gather and all-reduce (the metrics'
+   all-reduce lies outside the span);
 5. run the 2-layer smoke variants on the card and on the CPU (the plain
    versions, which the CPU tests hold against the JAX package), through
    the trainer for 2 steps (``--opt csgd_asss``, ``nonadaptive``,
    ``sls`` and ``acgd``, ``--local-steps 2 --microbatches 2``,
    ``--ef-dtype bfloat16``, ``--downlink compressed``, ``--transport
-   overlap`` at delay 1 and 0, and on
+   overlap`` at delay 1 and 0, ``--transport gossip``, and on
    ``--transport perleaf --max-gamma 0.1``), through
    CSGD-ASSS for 3 and through serving
    (qwen1.5-4b and rwkv6-1.6b, ctx 96, 4 tokens), and compare: equal
@@ -249,6 +262,8 @@ ACGD_STEPS, ACGD_SINGLE_STEPS, SERVER_WORDS = 2, 3, 110_100_480
 #: phase 4i: steps of each delay-0 run, ring chunks, and the steps of the
 #: local-steps and adaptive runs
 OVERLAP_STEPS, OVERLAP_CHUNKS, OVERLAP_LOCAL = 3, 4, 2
+#: phase 4j: steps of each gossip run beside bucketed
+GOSSIP_STEPS = 3
 
 
 def fail(msg: str) -> None:
@@ -1617,6 +1632,208 @@ def overlap_trainer(dev, root: Path) -> None:
         print(f"overlap warm step_s [{label}]: {t}", flush=True)
 
 
+def gossip_trainer(dev, root: Path) -> None:
+    """Phase 4j: ``--transport gossip`` at full width through
+    ``launch.train`` on one worker (ring(1): no edge), the launch counts
+    set to 0 just before each run and read just after: against bucketed
+    from the same seed at 32 and 8 bits (EF memory bit for bit,
+    parameters equal, bytes and gamma_t equal, bucketed's launches, v 0
+    and lr 1 after every step), and a checkpoint after 2 steps resumed
+    to 4, bit for bit with 4 straight steps."""
+    import shutil
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    base = MAIN_ARGS + ["--gamma", "0.01"]
+    gossip = ["--transport", "gossip", "--topology", "ring"]
+
+    def checked_run(label, extra, steps, want=None, first=0):
+        """Steps ``first`` ... ``steps`` - 1 of ``base + extra``, (v, lr)
+        read after each; fails on a non-finite loss, a skipped step, a
+        ragged launch or launches other than ``want`` when given."""
+        torch.cuda.reset_peak_memory_stats(dev)
+        live = torch.cuda.memory_allocated(dev)
+        seen = []
+        real = train.train_step
+
+        def recording(*a, **k):
+            out = real(*a, **k)
+            if out[1].gossip is not None:
+                seen.append((float(out[1].gossip.v),
+                             float(out[1].gossip.lr)))
+            return out
+        train.train_step = recording
+        try:
+            ops.reset_launch_counts()
+            log, params, state = train.run(base + extra + ["--steps",
+                                                           str(steps)])
+            counts = ops.launch_counts()
+        finally:
+            train.train_step = real
+        peak = torch.cuda.max_memory_allocated(dev) - live
+        print(f"gossip [{label}]: launches {counts}; step_s "
+              f"{[round(x['step_s'], 4) for x in log]}; (static, "
+              f"effective) bytes "
+              f"{[(x['wire_bytes'], x['effective_wire_bytes']) for x in log]}"
+              f"; losses {[x['loss'] for x in log]}; gamma "
+              f"{[x['gamma'] for x in log]}; (v, lr) {seen}; peak memory "
+              f"{peak / 2**30:.2f} GiB above the {live / 2**30:.2f} GiB "
+              "live before the run", flush=True)
+        if len(log) != steps - first or not all(np.isfinite(x["loss"])
+                                        for x in log) \
+                or any(x["steps_skipped"] for x in log):
+            fail(f"[gossip {label}] non-finite loss or skipped steps: "
+                 f"{[x['loss'] for x in log]}")
+        if counts.get("pack_words_ragged") or counts.get(
+                "unpack_words_ragged"):
+            fail(f"[gossip {label}] ragged codec launches {counts}")
+        if want is not None and counts != want:
+            fail(f"[gossip {label}] launches {counts}, want {want}")
+        if "--transport" in extra and seen != [(0.0, 1.0)] * len(log):
+            fail(f"[gossip {label}] (v, lr) after each step {seen}, want "
+                 "(0, 1): one worker has no neighbour")
+        return log, params, state, counts, peak
+
+    def trees_value_equal(a, b) -> bool:
+        from repro_torch.utils import tree_leaves
+        la, lb = tree_leaves(a), tree_leaves(b)
+        return len(la) == len(lb) and all(torch.equal(x, y)
+                                          for x, y in zip(la, lb))
+
+    times = {}
+    for bits in ("32", "8"):
+        extra = ["--value-bits", bits]
+        buck = checked_run(f"bucketed {bits}-bit", extra, GOSSIP_STEPS)
+        gos = checked_run(f"gossip {bits}-bit", extra + gossip,
+                          GOSSIP_STEPS, want=buck[3])
+        if not trees_equal(gos[2].memory, buck[2].memory):
+            fail(f"[gossip {bits}-bit] EF memory differs from bucketed's")
+        if not trees_value_equal(gos[1], buck[1]):
+            fail(f"[gossip {bits}-bit] parameters differ from bucketed's")
+        for k in ("wire_bytes", "effective_wire_bytes", "gamma"):
+            if [x[k] for x in gos[0]] != [x[k] for x in buck[0]]:
+                fail(f"[gossip {bits}-bit] {k} {[x[k] for x in gos[0]]} "
+                     f"!= bucketed's {[x[k] for x in buck[0]]}")
+        if gos[2].gossip.v.device != dev:
+            fail("[gossip] the GossipState is not on the card")
+        times[f"bucketed {bits}-bit"] = [x["step_s"] for x in buck[0][1:]]
+        times[f"gossip {bits}-bit"] = [x["step_s"] for x in gos[0][1:]]
+        print(f"gossip [{bits}-bit]: EF memory bit-identical, parameters "
+              f"equal, wire and effective bytes and gamma_t equal to "
+              f"bucketed after {GOSSIP_STEPS} steps with bucketed's "
+              f"launches {buck[3]}; peak {gos[4] / 2**30:.2f} GiB vs "
+              f"{buck[4] / 2**30:.2f}", flush=True)
+        del buck, gos
+
+    # ---- a checkpoint after 2 steps, resumed to 4 -----------------------
+    tmp = root / "_smoke_ckpt"
+    shutil.rmtree(tmp, ignore_errors=True)
+    try:
+        d = str(tmp / "gossip")
+        straight = checked_run("gossip 4 steps", gossip, 4)
+        times["gossip 4 steps"] = [x["step_s"] for x in straight[0][1:]]
+        checked_run("gossip 2 steps, saved", gossip + [
+            "--ckpt-dir", d, "--ckpt-every", "2"], 2)
+        log, params, state, _, _ = checked_run(
+            "gossip resumed to 4", gossip + ["--ckpt-dir", d, "--resume"], 4,
+            first=2)
+        if [x["step"] for x in log] != [2, 3] or not trees_equal(
+                params, straight[1]) or not trees_equal(
+                    state.memory, straight[2].memory) or not (
+                bits_equal(state.gossip.v, straight[2].gossip.v)
+                and bits_equal(state.gossip.lr, straight[2].gossip.lr)):
+            fail("[gossip checkpoint] a resume from step 2 to 4 differs "
+                 "from 4 uninterrupted steps")
+        print("gossip [checkpoint]: resumed from step 2 to 4 bit-identical "
+              "to 4 uninterrupted steps (parameters, EF memory, v, lr)",
+              flush=True)
+        del straight, params, state
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for label, t in times.items():
+        print(f"gossip warm step_s [{label}]: {t}", flush=True)
+
+
+def exchange_collectives(prof) -> list[str]:
+    """Names of the collective calls and NCCL kernels that the profile
+    shows inside the ``train_step.exchange`` span."""
+    cpu = torch.autograd.DeviceType.CPU
+    evs = list(prof.events())
+    spans = [e for e in evs if e.name == "train_step.exchange"
+             and e.device_type == cpu]
+    if len(spans) != 1:
+        fail(f"the profile has {len(spans)} train_step.exchange spans")
+    lo, hi = spans[0].time_range.start, spans[0].time_range.end
+    names = []
+    for e in evs:
+        if e.device_type != cpu or not (lo <= e.time_range.start
+                                        and e.time_range.end <= hi):
+            continue
+        low = e.name.lower()
+        if "nccl" in low or "c10d" in low or "all_reduce" in low \
+                or "allreduce" in low or "all_gather" in low \
+                or "allgather" in low:
+            names.append(e.name)
+        names += [k.name for k in getattr(e, "kernels", ())
+                  if "nccl" in k.name.lower()]
+    return names
+
+
+def profile_gossip(dev, cfg, comp) -> None:
+    """Phase 4j: one warm full-width gossip step under torch.profiler, as
+    in 4b, beside a bucketed one: the exchange span of gossip shows no
+    collective and no NCCL kernel, bucketed's shows its all-gather and
+    all-reduce (the check's control); the peak device memory above what
+    was live before the run."""
+    from repro_torch.comm.exchange import init_process_group
+    from repro_torch.configs.base import OptimizerConfig, RunConfig, \
+        ShapeConfig
+    from repro_torch.data.synthetic import TokenPipeline
+    from repro_torch.launch.train_step import init_train_state, train_step
+    from repro_torch.models import lm
+    for transport in ("bucketed", "gossip"):
+        run = RunConfig(model=cfg, shape=ShapeConfig(256, 8),
+                        optimizer=OptimizerConfig(compressor=comp,
+                                                  transport=transport))
+        torch.cuda.reset_peak_memory_stats(dev)
+        live = torch.cuda.memory_allocated(dev)
+        created = init_process_group(dev)
+        try:
+            params = lm.init_params(cfg, seed=0, device=dev)
+            state = init_train_state(params, run)
+            pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=256,
+                                 global_batch=8)
+            for step in range(2):
+                batch = {k: v.to(dev) for k, v in pipe.batch(step).items()}
+                params, state, _ = train_step(params, state, batch, run)
+            batch = {k: v.to(dev) for k, v in pipe.batch(2).items()}
+            prof, wall_ms = profiled(
+                dev, lambda: train_step(params, state, batch, run))
+        finally:
+            if created:
+                torch.distributed.destroy_process_group()
+        peak = torch.cuda.max_memory_allocated(dev) - live
+        label = f"trainer {transport}, one worker"
+        spans = report_profile(label, prof, wall_ms,
+                               ("ef_stats_telemetry_kernel",
+                                "ef_apply_kernel", "pack_words_kernel",
+                                "unpack_words_kernel"))
+        if len(spans) != 4 or min(spans.values()) <= 0:
+            fail(f"the profiler saw {label} train_step spans {spans}, "
+                 "want 4 timed")
+        coll = exchange_collectives(prof)
+        print(f"  exchange span collectives: {sorted(set(coll))}; peak "
+              f"memory {peak / 2**30:.2f} GiB above the "
+              f"{live / 2**30:.2f} GiB live before the run", flush=True)
+        if transport == "gossip" and coll:
+            fail(f"[gossip profile] the exchange span shows collectives "
+                 f"{sorted(set(coll))}")
+        if transport == "bucketed" and not coll:
+            fail("[gossip profile] the control failed: bucketed's "
+                 "exchange span shows no collective")
+        del params, state, prof
+
+
 def run_single(dev, cfg, comp, steps, label, make_opt) -> dict:
     """Phases 4c and 4h: a single-node optimizer (``make_opt(compressor)``
     -> CSGD-ASSS or ACGD) on the full-width model through the library
@@ -2275,6 +2492,10 @@ def main() -> None:
     profile_step(dev, cfg, comp, "trainer overlap delay 1",
                  transport="overlap")
 
+    # ---- 4j. the gossip transport at one worker -------------------------
+    gossip_trainer(dev, root)
+    profile_gossip(dev, cfg, comp)
+
     # ---- 5. small input: the card against the CPU's plain path ----------
     small = ["--smoke", "--steps", "2", "--seq-len", "33", "--global-batch",
              "4", "--compress-method", "block_topk", "--log-every", "1"]
@@ -2288,7 +2509,8 @@ def main() -> None:
             ("overlap delay 1", ["--transport", "overlap",
                                  "--overlap-chunks", "3"]),
             ("overlap delay 0", ["--transport", "overlap",
-                                 "--overlap-delay", "0"])):
+                                 "--overlap-delay", "0"]),
+            ("gossip", ["--transport", "gossip"])):
         on_card = train.main(small + extra)
         on_cpu = train.main(small + extra + ["--device", "cpu"])
         for a, b in zip(on_card, on_cpu):

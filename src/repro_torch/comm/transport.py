@@ -23,10 +23,10 @@ sixth element::
     fn(..., gamma_t, ctx=ctx) -> (updates, new_mem, wire, eff, sums, state)
 
 The port registers ``bucketed`` and ``perleaf`` (both in
-``core/dcsgd.py``) and the stateful ``overlap`` (``comm/overlap.py``); the
-JAX package's stateful gossip and faulty transports are not ported.  The
-compressed downlink, which needs a single global aggregate, refuses a
-stateful transport as JAX's does.
+``core/dcsgd.py``) and the stateful ``overlap`` (``comm/overlap.py``) and
+``gossip`` (``comm/gossip.py``); the JAX package's stateful faulty
+transport is not ported.  The compressed downlink, which needs a single
+global aggregate, refuses a stateful transport as JAX's does.
 """
 from __future__ import annotations
 
@@ -61,6 +61,7 @@ def register_transport(name: str, *, stateful: bool = False,
 def _ensure_registered() -> None:
     """Import the modules that register the transports (lazily: they
     import this package)."""
+    import repro_torch.comm.gossip  # noqa: F401  (registers "gossip")
     import repro_torch.comm.overlap  # noqa: F401  (registers "overlap")
     import repro_torch.core.dcsgd  # noqa: F401  (bucketed, perleaf)
 

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import dataclasses
 
+from repro_torch.comm.gossip import GossipConfig
 from repro_torch.comm.overlap import OverlapConfig
 from repro_torch.core.armijo import ArmijoConfig
 from repro_torch.core.compression import Compressor
@@ -71,8 +72,8 @@ class ShapeConfig:
 KINDS = ("csgd_asss", "nonadaptive", "acgd", "sgd", "sls", "dense")
 #: kinds that compress with error feedback (EF memory, packed exchange)
 COMPRESSING = ("csgd_asss", "nonadaptive", "acgd")
-#: kinds the overlap transport takes (JAX's build_train_step)
-OVERLAP_KINDS = ("csgd_asss", "nonadaptive")
+#: kinds the overlap and gossip transports take (JAX's build_train_step)
+OVERLAP_KINDS = GOSSIP_KINDS = ("csgd_asss", "nonadaptive")
 #: kinds whose round takes ``local_steps`` > 1 (JAX's worker_fn dispatches
 #: only these to ``_local_steps_worker``; acgd refuses local steps)
 LOCAL_STEP_KINDS = ("csgd_asss", "nonadaptive")
@@ -106,11 +107,15 @@ class OptimizerConfig:
     momentum: float = 0.9
     # exchange schedule, validated against the comm.transport registry:
     # "bucketed" (one flat all_gather a step), "perleaf" (the reference,
-    # one all_gather a leaf) or "overlap" (the bucketed schedule over a
-    # chunked ring, shipping the previous step's payload at delay 1)
+    # one all_gather a leaf), "overlap" (the bucketed schedule over a
+    # chunked ring, shipping the previous step's payload at delay 1) or
+    # "gossip" (the payload sent to a topology's neighbours only, each
+    # worker mixing itself with them)
     transport: str = "bucketed"
     # overlap ring/staleness knobs; only read when transport="overlap"
     overlap: OverlapConfig = OverlapConfig()
+    # gossip/consensus hyper-parameters; only read when transport="gossip"
+    gossip: GossipConfig = GossipConfig()
     # circuit breaker: a non-finite round (loss or decoded update) skips
     # the parameter write with all carried optimizer state frozen; this
     # many CONSECUTIVE skips raise DivergenceError on the host
@@ -181,6 +186,22 @@ class OptimizerConfig:
                     "downlink='compressed' does not compose with "
                     "local_steps > 1 yet — the local-steps exchange applies "
                     "the dense mean delta directly")
+        if self.transport == "gossip":
+            # JAX's build_train_step also refuses a mesh of several
+            # data-parallel axes here; the port's group is one flat
+            # data-parallel axis, so that refusal has no counterpart
+            if self.kind not in GOSSIP_KINDS:
+                raise ValueError(
+                    f"transport 'gossip' needs a compressing optimizer "
+                    f"(csgd_asss | nonadaptive), got kind={self.kind!r}")
+            if self.local_steps > 1:
+                raise ValueError(
+                    "transport 'gossip' does not compose with "
+                    "local_steps > 1")
+            if self.shard_local_topk:
+                raise ValueError(
+                    "transport 'gossip' does not compose with "
+                    "shard_local_topk")
         if self.transport == "overlap":
             if self.kind not in OVERLAP_KINDS:
                 raise ValueError(

@@ -24,7 +24,9 @@ Two transports here, registered in ``comm/transport.py``:
 
 and the stateful ``overlap`` (``comm/overlap.py``): the bucketed
 schedule over a chunked ring, shipping the previous round's payload at
-``delay=1``.
+``delay=1``, and the stateful ``gossip`` (``comm/gossip.py``): the same
+payload sent to a topology's neighbours only, each worker mixing itself
+with them under an adaptive consensus step.
 
 ``bucketed`` and ``perleaf`` give the same updates, EF memory, byte
 counts and telemetry, bit for bit.  With an adaptive compressor
@@ -33,8 +35,8 @@ runs at the budget, entries past the round's count are masked behind
 each row's count header (workers may send different counts; each row
 is decoded at its own), the masked mass stays in the EF residual, and
 the effective byte count prices only the valid fields.  With ``downlink_ctx`` the mean update then passes the
-server's EF re-compression (``comm/downlink.py``).  The gossip and
-faulty transports of the JAX package are not ported.
+server's EF re-compression (``comm/downlink.py``).  The faulty
+transport of the JAX package is not ported.
 
 The EF memory may be f32 or bf16: every path, the dense leaves'
 included, reads it as f32 before the kernels and writes m' back with
@@ -87,8 +89,9 @@ def worker_compress_aggregate(grads, memory, eta, comp: Compressor,
     scalars, the rest tensors on the gradients' device.
 
     ``transport_ctx``: the context a stateful transport needs (``overlap``:
-    a :class:`repro_torch.comm.overlap.OverlapCtx`), None for the
-    stateless ones; a stateful transport appends its new carried state
+    a :class:`repro_torch.comm.overlap.OverlapCtx`, ``gossip``: a
+    :class:`repro_torch.comm.gossip.GossipCtx`), None for the stateless
+    ones; a stateful transport appends its new carried state
     to the return, a 6-tuple as JAX's.
 
     ``downlink_ctx`` (a :class:`repro_torch.comm.downlink.DownlinkCtx`):
@@ -98,17 +101,18 @@ def worker_compress_aggregate(grads, memory, eta, comp: Compressor,
     (the new server state, the downlink's static and effective bytes) is
     appended to the return.  The uplink's outputs do not change."""
     tp = get_transport(transport)
-    if downlink_ctx is not None and tp.stateful:
-        raise ValueError(
-            f"downlink_ctx needs a replicated global aggregate to "
-            f"re-compress; transport {transport!r} is stateful "
-            "(gossip/overlap have no single server-side mean)")
+    # JAX's order: the context first, then the downlink
     if tp.stateful and transport_ctx is None:
         raise ValueError(f"transport {transport!r} is stateful and needs "
                          "transport_ctx")
     if not tp.stateful and transport_ctx is not None:
         raise ValueError(f"transport {transport!r} is stateless; "
                          "transport_ctx must be None")
+    if downlink_ctx is not None and tp.stateful:
+        raise ValueError(
+            f"downlink_ctx needs a replicated global aggregate to "
+            f"re-compress; transport {transport!r} is stateful "
+            "(gossip/overlap have no single server-side mean)")
     flat_g, structure = tree_flatten(grads)
     flat_m = tree_flatten(memory)[0]
     flat_s = ([g.dim() >= 2 for g in flat_g] if stacked_mask is None

@@ -1,7 +1,7 @@
 """Training entry point of the port: the data-parallel trainer on the
 process group (twin of ``src/repro/launch/train.py``, the flags of its
-plain path on the ``bucketed``, ``perleaf`` and ``overlap`` transports,
-plus ``--device``).
+plain path on the ``bucketed``, ``perleaf``, ``overlap`` and ``gossip``
+transports, plus ``--device``).
 
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --compress-method block_topk --steps 4
@@ -46,6 +46,13 @@ and at 0 it equals ``bucketed`` bit for bit.  The log line adds
 ``stale=``, the ``staleness`` metric: 1 when the applied aggregate is
 one step old, 0 on the warm-up step (a zero update) and at delay 0.
 
+``--transport gossip --topology {ring,torus,exp}`` sends the bucketed
+payload to the graph's neighbours only (``comm/gossip.py``); each rank
+keeps its own model, mixes itself with its neighbours and steps the
+consensus correction by the AdaGossip rate (``--consensus-lr``,
+``--consensus-beta``, ``--consensus-lr-max``).  At one worker it posts
+no P2P operation and equals ``bucketed``.
+
 Checkpoints: ``--ckpt-dir D`` saves ``{"params", "state"}`` after every
 ``--ckpt-every`` completed steps and at the end, under
 ``D/rank_<r:03d>/step_<n:010d>`` (``checkpoint/checkpoint.py``), where
@@ -67,7 +74,9 @@ import torch.distributed as dist
 
 from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.comm.exchange import init_process_group
+from repro_torch.comm.gossip import GossipConfig
 from repro_torch.comm.overlap import OverlapConfig
+from repro_torch.comm.topology import TOPOLOGIES
 from repro_torch.comm.transport import transport_names
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import EF_DTYPES, KINDS, OptimizerConfig, \
@@ -152,8 +161,10 @@ def parse_args(argv=None):
                          "flat packed all_gather + batched launches; "
                          "perleaf = one collective per leaf (bit-exact "
                          "reference; the ragged kernels when adaptive); "
-                         "overlap = chunked-ring, double-buffered "
-                         "exchange (DESIGN.md §14)")
+                         "gossip = serverless neighbor P2P consensus "
+                         "exchange (DESIGN.md §12); overlap = "
+                         "chunked-ring, double-buffered exchange "
+                         "(DESIGN.md §14)")
     # ---- overlapped exchange (transport=overlap, DESIGN.md §14) ----
     ap.add_argument("--overlap-chunks", type=int,
                     default=OverlapConfig.n_chunks,
@@ -165,6 +176,20 @@ def parse_args(argv=None):
                     help="1 = double-buffered: ship the PREVIOUS step's "
                          "payload so the collective overlaps this step's "
                          "compute; 0 = synchronous (bit-exact vs bucketed)")
+    # ---- gossip / consensus (transport=gossip, DESIGN.md §12) ----
+    ap.add_argument("--topology", default=GossipConfig.topology,
+                    choices=sorted(TOPOLOGIES),
+                    help="gossip mixing graph over the dp workers")
+    ap.add_argument("--consensus-lr", type=float,
+                    default=GossipConfig.consensus_lr,
+                    help="numerator of the AdaGossip adaptive consensus "
+                         "step (capped at --consensus-lr-max)")
+    ap.add_argument("--consensus-beta", type=float,
+                    default=GossipConfig.beta,
+                    help="EMA decay of the gossip-error second moment")
+    ap.add_argument("--consensus-lr-max", type=float,
+                    default=GossipConfig.lr_max,
+                    help="consensus step cap (the fixed-step baseline)")
     ap.add_argument("--max-consecutive-skips", type=int,
                     default=OptimizerConfig.max_consecutive_skips,
                     help="step-level circuit breaker: this many consecutive "
@@ -285,6 +310,10 @@ def run(argv=None):
                 ramp_steps=args.gamma_ramp_steps, ef_target=args.ef_target,
                 ef_band=args.ef_band),
             transport=args.transport,
+            gossip=GossipConfig(topology=args.topology,
+                                consensus_lr=args.consensus_lr,
+                                beta=args.consensus_beta,
+                                lr_max=args.consensus_lr_max),
             overlap=OverlapConfig(n_chunks=args.overlap_chunks,
                                   delay=args.overlap_delay),
             ef_dtype=args.ef_dtype,

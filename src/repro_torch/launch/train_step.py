@@ -1,8 +1,8 @@
 """The data-parallel train step (twin of the plain body of ``worker_fn``
 in ``src/repro/launch/train_step.py``, its acgd round, compressed
-downlink and overlap seam, and its local-steps round,
-``_local_steps_worker``: no federated cohort, gossip, faults or
-shard-local top-k).
+downlink, overlap and gossip seams, and its local-steps round,
+``_local_steps_worker``: no federated cohort, faults or shard-local
+top-k).
 
 Each worker — one process of the data-parallel group, one device —
 
@@ -44,6 +44,14 @@ decodes and applies that one-round-old aggregate.  The metrics add
 warm-up round (the zero payload, a zero update) and at ``delay=0``,
 else 1.
 
+Under ``transport="gossip"`` (``comm/gossip.py``) workers' models
+genuinely diverge: each rank's ``params`` are its own model (JAX keeps
+them in ``DistOptState.gossip.params[w]`` beside a frozen common
+initialization; the port's ranks already hold their own), and
+``TrainState.gossip`` carries its AdaGossip ``(v, lr)``.  The topology
+is built once per (name, group size).  The updates are per worker, so
+the breaker's gate reads the group's loss mean alone, as JAX's does.
+
 Under the downlink the metrics add ``downlink_wire_bytes`` and
 ``downlink_effective_wire_bytes``; ``cum_effective_wire_bytes`` then
 prices both directions, ``(previous + uplink) + downlink`` with each sum
@@ -60,16 +68,20 @@ skips (``check_divergence``); with 0 non-finite rounds write through.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from repro_torch.comm.downlink import DownlinkCtx, DownlinkState, \
     init_downlink_state
 from repro_torch.comm.exchange import all_reduce_mean
+from repro_torch.comm.gossip import GossipCtx, GossipState
 from repro_torch.comm.overlap import OverlapCtx, OverlapState, \
     init_overlap_state, post_carried
+from repro_torch.comm.topology import Topology, build_topology
 from repro_torch.configs.base import COMPRESSING, LOCAL_STEP_KINDS, \
     SEARCHING
 from repro_torch.core.acgd import nesterov
@@ -115,11 +127,13 @@ class TrainState:
                                            # downlink="compressed"
     overlap: OverlapState | None = None    # the carried payload under
                                            # transport="overlap"
+    gossip: GossipState | None = None      # the AdaGossip (v, lr) under
+                                           # transport="gossip"
 
 
 def init_train_state(params, run_cfg) -> TrainState:
     opt = run_cfg.optimizer
-    downlink = overlap = None
+    downlink = overlap = gossip = None
     leaves = tree_flatten(params)[0]
     # the geometry the exchange uses: leaf shapes and lm.stacked_mask
     shapes = [p.shape for p in leaves]
@@ -132,6 +146,8 @@ def init_train_state(params, run_cfg) -> TrainState:
     if opt.kind in COMPRESSING and opt.transport == "overlap":
         overlap = init_overlap_state(shapes, stacked, opt.compressor,
                                      device=leaves[0].device)
+    if opt.kind in COMPRESSING and opt.transport == "gossip":
+        gossip = GossipState.init(leaves[0].device)
     return TrainState(
         step=0, alpha_prev=f32(opt.armijo.alpha0),
         memory=init_ef(params, getattr(torch, opt.ef_dtype))
@@ -147,7 +163,7 @@ def init_train_state(params, run_cfg) -> TrainState:
         velocity=tree_map(lambda p: torch.zeros(
             p.shape, dtype=torch.float32, device=p.device), params)
         if opt.kind == "acgd" else None,
-        downlink=downlink, overlap=overlap)
+        downlink=downlink, overlap=overlap, gossip=gossip)
 
 
 def microbatch_mean(total: torch.Tensor, micro: int) -> torch.Tensor:
@@ -229,7 +245,7 @@ def train_step(params, state: TrainState, batch: dict, run_cfg, group=None):
     # trainer's rule, not core/baselines.SLS's a = 1)
     eta = opt.armijo.scale_for(gamma_t) * alpha if search is not None \
         else alpha
-    dl_res, new_ov, new_vel = None, None, state.velocity
+    dl_res, new_ov, new_gs, new_vel = None, None, None, state.velocity
     with record_function("train_step.exchange"):
         if opt.kind in COMPRESSING:
             send = grads
@@ -250,7 +266,7 @@ def train_step(params, state: TrainState, batch: dict, run_cfg, group=None):
                 send, state.memory, eta, opt.compressor, group,
                 stacked_mask=lm.stacked_mask(params), gamma_t=gamma_t,
                 transport=opt.transport,
-                transport_ctx=_overlap_ctx(state, opt, started),
+                transport_ctx=_transport_ctx(state, opt, started, group),
                 downlink_ctx=ctx)
             del send
             updates, new_mem, wire, eff, tel = out[:5]
@@ -258,6 +274,8 @@ def train_step(params, state: TrainState, batch: dict, run_cfg, group=None):
                 dl_res = out[5]
             if state.overlap is not None:
                 new_ov = out[5]
+            if state.gossip is not None:
+                new_gs = out[5]
         else:
             updates, wire = dense_aggregate(grads, eta, group)
             eff, new_mem = wire, state.memory
@@ -269,7 +287,7 @@ def train_step(params, state: TrainState, batch: dict, run_cfg, group=None):
         params, state, run_cfg, group, loss=loss, gsq=gsq, alpha=alpha,
         n_evals=n_evals, gamma_t=gamma_t, updates=updates, new_mem=new_mem,
         wire=wire, eff=eff, tel=tel, new_alpha=new_alpha, new_ema=new_ema,
-        new_vel=new_vel, dl_res=dl_res, new_ov=new_ov)
+        new_vel=new_vel, dl_res=dl_res, new_ov=new_ov, new_gs=new_gs)
 
 
 def _overlap_start(state: TrainState, opt, group):
@@ -282,12 +300,22 @@ def _overlap_start(state: TrainState, opt, group):
         return post_carried(state.overlap, group, opt.overlap.n_chunks)
 
 
-def _overlap_ctx(state: TrainState, opt, started):
-    """The exchange's ``transport_ctx``: None unless the overlap transport
-    carries state."""
-    if state.overlap is None:
-        return None
-    return OverlapCtx(opt.overlap, state.overlap, started)
+@functools.lru_cache(maxsize=8)
+def _topology(name: str, W: int) -> Topology:
+    """The gossip graph over the group's W workers, built once."""
+    return build_topology(name, W)
+
+
+def _transport_ctx(state: TrainState, opt, started, group):
+    """The exchange's ``transport_ctx``: the overlap or gossip transport's
+    context with its carried state, None for the stateless ones."""
+    if state.overlap is not None:
+        return OverlapCtx(opt.overlap, state.overlap, started)
+    if state.gossip is not None:
+        return GossipCtx(_topology(opt.gossip.topology,
+                                   dist.get_world_size(group)),
+                         opt.gossip, state.gossip)
+    return None
 
 
 def _local_steps_step(params, state: TrainState, batch: dict, run_cfg,
@@ -348,7 +376,7 @@ def _local_steps_step(params, state: TrainState, batch: dict, run_cfg,
             delta, state.memory, f32(1.0), opt.compressor, group,
             stacked_mask=lm.stacked_mask(params), gamma_t=gamma_t,
             transport=opt.transport,
-            transport_ctx=_overlap_ctx(state, opt, started))
+            transport_ctx=_transport_ctx(state, opt, started, group))
         del delta
         updates, new_mem, wire, eff, tel = out[:5]
     return _finish_round(
@@ -365,11 +393,11 @@ def _local_steps_step(params, state: TrainState, batch: dict, run_cfg,
 def _finish_round(params, state: TrainState, run_cfg, group, *, loss, gsq,
                   alpha, n_evals, gamma_t, updates, new_mem, wire, eff, tel,
                   new_alpha, new_ema, new_vel=None, dl_res=None,
-                  new_ov=None):
+                  new_ov=None, new_gs=None):
     """The round's metrics (one host transfer), the breaker and the new
     state, shared by the plain and the local-steps round.  ``dl_res``:
-    the downlink's ``DownlinkResult``, or None; ``new_ov``: the overlap
-    transport's new ``OverlapState``, or None."""
+    the downlink's ``DownlinkResult``, or None; ``new_ov`` / ``new_gs``:
+    the overlap / gossip transport's new state, or None."""
     opt = run_cfg.optimizer
     keys = METRIC_KEYS + (DOWNLINK_KEYS if dl_res is not None else ()) \
         + (OVERLAP_KEYS if new_ov is not None else ())
@@ -403,9 +431,11 @@ def _finish_round(params, state: TrainState, run_cfg, group, *, loss, gsq,
     metrics["cum_effective_wire_bytes"] = float(cum_eff)
 
     # the decoded aggregate is the same on every worker, so the gate
-    # needs no collective beyond the loss mean above
-    step_ok = bool(np.isfinite(metrics["loss"])) and bool(
-        all_finite(updates))
+    # needs no collective beyond the loss mean above; under gossip the
+    # updates are per worker, and the loss mean alone gates (a NaN
+    # anywhere poisons the mean within one round), as JAX's does
+    step_ok = bool(np.isfinite(metrics["loss"])) and (
+        new_gs is not None or bool(all_finite(updates)))
     # rows_quarantined advances by 0 until the faulty transport, whose
     # verdicts count the rows, is ported
     health = advance_health(state.health, step_ok, state.step, 0.0)
@@ -426,4 +456,5 @@ def _finish_round(params, state: TrainState, run_cfg, group, *, loss, gsq,
         health=health,
         velocity=state.velocity if new_vel is None else new_vel,
         downlink=new_downlink,
-        overlap=state.overlap if new_ov is None else new_ov), metrics
+        overlap=state.overlap if new_ov is None else new_ov,
+        gossip=state.gossip if new_gs is None else new_gs), metrics

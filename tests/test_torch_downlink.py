@@ -366,19 +366,19 @@ def test_memory_size_and_stateful_transport_errors_match_jax():
                           dl.DownlinkState(torch.zeros(7), f32(0.01)))
     assert str(t.value) == str(e.value)
     # a stateful transport refuses the downlink (JAX checks it before
-    # touching its inputs; the port registers a stand-in for the check)
-    with pytest.raises(ValueError) as e:
-        jwca(None, None, None, jcomp, ("data",), transport="gossip",
-             transport_ctx=object(), downlink_ctx=object())
-    ttransport.register_transport("gossip", stateful=True)(lambda *a: None)
-    try:
+    # touching its inputs), and a missing context before that
+    for kw in (dict(transport="gossip", transport_ctx=object()),
+               dict(transport="overlap", transport_ctx=object()),
+               dict(transport="overlap")):
+        with pytest.raises(ValueError) as e:
+            jwca(None, None, None, jcomp, ("data",), downlink_ctx=object(),
+                 **kw)
         with pytest.raises(ValueError) as t:
             worker_compress_aggregate(None, None, None, comp,
-                                      transport="gossip",
-                                      downlink_ctx=object())
-    finally:
-        del ttransport._REGISTRY["gossip"]
-    assert str(t.value) == str(e.value)
+                                      downlink_ctx=object(), **kw)
+        assert str(t.value) == str(e.value), kw
+    assert "needs transport_ctx" in str(t.value)
+    assert ttransport.get_transport("gossip").stateful
 
 
 def _dl_worker_round(rank, W):

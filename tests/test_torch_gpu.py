@@ -1064,3 +1064,91 @@ def test_overlap_exchange_on_card(cuda, delay, value_bits):
         assert (g[5].eff_wire, g[5].seeded) == (w[5].eff_wire, 1.0)
     if delay:
         assert not any(got[0][0][k].any() for k in tree)
+
+
+# --------------------------------------------------------------------------
+# the gossip transport at one worker
+# --------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("value_bits", [8, 32])
+def test_gossip_exchange_on_card(cuda, value_bits):
+    """Two gossip exchanges at one worker (ring(1): no edge) on the card
+    against the plain versions on the CPU, and against bucketed on the
+    card: updates, EF memory and bytes bit for bit, (v, lr) at (0, 1) on
+    the card, bucketed's launches, and no collective at all (bucketed
+    all-gathers and all-reduces on one rank)."""
+    import socket
+
+    import torch.distributed as dist
+    from repro_torch.comm import gossip as gs
+    from repro_torch.comm.topology import build_topology
+    from repro_torch.core.compression import Compressor
+    from repro_torch.core.dcsgd import worker_compress_aggregate
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(9)
+    tree = {"a": rng.standard_normal((3, 4096)), "b": rng.standard_normal(
+        (5000,)), "tiny": rng.standard_normal((50,)),
+        "c": rng.standard_normal((2, 4, 900))}
+    tree = {k: torch.from_numpy(v.astype(np.float32))
+            for k, v in tree.items()}
+    mem = {k: 0.05 * torch.flip(v, [-1]) for k, v in tree.items()}
+    comp = Compressor(gamma=0.01, method="block_topk",
+                      value_bits=value_bits, min_compress_size=64)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("cpu:gloo,cuda:nccl",
+                            init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    collectives = []
+    real = {n: getattr(dist, n) for n in ("all_gather_into_tensor",
+                                          "all_reduce", "batch_isend_irecv")}
+
+    def counting(name):
+        return lambda *a, **k: collectives.append(name) or real[name](*a,
+                                                                      **k)
+    try:
+        def rounds(device, transport):
+            st = gs.GossipState.init(device)
+            m = {k: v.to(device) for k, v in mem.items()}
+            outs, counts, calls = [], [], []
+            for r in range(2):
+                ops.reset_launch_counts()
+                collectives.clear()
+                out = worker_compress_aggregate(
+                    {k: (v * (1 + r)).to(device) for k, v in tree.items()},
+                    m, np.float32(0.7), comp, transport=transport,
+                    transport_ctx=None if transport == "bucketed" else
+                    gs.GossipCtx(build_topology("ring", 1),
+                                 gs.GossipConfig(), st))
+                counts.append(ops.launch_counts())
+                calls.append(list(collectives))
+                m = out[1]
+                if transport == "gossip":
+                    st = out[5]
+                outs.append(out)
+            return outs, counts, calls
+        for n in real:
+            setattr(dist, n, counting(n))
+        want, _, _ = rounds("cpu", "gossip")
+        got, counts, calls = rounds(cuda, "gossip")
+        buck, b_counts, b_calls = rounds(cuda, "bucketed")
+    finally:
+        for n, fn in real.items():
+            setattr(dist, n, fn)
+        dist.destroy_process_group()
+    assert counts == b_counts and all(sum(c.values()) > 0 for c in counts)
+    assert all(c["pack_words_ragged"] == c["unpack_words_ragged"] == 0
+               for c in counts)
+    assert calls == [[], []] and all(b_calls)
+    for g, w, b in zip(got, want, buck):
+        for i in (0, 1):
+            for k in tree:
+                torch.testing.assert_close(g[i][k].cpu(), w[i][k], rtol=0,
+                                           atol=0)
+                torch.testing.assert_close(g[i][k], b[i][k], rtol=0,
+                                           atol=0)
+        assert g[2:4] == w[2:4] == b[2:4]
+        assert g[5].v.is_cuda and float(g[5].v) == 0.0
+        assert float(g[5].lr) == 1.0

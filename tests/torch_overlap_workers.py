@@ -5,7 +5,7 @@ tests/test_torch_overlap_train.py): a helper, not collected.
 A spawned worker unpickles its target by module name, so these live in
 a module that imports no JAX: each worker then pays for torch alone.
 :func:`spawn` runs ``fn(rank, W, *args)`` on W gloo workers and returns
-``{rank: result}``.
+``{rank: result}``; :class:`Spawned` starts them and returns at once.
 """
 import multiprocessing as mp
 import os
@@ -44,21 +44,36 @@ def _entry(rank, W, port, queue, fn, args):
         dist.destroy_process_group()
 
 
+class Spawned:
+    """``fn(rank, W, *args)`` on W gloo workers, started now so that the
+    caller can work meanwhile; :meth:`result` waits and returns
+    ``{rank: result}``."""
+
+    def __init__(self, fn, W, *args):
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        ctx = mp.get_context("spawn")
+        self.queue = ctx.Queue()
+        self.procs = [ctx.Process(target=_entry,
+                                  args=(r, W, port, self.queue, fn, args))
+                      for r in range(W)]
+        for p in self.procs:
+            p.start()
+        self.got = None
+
+    def result(self, timeout=240):
+        if self.got is None:
+            self.got = dict(self.queue.get(timeout=timeout)
+                            for _ in self.procs)
+            for p in self.procs:
+                p.join(timeout=60)
+                assert not p.is_alive() and p.exitcode == 0
+        return self.got
+
+
 def spawn(fn, W, *args, timeout=240):
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
-    ctx = mp.get_context("spawn")
-    queue = ctx.Queue()
-    procs = [ctx.Process(target=_entry, args=(r, W, port, queue, fn, args))
-             for r in range(W)]
-    for p in procs:
-        p.start()
-    got = dict(queue.get(timeout=timeout) for _ in procs)
-    for p in procs:
-        p.join(timeout=60)
-        assert not p.is_alive() and p.exitcode == 0
-    return got
+    return Spawned(fn, W, *args).result(timeout)
 
 
 # ---------------------------------------------------------------------------

@@ -1,14 +1,16 @@
 """A JAX reference round of the trainer for ``kind="acgd"``, the
-compressed downlink and the overlap transport, shared by
-tests/test_torch_acgd.py, tests/test_torch_downlink.py and
-tests/test_torch_overlap_train.py.
+compressed downlink and the overlap and gossip transports, shared by
+tests/test_torch_acgd.py, tests/test_torch_downlink.py,
+tests/test_torch_overlap_train.py and tests/test_torch_gossip_train.py.
 
 The reference composes ``worker_fn``'s lines
 (src/repro/launch/train_step.py:685-941) from the JAX package's own
 functions — ``armijo_search``, ``gamma_update``, the acgd round's two
 momentum lines as the worker writes them, the downlink's gamma round and
 ``worker_compress_aggregate(downlink_ctx=...)`` or its overlap seam
-(``transport_ctx=OverlapCtx``, :742-790, and the ``staleness`` metric),
+(``transport_ctx=OverlapCtx``, :742-790, and the ``staleness`` metric)
+or its gossip seam (``transport_ctx=GossipCtx``, :763-772, and the
+breaker's gossip rule, :858-866),
 ``all_finite`` and ``advance_health`` — jitted, with the model OUTSIDE
 any mesh (the LM step under a mesh fails on this tree, ROADMAP queue
 3); only the exchange runs in a 1-device ``shard_map``, for its
@@ -26,6 +28,13 @@ memory, velocity and each leaf's rows of the server memory within 1e-5
 of the parameter leaf's max |p|; gamma_t of both controllers bit for
 bit; n_evals, the byte counts, ``cum_effective_wire_bytes`` and the
 health counters exact.
+
+:func:`run_gossip_workers` is the gossip round on W workers: each
+worker's gradients, search and eta computed with the model outside any
+mesh as above, the exchange alone vmapped over W (``axis_name="data"``,
+whose ``ppermute`` batching rule equals a W-device mesh), and the port
+on W gloo workers (tests/torch_gossip_workers.py) from the reference's
+per-worker parameters and EF memory each round.
 """
 import dataclasses
 import functools
@@ -39,9 +48,13 @@ from jax.sharding import PartitionSpec as P
 from repro.comm.downlink import DownlinkCtx as JDownlinkCtx
 from repro.comm.downlink import DownlinkState as JDownlinkState
 from repro.comm.downlink import init_downlink_state as jinit_downlink
+from repro.comm.gossip import GossipConfig as JGossipConfig
+from repro.comm.gossip import GossipCtx as JGossipCtx
+from repro.comm.gossip import GossipState as JGossipState
 from repro.comm.overlap import OverlapConfig as JOverlapConfig
 from repro.comm.overlap import OverlapCtx as JOverlapCtx
 from repro.comm.overlap import init_overlap_state as jinit_overlap
+from repro.comm.topology import build_topology as jbuild_topology
 from repro.compat import shard_map
 from repro.configs import get_smoke_config as jax_smoke_config
 from repro.core import ArmijoConfig as JArmijo
@@ -61,6 +74,7 @@ from repro.core.telemetry import SearchTelemetry as JSearch
 from repro.models import build_model
 from repro_torch.comm.bucket import decode_buckets
 from repro_torch.comm.downlink import DownlinkState, downlink_plan
+from repro_torch.comm.gossip import GossipConfig, GossipState
 from repro_torch.comm.overlap import OverlapConfig, OverlapState
 from repro_torch.configs import get_smoke_config
 from repro_torch.configs.base import OptimizerConfig, RunConfig, ShapeConfig
@@ -97,6 +111,7 @@ class Case:
     overlap_delay: int = 1        # read under transport="overlap"
     overlap_chunks: int = 3
     local_steps: int = 1
+    topology: str = "ring"        # read under transport="gossip"
 
     def comp_kw(self):
         return dict(gamma=self.gamma, method="block_topk",
@@ -118,6 +133,7 @@ class Case:
             microbatches=self.local_steps,
             optimizer=OptimizerConfig(
                 overlap=OverlapConfig(**self.overlap()),
+                gossip=GossipConfig(topology=self.topology),
                 local_steps=self.local_steps,
                 kind=self.kind, eta=self.eta, momentum=self.momentum,
                 max_consecutive_skips=self.max_skips,
@@ -156,6 +172,7 @@ def jax_step(case: Case):
     acgd_mode = case.kind == "acgd"
     downlink_mode = case.downlink == "compressed"
     overlap_mode = case.transport == "overlap"
+    gossip_mode = case.transport == "gossip"
     ov_cfg = JOverlapConfig(**case.overlap())
     H = case.local_steps
 
@@ -164,8 +181,21 @@ def jax_step(case: Case):
 
     def exchange(send, mem, eta, gamma_t, ov, smask):
         """The plain exchange, or the overlap seam (worker_fn:775-785,
-        _local_steps_worker:422-435): ``(..., new ov or ())``."""
+        _local_steps_worker:422-435) or the gossip seam at one worker
+        (worker_fn:763-772), whose carried state rides in ``ov``:
+        ``(..., new ov or ())``."""
         spec = jax.tree.map(lambda _: P(), send)
+        if gossip_mode:
+            ctx = lambda st: JGossipCtx(  # noqa: E731
+                jbuild_topology(case.topology, 1),
+                JGossipConfig(topology=case.topology), st)
+            return shard_map(
+                lambda g, m, e, gt, st: jwca(
+                    g, m, e, comp, ("data",), stacked_mask=smask,
+                    gamma_t=gt, transport="gossip", transport_ctx=ctx(st)),
+                mesh=mesh, in_specs=(spec, spec, P(), P(), P()),
+                out_specs=(spec, spec, P(), P(), P(), P()),
+                axis_names={"data"})(send, mem, eta, gamma_t, ov)
         if not overlap_mode:
             return shard_map(
                 lambda g, m, e, gt: jwca(
@@ -197,7 +227,9 @@ def jax_step(case: Case):
         new_params = jax.tree.map(
             lambda p, u: (p.astype(jnp.float32) - u).astype(p.dtype),
             params, upd)
-        step_ok = jnp.isfinite(loss) & jall_finite(upd)
+        step_ok = jnp.isfinite(loss)
+        if not gossip_mode:
+            step_ok &= jall_finite(upd)
         new_params = jax.tree.map(
             lambda a, b: jnp.where(step_ok, a, b), new_params, params)
         new_health = jadvance_health(health, step_ok, t, jnp.float32(0.0))
@@ -397,6 +429,17 @@ def assert_overlap_close(jst, tst, params, comp):
     assert off == tst.dense.numel()
 
 
+def assert_gossip_state(jst, tst: GossipState, maxulp=0):
+    """The carried (v, lr): 0-dim f32 tensors, equal to JAX's within
+    ``maxulp``."""
+    for f in ("v", "lr"):
+        t = getattr(tst, f)
+        assert t.dtype == torch.float32 and t.dim() == 0
+        np.testing.assert_array_max_ulp(
+            np.float32(np.asarray(getattr(jst, f))),
+            np.float32(t.cpu().numpy()), maxulp=maxulp)
+
+
 def _copy(tree):
     """Fresh device arrays: a jitted round fed its own outputs would
     compile again (their shardings differ)."""
@@ -426,6 +469,8 @@ def run_both(case: Case, steps: int = STEPS):
         ov = jinit_overlap(
             [x.shape for x in jax.tree.leaves(params)],
             jax.tree.leaves(model.stacked_mask(params)), comp)
+    if case.transport == "gossip":
+        ov = JGossipState.init()
     ctx = (jnp.float32(JArmijo().alpha0), jnp.float32(0.0),
            jgamma_init(JGammaCfg(**case.ctrl_kw()), comp), jnp.int32(0),
            JTel.init(), JHealth.init(), dl_gamma, jnp.float32(0.0))
@@ -439,6 +484,7 @@ def run_both(case: Case, steps: int = STEPS):
         assert state.downlink.gamma == f32(np.asarray(dl_gamma))
         assert tuple(state.downlink.memory.shape) == tuple(dl_mem.shape)
     assert (state.overlap is None) == (case.transport != "overlap")
+    assert (state.gossip is None) == (case.transport != "gossip")
     if state.overlap is not None:
         assert tuple(state.overlap.payload.shape) == ov.payload.shape
         assert_overlap_close(ov, state.overlap, to_torch(
@@ -492,6 +538,11 @@ def run_both(case: Case, steps: int = STEPS):
             assert_overlap_close(ov, state.overlap, tparams, tcomp)
         else:
             assert "staleness" not in m
+        if case.transport == "gossip":
+            # one worker: no neighbour, a zero gossip error, v 0, lr 1
+            assert_gossip_state(ov, state.gossip)
+            assert float(state.gossip.v) == 0.0
+            assert float(state.gossip.lr) == 1.0
         h = state.health
         assert (h.steps_skipped, h.consecutive_skips, h.last_good_step) \
             == (int(ctx[5].steps_skipped), int(ctx[5].consecutive_skips),
@@ -544,3 +595,176 @@ def assert_bitwise_equal(a, b):
                            b.reshape(-1).view(torch.uint8))
     else:
         assert np.asarray(a).tobytes() == np.asarray(b).tobytes(), (a, b)
+
+
+# ---- the gossip round on W workers (tests/test_torch_gossip_train.py)
+
+#: the global batch of the W-worker rounds: 2 rows a worker at W = 4
+GOSSIP_BATCH = 8
+
+
+@functools.lru_cache(maxsize=None)
+def jax_gossip_fns(case: Case, W: int):
+    """``(pre, exchange, finish)`` of ``worker_fn``'s gossip round for W
+    workers, jitted: ``pre`` one worker's gradients, search, gamma_t and
+    eta (:685-741), outside any mesh; ``exchange`` the gossip exchange
+    vmapped over the W workers; ``finish`` one worker's parameters, the
+    breaker's gossip rule (the group's loss mean alone, :858-866) and
+    its carried scalars."""
+    model, params0 = jax_model()
+    comp = JCompressor(**case.comp_kw())
+    arm = JArmijo()
+    ctrl = JGammaCfg(**case.ctrl_kw())
+    topo = jbuild_topology(case.topology, W)
+    gcfg = JGossipConfig(topology=case.topology)
+    smask = model.stacked_mask(params0)
+
+    def local_loss(params, batch):
+        return model.loss(params, batch)[0]
+
+    @jax.jit
+    def pre(params, ctx, batch):
+        alpha_prev, ema, gamma_prev, t, tel_prev = ctx[:5]
+        loss, grads = jax.value_and_grad(local_loss)(params, batch)
+        gsq = jsqnorm(grads)
+        if case.kind == "csgd_asss":
+            res = jarmijo(lambda p: local_loss(p, batch), params, grads,
+                          jnext_alpha_max(alpha_prev, arm), arm,
+                          grad_sqnorm=gsq)
+            new_alpha = res.alpha
+            new_ema = 0.9 * ema + 0.1 * res.n_evals.astype(jnp.float32)
+            alpha_m, evals_m = res.alpha, res.n_evals.astype(jnp.float32)
+            search = JSearch(alpha=res.alpha, alpha_prev=alpha_prev,
+                             n_evals=res.n_evals, n_evals_ema=ema)
+            eta_fn = lambda gt: arm.scale_for(gt) * res.alpha  # noqa: E731
+        else:
+            search = None
+            new_alpha, new_ema = alpha_prev, ema
+            alpha_m, evals_m = jnp.float32(case.eta), jnp.float32(0.0)
+            eta_fn = lambda gt: jnp.float32(case.eta)  # noqa: E731
+        gamma_t = jgamma_update(ctrl, comp, gamma_prev, t, search=search,
+                                compression=tel_prev)
+        return (loss, grads, eta_fn(gamma_t), gamma_t, new_alpha, new_ema,
+                alpha_m, evals_m)
+
+    exchange = jax.jit(jax.vmap(
+        lambda g, m, e, gt, st: jwca(
+            g, m, e, comp, ("data",), stacked_mask=smask, gamma_t=gt,
+            transport="gossip", transport_ctx=JGossipCtx(topo, gcfg, st)),
+        axis_name="data"))
+
+    @jax.jit
+    def finish(params, mem, gst, ctx, upd, new_mem, new_gst, loss_mean,
+               eff_mean, new_alpha, new_ema, gamma_t, tel):
+        (alpha_prev, ema, gamma_prev, t, tel_prev, health, dl_gamma,
+         cum_eff) = ctx
+        step_ok = jnp.isfinite(loss_mean)
+        new_params = jax.tree.map(
+            lambda p, u: jnp.where(step_ok, (p.astype(jnp.float32)
+                                             - u).astype(p.dtype), p),
+            params, upd)
+        new_health = jadvance_health(health, step_ok, t, jnp.float32(0.0))
+        new_cum = cum_eff + eff_mean
+        new_ctx = (new_alpha, new_ema, gamma_t, t + 1, tel, new_health,
+                   dl_gamma, new_cum)
+        frozen = (alpha_prev, ema, gamma_prev, t + 1, tel_prev, new_health,
+                  dl_gamma, new_cum)
+        new_ctx, new_mem, new_gst = jax.tree.map(
+            lambda a, b: jnp.where(step_ok, a, b),
+            (new_ctx, new_mem, new_gst), (frozen, mem, gst))
+        return new_params, new_mem, new_gst, new_ctx
+
+    return pre, exchange, finish
+
+
+def _np(tree):
+    return jax.tree.map(lambda x: np.array(x), tree)
+
+
+def run_gossip_workers(case: Case, W: int, steps: int = STEPS):
+    """``steps`` gossip rounds of ``case`` on W workers through both
+    packages from JAX's initial weights, checked round by round, each
+    port worker from the reference's parameters and EF memory with its
+    own carried scalars and (v, lr).  Returns the port's per-round
+    results ``{rank: [dict]}``."""
+    import pickle
+    import tempfile
+
+    import torch_gossip_workers as gw
+    import torch_overlap_workers as ow
+    model, params = jax_model()
+    pre, exchange, finish = jax_gossip_fns(case, W)
+    comp = JCompressor(**case.comp_kw())
+    ctx0 = (jnp.float32(JArmijo().alpha0), jnp.float32(0.0),
+            jgamma_init(JGammaCfg(**case.ctrl_kw()), comp), jnp.int32(0),
+            JTel.init(), JHealth.init(), jnp.float32(0.0), jnp.float32(0.0))
+    P = [params] * W
+    M = [jax.tree.map(jnp.zeros_like, params)] * W
+    G = [JGossipState.init()] * W
+    C = [ctx0] * W
+    B = GOSSIP_BATCH
+    pipe = TokenPipeline(vocab_size=jax_smoke_config(ARCH).vocab_size,
+                         seq_len=SEQ, global_batch=B)
+    inputs = [[] for _ in range(W)]
+    want = []
+    for t in range(steps):
+        tokens = pipe.batch(t)["tokens"]
+        for w in range(W):
+            inputs[w].append((_np(P[w]), _np(M[w])))
+        outs = [pre(P[w], C[w], {"tokens": jnp.asarray(
+            tokens[w * B // W:(w + 1) * B // W])}) for w in range(W)]
+        stack = lambda i: jax.tree.map(  # noqa: E731
+            lambda *x: jnp.stack(x), *[o[i] for o in outs])
+        upd, new_mem, wire, eff, tel, new_g = exchange(
+            stack(1), jax.tree.map(lambda *x: jnp.stack(x), *M), stack(2),
+            stack(3), jax.tree.map(lambda *x: jnp.stack(x), *G))
+        loss_mean = jnp.mean(stack(0))
+        eff_mean = jnp.mean(eff)
+        row = lambda tree, w: jax.tree.map(lambda x: x[w], tree)  # noqa
+        for w in range(W):
+            P[w], M[w], G[w], C[w] = _copy(finish(
+                P[w], M[w], G[w], C[w], row(upd, w), row(new_mem, w),
+                row(new_g, w), loss_mean, eff_mean, outs[w][4], outs[w][5],
+                outs[w][3], row(tel, w)))
+        want.append(dict(
+            params=[_np(P[w]) for w in range(W)],
+            mem=[_np(M[w]) for w in range(W)],
+            gossip=[_np(G[w]) for w in range(W)],
+            gamma=[np.float32(C[w][2]) for w in range(W)],
+            health=[C[w][5] for w in range(W)],
+            loss=float(loss_mean), wire=float(wire[0]),
+            eff=float(eff_mean), cum=float(C[0][7]),
+            alpha=float(jnp.mean(stack(6))),
+            n_evals=float(jnp.mean(stack(7)))))
+    with tempfile.TemporaryDirectory() as d:
+        for w in range(W):
+            with open(f"{d}/rank_{w}.pkl", "wb") as f:
+                pickle.dump(inputs[w], f)
+        got = ow.spawn(gw.gossip_trainer_rounds, W, case.run(), d, SEQ, B)
+    for t, ref in enumerate(want):
+        for w in range(W):
+            p = got[w][t]
+            where = f"round {t} rank {w}"
+            assert_tree_close(ref["params"][w], to_torch(p["params"]),
+                              ref["params"][w], f"{where} params")
+            assert_tree_close(ref["mem"][w], to_torch(p["mem"]),
+                              ref["params"][w], f"{where} memory")
+            assert f32(p["gamma"]).view(np.int32) == \
+                ref["gamma"][w].view(np.int32), where
+            h = ref["health"][w]
+            assert p["health"] == (int(h.steps_skipped),
+                                   int(h.consecutive_skips),
+                                   int(h.last_good_step)), where
+            # v from each side's own gradients: rel 1e-4, as the float64
+            # simulation of tests/distributed/test_gossip_exchange.py
+            np.testing.assert_allclose(p["v"], ref["gossip"][w].v,
+                                       rtol=1e-4, err_msg=where)
+            assert p["lr"] == float(ref["gossip"][w].lr) == 1.0, where
+            m = p["metrics"]
+            np.testing.assert_allclose(m["loss"], ref["loss"], rtol=1e-5)
+            np.testing.assert_allclose(m["alpha"], ref["alpha"], rtol=1e-5)
+            assert m["n_evals"] == ref["n_evals"], where
+            assert (m["wire_bytes"], m["effective_wire_bytes"],
+                    m["cum_effective_wire_bytes"]) == \
+                (ref["wire"], ref["eff"], ref["cum"]), where
+    return got
