@@ -165,12 +165,33 @@ Phases, each fatal on failure (no phase catches and continues):
    exchange span shows no collective and no NCCL kernel while
    bucketed's shows its all-gather and all-reduce (the metrics'
    all-reduce lies outside the span);
+4k. the hostile wire (DESIGN.md §16) at full width on one worker, gamma
+   0.01 unless said, the counts set to 0 just before each run and read
+   just after: 3 steps each of bucketed at 32 and 8 bits and perleaf at
+   a 10% budget (``--max-gamma 0.1 --gamma 0.04 --value-bits 8``) with
+   the decode verdicts (the default) against ``guards_disabled()``, bit
+   for bit with the same launches, and the exchange alone and a whole
+   ``train_step`` from one state timed both ways in turns; a synthetic
+   3-row gathered decode through ``_consume_decoded_leaf`` on the card,
+   its guarded mean the true division by 3 and its unguarded one the
+   product with f32(1/3), bit for bit; ``--fault-nonfinite 1.0 --fault-start-step 1
+   --fault-steps 1``: step 0 the clean run's, step 1 quarantines every
+   compressed row and keeps every compressed leaf's EF memory, finite
+   parameters, no skip; ``--fault-bitflip 1.0 --fault-count 1.0`` on
+   that perleaf run, guarded and with ``--no-quarantine``: no device
+   assert, the clean run's launches, each corrupted row and its decode
+   through the ragged CUDA codec equal to the CPU port's bit for bit, a
+   row whose count reads -1 decoded to zeros; the faulty wrapper around
+   overlap (delay 1) and gossip outside its burst, bit for bit with
+   them; a checkpoint at step 2 of a 3-step burst, resumed to 4, bit for
+   bit with 4 straight steps;
 5. run the 2-layer smoke variants on the card and on the CPU (the plain
    versions, which the CPU tests hold against the JAX package), through
    the trainer for 2 steps (``--opt csgd_asss``, ``nonadaptive``,
    ``sls`` and ``acgd``, ``--local-steps 2 --microbatches 2``,
    ``--ef-dtype bfloat16``, ``--downlink compressed``, ``--transport
-   overlap`` at delay 1 and 0, ``--transport gossip``, and on
+   overlap`` at delay 1 and 0, ``--transport gossip``,
+   ``--fault-bitflip 0.1`` with equal quarantined rows, and on
    ``--transport perleaf --max-gamma 0.1``), through
    CSGD-ASSS for 3 and through serving
    (qwen1.5-4b and rwkv6-1.6b, ctx 96, 4 tokens), and compare: equal
@@ -264,6 +285,9 @@ ACGD_STEPS, ACGD_SINGLE_STEPS, SERVER_WORDS = 2, 3, 110_100_480
 OVERLAP_STEPS, OVERLAP_CHUNKS, OVERLAP_LOCAL = 3, 4, 2
 #: phase 4j: steps of each gossip run beside bucketed
 GOSSIP_STEPS = 3
+#: phase 4k: steps of each guarded / unguarded run, and the reps of the
+#: exchange timed alone each way
+FAULT_STEPS, FAULT_REPS = 3, 10
 
 
 def fail(msg: str) -> None:
@@ -1754,6 +1778,366 @@ def gossip_trainer(dev, root: Path) -> None:
         print(f"gossip warm step_s [{label}]: {t}", flush=True)
 
 
+def fault_trainer(dev, root: Path) -> dict:
+    """Phase 4k: the hostile-wire layer at full width through
+    ``launch.train`` on one worker, the launch counts set to 0 just
+    before each run and read just after: the decode verdicts (on by
+    default) against ``guards_disabled()`` bit for bit with the same
+    launches on bucketed at 32 and 8 bits and on perleaf at a 10% budget,
+    and the exchange alone timed each way; a NaN round that quarantines
+    every compressed row and keeps the EF memory; bitflip and count
+    faults on ragged perleaf through the CUDA codec, guarded and not,
+    each corrupted row and its decode equal to the CPU port's; the
+    wrapper around overlap (delay 1) and gossip outside its burst equal
+    to them bit for bit; a checkpoint inside a burst, resumed.  Returns
+    the phase's times and ratios, which ``main`` prints again near the
+    end of the output."""
+    import shutil
+
+    from repro_torch.comm import faults, wire
+    from repro_torch.comm.bucket import build_bucket_plan
+    from repro_torch.comm.exchange import init_process_group
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import OptimizerConfig, RunConfig, \
+        ShapeConfig
+    from repro_torch.core.compression import Compressor
+    from repro_torch.core.dcsgd import worker_compress_aggregate
+    from repro_torch.data.synthetic import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.launch.train_step import init_train_state, train_step
+    from repro_torch.models import lm
+    from repro_torch.utils import tree_flatten, value_and_grad
+    cfg = get_config("paper-lm-100m")
+    base = MAIN_ARGS + ["--gamma", "0.01"]
+    perleaf = ["--transport", "perleaf", "--value-bits", "8"] + ADAPTIVE_ARGS
+
+    def checked_run(label, extra, steps, want=None, skips=0):
+        """``steps`` steps of ``base + extra``; fails on launches other
+        than ``want`` when given, or ``skips`` (None: any) skipped
+        steps."""
+        torch.cuda.reset_peak_memory_stats(dev)
+        live = torch.cuda.memory_allocated(dev)
+        ops.reset_launch_counts()
+        log, params, state = train.run(base + extra + ["--steps",
+                                                       str(steps)])
+        torch.cuda.synchronize(dev)
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev) - live
+        print(f"faults [{label}]: launches {counts}; step_s "
+              f"{[round(x['step_s'], 4) for x in log]}; losses "
+              f"{[x['loss'] for x in log]}; rows_quarantined "
+              f"{[x['rows_quarantined'] for x in log]}; skipped "
+              f"{[x['steps_skipped'] for x in log]}; peak memory "
+              f"{peak / 2**30:.2f} GiB above the {live / 2**30:.2f} GiB "
+              "live before the run", flush=True)
+        if len(log) != steps or (skips is not None
+                                 and log[-1]["steps_skipped"] != skips):
+            fail(f"[faults {label}] {log[-1]['steps_skipped']} skipped "
+                 f"steps, want {skips}")
+        if want is not None and counts != want:
+            fail(f"[faults {label}] launches {counts}, want {want}")
+        return log, params, state, counts
+
+    def same(label, a, b, keys=("wire_bytes", "effective_wire_bytes",
+                                "gamma", "loss")):
+        if not trees_equal(a[1], b[1]) or not trees_equal(a[2].memory,
+                                                          b[2].memory):
+            fail(f"[faults {label}] parameters or EF memory differ")
+        for k in keys:
+            if [x[k] for x in a[0]] != [x[k] for x in b[0]]:
+                fail(f"[faults {label}] {k} {[x[k] for x in a[0]]} != "
+                     f"{[x[k] for x in b[0]]}")
+
+    # ---- (a) the verdicts on a clean wire: guarded == unguarded ---------
+    times = {}
+    for label, extra in (("bucketed 32-bit", []),
+                         ("bucketed 8-bit", ["--value-bits", "8"]),
+                         ("perleaf 10% budget", perleaf)):
+        g = checked_run(f"{label}, guarded", extra, FAULT_STEPS)
+        with faults.guards_disabled():
+            u = checked_run(f"{label}, unguarded", extra, FAULT_STEPS,
+                            want=g[3])
+        same(f"{label} guarded vs unguarded", g, u)
+        if any(x["rows_quarantined"] for x in g[0]):
+            fail(f"[faults {label}] a clean wire quarantined rows")
+        times[label] = ([x["step_s"] for x in g[0][1:]],
+                        [x["step_s"] for x in u[0][1:]])
+        print(f"faults [{label}]: guarded == unguarded bit for bit after "
+              f"{FAULT_STEPS} steps (parameters, EF memory, bytes, gamma_t, "
+              f"losses) with the same launches {g[3]}", flush=True)
+        del g, u
+
+    # the exchange alone, guarded and unguarded in turns, from one state
+    run = RunConfig(model=cfg, shape=ShapeConfig(256, 8),
+                    optimizer=OptimizerConfig(compressor=Compressor(
+                        gamma=0.01, method="block_topk")))
+    created = init_process_group(dev)
+    try:
+        params = lm.init_params(cfg, seed=0, device=dev)
+        state = init_train_state(params, run)
+        pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=256,
+                             global_batch=8)
+        batch = {k: v.to(dev) for k, v in pipe.batch(0).items()}
+        params, state, _ = train_step(params, state, batch, run)
+        batch = {k: v.to(dev) for k, v in pipe.batch(1).items()}
+        _, grads = value_and_grad(lambda p: lm.loss_fn(p, batch, cfg),
+                                  params)
+        smask = lm.stacked_mask(params)
+        comp = run.optimizer.compressor
+
+        def exchange():
+            return worker_compress_aggregate(grads, state.memory, 0.0345,
+                                             comp, stacked_mask=smask)
+
+        def unguarded():
+            with faults.guards_disabled():
+                return exchange()
+        def step():
+            return train_step(params, state, batch, run)
+
+        def step_unguarded():
+            with faults.guards_disabled():
+                return step()
+        ex = {k: [] for k in ("guarded", "unguarded", "step guarded",
+                              "step unguarded")}
+        for _ in range(2):
+            exchange(), unguarded(), step(), step_unguarded()
+        for _ in range(FAULT_REPS):
+            for name, fn in (("guarded", exchange),
+                             ("unguarded", unguarded),
+                             ("step unguarded", step_unguarded),
+                             ("step guarded", step)):
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize(dev)
+                ex[name].append((time.perf_counter() - t0) * 1e3)
+        dev_ms = {name: device_ms(fn) for name, fn in
+                  (("guarded", exchange), ("unguarded", unguarded))}
+    finally:
+        if created:
+            torch.distributed.destroy_process_group()
+    del params, state, grads, batch
+    med = {k: statistics.median(v) for k, v in ex.items()}
+    ex = {k: [round(x, 3) for x in v] for k, v in ex.items()}
+    for label, (gt, ut) in times.items():
+        print(f"faults warm step_s [{label}]: guarded {gt}, unguarded {ut}; "
+              f"ratio of means {statistics.mean(gt) / statistics.mean(ut):.4f}",
+              flush=True)
+    print(f"faults [exchange alone, bucketed 32-bit, {FAULT_REPS} in turns]: "
+          f"guarded median {med['guarded']:.3f} ms, unguarded "
+          f"{med['unguarded']:.3f} ms, ratio "
+          f"{med['guarded'] / med['unguarded']:.4f}; device only "
+          f"{dev_ms['guarded']:.3f} vs {dev_ms['unguarded']:.3f} ms, ratio "
+          f"{dev_ms['guarded'] / dev_ms['unguarded']:.4f}; each run (ms) "
+          f"{ex['guarded']} / {ex['unguarded']}", flush=True)
+    print(f"faults [train_step, bucketed 32-bit, {FAULT_REPS} in turns from "
+          f"one state]: guarded median {med['step guarded']:.3f} ms, "
+          f"unguarded {med['step unguarded']:.3f} ms, ratio "
+          f"{med['step guarded'] / med['step unguarded']:.4f}; each run "
+          f"(ms) {ex['step guarded']} / {ex['step unguarded']}", flush=True)
+    summary = {
+        "exchange_ms": [round(med["guarded"], 3),
+                        round(med["unguarded"], 3)],
+        "exchange_ratio": round(med["guarded"] / med["unguarded"], 4),
+        "exchange_device_ms": [round(dev_ms["guarded"], 3),
+                               round(dev_ms["unguarded"], 3)],
+        "step_ms": [round(med["step guarded"], 3),
+                    round(med["step unguarded"], 3)],
+        "step_ratio": round(med["step guarded"] / med["step unguarded"], 4),
+        "warm_step_ratio_of_means": {
+            label: round(statistics.mean(gt) / statistics.mean(ut), 4)
+            for label, (gt, ut) in times.items()}}
+
+    # ---- the means at W = 3 on the card: a synthetic gathered decode ----
+    # guarded, a true division by the valid-row count; unguarded, the
+    # product with f32(1/3) jitted XLA computes for the static W.  Each
+    # row's indices are its own, so the sums are exact and only the
+    # division rounds.
+    from repro_torch.core.dcsgd import _consume_decoded_leaf
+    L, d, k = 4, 3 * 4096, 4096
+    gen = torch.Generator().manual_seed(3)
+    vals = torch.randn((3, L, k), generator=gen)
+    idx = (torch.arange(k)[None, None, :] * 3
+           + torch.arange(3)[:, None, None]).expand(3, L, k).to(torch.int32)
+    acc = torch.randn((L, d), generator=gen)
+    total = torch.zeros((L, d))
+    total.view(L, k, 3).copy_(vals.permute(1, 2, 0))
+    want = {True: total / torch.full((L, 1), 3.0),
+            False: total * float(np.float32(1.0) / np.float32(3.0))}
+    for guarded in (True, False):
+        out = _consume_decoded_leaf(
+            acc.to(dev), acc.to(dev), acc.to(dev), vals.to(dev),
+            idx.to(dev), L, d, 3, 0, False, None, None, acc.to(dev),
+            verdict=torch.ones((3, L), dtype=torch.bool, device=dev)
+            if guarded else None)
+        if not bits_equal(out[0].cpu(), want[guarded]):
+            fail(f"[faults W=3 mean, guarded={guarded}] the card's mean is "
+                 "not the CPU's "
+                 + ("true division" if guarded else "reciprocal product"))
+    parted = int((want[True] != want[False]).sum())
+    if not parted:
+        fail("[faults W=3 mean] the division and the product never part")
+    print(f"faults [W = 3 mean on the card]: guarded == the true division "
+          f"by 3, unguarded == the product with f32(1/3), bit for bit; the "
+          f"two part in {parted} of {L * d} entries", flush=True)
+    summary["w3_mean_parted"] = [parted, L * d]
+
+    # ---- (b) a NaN round: every compressed row quarantined --------------
+    burst = ["--fault-nonfinite", "1.0", "--fault-start-step", "1",
+             "--fault-steps", "1"]
+    clean = checked_run("clean, 1 step", [], 1)
+    nan = checked_run("nonfinite at step 1", burst, 2, want={
+        k: 2 * v for k, v in clean[3].items()})
+    leaves = tree_flatten(nan[1])[0]
+    plan = build_bucket_plan([p.shape for p in leaves],
+                             tree_flatten(lm.stacked_mask(nan[1]))[0],
+                             Compressor(gamma=0.01, method="block_topk"))
+    rows = sum(ln.L for ln in plan.leaves if not ln.dense)
+    before = tree_flatten(clean[2].memory)[0]
+    after = tree_flatten(nan[2].memory)[0]
+    if nan[0][0] != {**clean[0][0], "step_s": nan[0][0]["step_s"]}:
+        fail(f"[faults nonfinite] step 0 {nan[0][0]} differs from the "
+             f"clean run's {clean[0][0]}")
+    if [x["rows_quarantined"] for x in nan[0]] != [0.0, float(rows)]:
+        fail(f"[faults nonfinite] rows_quarantined "
+             f"{[x['rows_quarantined'] for x in nan[0]]}, want 0 then "
+             f"{rows}")
+    frozen = [ln.index for ln in plan.leaves if not ln.dense
+              and not bits_equal(after[ln.index], before[ln.index])]
+    if frozen or not all(bool(torch.isfinite(p).all()) for p in leaves):
+        fail(f"[faults nonfinite] EF memory of compressed leaves {frozen} "
+             "moved, or a parameter is not finite")
+    print(f"faults [nonfinite at step 1]: step 0 the clean run's; step 1 "
+          f"quarantined {rows} rows (all compressed), kept the EF memory "
+          f"of {len(plan.compressed_ids)} compressed leaves bit for bit, "
+          f"0 skips, finite parameters", flush=True)
+    del clean, nan, leaves, before, after
+
+    # ---- (c) bitflip and count faults through the ragged CUDA codec ------
+    recs = []
+    real_corrupt, real_decode = faults.maybe_corrupt, wire.decode_rows
+
+    def rec_corrupt(rows_in, spec, lane, rpw):
+        out = real_corrupt(rows_in, spec, lane, rpw)
+        st = faults._ACTIVE[-1]
+        recs.append(dict(rows=rows_in.clone(), out=out.clone(), spec=spec,
+                         lane=lane, rpw=rpw, cfg=st.cfg, step=st.step))
+        return out
+
+    def rec_decode(payload, spec):
+        vals, idx = real_decode(payload, spec)
+        if recs and recs[-1]["spec"] == spec and "vals" not in recs[-1]:
+            recs[-1].update(vals=vals.clone(), idx=idx.clone())
+        return vals, idx
+    hostile = ["--fault-bitflip", "1.0", "--fault-count", "1.0",
+               "--fault-seed", "11"]
+    ok = checked_run("perleaf clean", perleaf, 2)
+    for label, extra, skips in (("guarded", [], 0),
+                                ("--no-quarantine", ["--no-quarantine"],
+                                 None)):
+        recs.clear()
+        faults.maybe_corrupt, wire.decode_rows = rec_corrupt, rec_decode
+        try:
+            got = checked_run(f"perleaf bitflip+count, {label}",
+                              perleaf + hostile + extra, 2, want=ok[3],
+                              skips=skips)
+        finally:
+            faults.maybe_corrupt, wire.decode_rows = real_corrupt, \
+                real_decode
+        n_bad = n_rows = 0
+        for r in recs:
+            with faults.active_faults(r["cfg"], r["step"]):
+                cpu_out = faults.maybe_corrupt(r["rows"].cpu(), r["spec"],
+                                               r["lane"], r["rpw"])
+            cv, ci = wire.decode_rows(cpu_out, r["spec"])
+            gv, gi = r["vals"].cpu(), r["idx"].cpu()
+            same_v = (gv.view(torch.int32) == cv.view(torch.int32)) | (
+                torch.isnan(gv) & torch.isnan(cv))
+            if not (torch.equal(r["out"].cpu(), cpu_out) and bool(
+                    same_v.all()) and torch.equal(gi, ci)):
+                fail(f"[faults {label}] lane {r['lane']} step {r['step']}: "
+                     "the card's corrupted rows or their decode differ "
+                     "from the CPU port's")
+            counts = cpu_out[:, 0]
+            bad = (counts < 0) | (counts > r["spec"].full_count)
+            n_bad += int(bad.sum())
+            n_rows += counts.numel()
+            # a count read as -1 masks every field: the row decodes to 0
+            if bool((gv[counts < 0] != 0).any()):
+                fail(f"[faults {label}] a row whose count reads -1 decoded "
+                     "a live value in the CUDA ragged unpack")
+        if not recs or not n_bad:
+            fail(f"[faults {label}] no corrupted count reached the decode")
+        q = [x["rows_quarantined"] for x in got[0]]
+        if (label == "guarded") != bool(q[-1]):
+            fail(f"[faults {label}] rows_quarantined {q}")
+        print(f"faults [perleaf bitflip+count, {label}]: {len(recs)} leaf "
+              f"decodes, {n_bad} of {n_rows} rows with a corrupted count "
+              f"(-1: every field masked, or 2*full+7: every field "
+              f"unmasked), each corrupted row and its decode (values, "
+              f"indices) equal to the CPU port's, no device assert; "
+              f"rows_quarantined {q}, skipped "
+              f"{[x['steps_skipped'] for x in got[0]]}", flush=True)
+        del got
+    recs.clear()
+    del ok
+
+    # ---- (d) the wrapper outside its burst: the inner transport ---------
+    quiet = ["--fault-bitflip", "1.0", "--fault-nonfinite", "1.0",
+             "--fault-start-step", "100"]
+    for label, extra in (("overlap delay 1", ["--transport", "overlap"]),
+                         ("gossip", ["--transport", "gossip"])):
+        a = checked_run(label, extra, 2)
+        b = checked_run(f"faulty({label}), outside the burst",
+                        extra + quiet, 2, want=a[3])
+        same(f"faulty({label})", a, b)
+        carried = (a[2].overlap, b[2].overlap) if a[2].overlap is not None \
+            else (a[2].gossip, b[2].gossip)
+        if not all(bits_equal(x, y) for x, y in zip(
+                tree_flatten(vars(carried[0]))[0],
+                tree_flatten(vars(carried[1]))[0])
+                if isinstance(x, torch.Tensor)):
+            fail(f"[faults {label}] the carried state differs")
+        print(f"faults [faulty({label}) outside the burst]: bit for bit "
+              f"its inner transport (parameters, EF memory, carried "
+              f"state, bytes, losses), launches {a[3]}", flush=True)
+        del a, b
+
+    # ---- (e) a checkpoint inside a burst, resumed -----------------------
+    mid = ["--value-bits", "8", "--fault-bitflip", "0.5",
+           "--fault-nonfinite", "0.2", "--fault-start-step", "1",
+           "--fault-steps", "3"]
+    tmp = root / "_smoke_ckpt"
+    shutil.rmtree(tmp, ignore_errors=True)
+    try:
+        d = str(tmp / "faults")
+        straight = checked_run("burst, 4 steps", mid, 4)
+        checked_run("burst, 2 steps, saved", mid + [
+            "--ckpt-dir", d, "--ckpt-every", "2"], 2)
+        log, params, state = train.run(base + mid + [
+            "--steps", "4", "--ckpt-dir", d, "--resume"])
+        keys = ("loss", "rows_quarantined", "steps_skipped")
+        if [x["step"] for x in log] != [2, 3] or not trees_equal(
+                params, straight[1]) or not trees_equal(
+                    state.memory, straight[2].memory) or [
+                [x[k] for k in keys] for x in log] != [
+                [x[k] for k in keys] for x in straight[0][2:]] \
+                or state.health != straight[2].health:
+            fail("[faults checkpoint] a resume inside the burst differs "
+                 "from 4 uninterrupted steps")
+        print(f"faults [checkpoint]: resumed at step 2 of a 3-step burst, "
+              f"bit for bit with 4 straight steps (parameters, EF memory, "
+              f"losses, rows_quarantined "
+              f"{[x['rows_quarantined'] for x in straight[0]]}, health)",
+              flush=True)
+        del straight, params, state
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return summary
+
+
 def exchange_collectives(prof) -> list[str]:
     """Names of the collective calls and NCCL kernels that the profile
     shows inside the ``train_step.exchange`` span."""
@@ -2496,6 +2880,9 @@ def main() -> None:
     gossip_trainer(dev, root)
     profile_gossip(dev, cfg, comp)
 
+    # ---- 4k. the hostile wire: verdicts, quarantine, fault injection ----
+    fault_summary = fault_trainer(dev, root)
+
     # ---- 5. small input: the card against the CPU's plain path ----------
     small = ["--smoke", "--steps", "2", "--seq-len", "33", "--global-batch",
              "4", "--compress-method", "block_topk", "--log-every", "1"]
@@ -2510,19 +2897,22 @@ def main() -> None:
                                  "--overlap-chunks", "3"]),
             ("overlap delay 0", ["--transport", "overlap",
                                  "--overlap-delay", "0"]),
-            ("gossip", ["--transport", "gossip"])):
+            ("gossip", ["--transport", "gossip"]),
+            ("fault bitflip 0.1", ["--fault-bitflip", "0.1"])):
         on_card = train.main(small + extra)
         on_cpu = train.main(small + extra + ["--device", "cpu"])
         for a, b in zip(on_card, on_cpu):
             if abs(a["loss"] - b["loss"]) > 1e-4 * abs(b["loss"]) or any(
                     a.get(k) != b.get(k) for k in (
                         "wire_bytes", "downlink_effective_wire_bytes",
-                        "cum_effective_wire_bytes", "staleness")):
+                        "cum_effective_wire_bytes", "staleness",
+                        "rows_quarantined", "steps_skipped")):
                 fail(f"{label} smoke run on the card {a} disagrees with "
                      f"the CPU {b}")
         print(f"{label} smoke card vs cpu: losses "
               f"{[x['loss'] for x in on_card]} vs "
-              f"{[x['loss'] for x in on_cpu]}", flush=True)
+              f"{[x['loss'] for x in on_cpu]}; rows_quarantined "
+              f"{[x['rows_quarantined'] for x in on_card]}", flush=True)
     adaptive = small + ["--transport", "perleaf", "--max-gamma", "0.1",
                         "--gamma-schedule", "linear", "--gamma-ramp-steps",
                         "1"]
@@ -2564,6 +2954,9 @@ def main() -> None:
                     bound_by=r["bound_by"],
                     library_ms=r.get("library_ms"))
                for name, r in report.items()]
+    # phase 4k's times again, where the end of the output keeps them
+    print("faults summary (guarded, unguarded): "
+          + json.dumps(fault_summary), flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

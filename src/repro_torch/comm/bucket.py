@@ -11,8 +11,11 @@ DESIGN.md §11).
   (no padding word on the wire).
 * :func:`decode_buckets` — the inverse on the all-gathered (W, words)
   buffer, ONE stream-unpack launch per bucket field section, each ragged
-  row read at its own header's count.  The plain kernels only: the
-  ragged kernels are the per-leaf codec's (``comm/wire.py``).
+  row read at its own header's count; the wire boundary of a fault
+  campaign, and with ``with_verdicts`` the §16 verdict and quarantine
+  (:func:`decode_guarded` takes them while the guards are on, as every
+  transport decodes).  The plain kernels only: the ragged kernels are the
+  per-leaf codec's (``comm/wire.py``).
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import torch
 import torch.nn.functional as F_
 
 from repro_torch.kernels import ops
+from . import faults
 from . import wire as wire_fmt
 from .wire import WireSpec
 
@@ -169,17 +173,29 @@ def encode_buckets(plan: BucketPlan, rows) -> torch.Tensor:
     return torch.cat(segments)
 
 
-def decode_buckets(plan: BucketPlan, gathered: torch.Tensor):
+def decode_buckets(plan: BucketPlan, gathered: torch.Tensor, *,
+                   with_verdicts: bool = False):
     """Decode an all-gathered (W, total_words) buffer to per-leaf
     ((W, L, k) f32 values, (W, L, k) int32 flat indices) — a list aligned
-    with ``plan.leaves``, None for dense lanes."""
+    with ``plan.leaves``, None for dense lanes.
+
+    This is the wire boundary: an active fault campaign
+    (``comm/faults.py``) corrupts each lane's gathered rows here, before
+    the unpack.  With ``with_verdicts`` a second aligned list of per-lane
+    (W, L) bool verdicts is returned and invalid rows come back
+    quarantined (value 0 at index 0); the verdict and the quarantine run
+    once per ``WireSpec`` group over its lanes' rows in tree order, as
+    JAX's do.  On a clean wire every verdict is True and the decode is
+    the one without verdicts, bit for bit."""
     W = gathered.shape[0]
     lanes = {ln.index: ln for ln in plan.leaves}
     pay: dict[int, torch.Tensor] = {}
     for ln in plan.leaves:
         if not ln.dense:
             seg = gathered[:, ln.word_off:ln.word_off + ln.words]
-            pay[ln.index] = seg.reshape(W * ln.L, ln.spec.row_words)
+            pay[ln.index] = faults.maybe_corrupt(
+                seg.reshape(W * ln.L, ln.spec.row_words), ln.spec,
+                ln.index, ln.L)
 
     ifields: dict[int, torch.Tensor] = {}
     vfields: dict[int, torch.Tensor] = {}
@@ -197,6 +213,7 @@ def decode_buckets(plan: BucketPlan, gathered: torch.Tensor):
             vgroup, lanes[b.leaf_ids[0]].spec.value_bits))
 
     out = [None] * len(plan.leaves)
+    by_spec: dict = {}
     for ln in plan.leaves:
         if ln.dense:
             continue
@@ -213,5 +230,34 @@ def decode_buckets(plan: BucketPlan, gathered: torch.Tensor):
             else None
         vals, idx = wire_fmt.fields_to_rows(ifld, vfld, scale_words, counts,
                                             spec)
-        out[i] = (vals.reshape(W, ln.L, spec.k), idx.reshape(W, ln.L, spec.k))
-    return out
+        if with_verdicts:
+            by_spec.setdefault(spec, []).append((ln, vals, idx))
+        else:
+            out[i] = (vals.reshape(W, ln.L, spec.k),
+                      idx.reshape(W, ln.L, spec.k))
+    if not with_verdicts:
+        return out
+    verdicts = [None] * len(plan.leaves)
+    for spec, members in by_spec.items():
+        cat = [torch.cat(x) if len(members) > 1 else x[0] for x in (
+            [pay[ln.index] for ln, _, _ in members],
+            [v for _, v, _ in members], [x for _, _, x in members])]
+        v = wire_fmt.row_verdict(cat[0], spec, cat[1], cat[2])
+        cvals, cidx = wire_fmt.quarantine_rows(cat[1], cat[2], v)
+        off = 0
+        for ln, _, _ in members:
+            rows = W * ln.L
+            verdicts[ln.index] = v[off:off + rows].reshape(W, ln.L)
+            out[ln.index] = (cvals[off:off + rows].reshape(W, ln.L, spec.k),
+                             cidx[off:off + rows].reshape(W, ln.L, spec.k))
+            off += rows
+    return out, verdicts
+
+
+def decode_guarded(plan: BucketPlan, gathered: torch.Tensor):
+    """``(decoded, verdicts)`` as every transport decodes its gathered
+    rows: with the verdicts while ``faults.guards_active()`` (the
+    default), else without them and with a verdict of None a lane."""
+    if faults.guards_active():
+        return decode_buckets(plan, gathered, with_verdicts=True)
+    return decode_buckets(plan, gathered), [None] * len(plan.leaves)

@@ -39,17 +39,21 @@ with no collective at all.
 ``sum / (deg+1)`` divides by a constant, which XLA turns into a product
 with ``f32(1/(deg+1))`` and contracts with the subtraction of the own
 accumulator: the dense gossip error is one fused multiply-add
-(``torch.addcmul``); the sparse mix under JAX's default fault guards
-divides by the valid-row count, a traced value, so it stays a true
-division (by ``deg+1`` on a clean payload); ``err_sq / n_tot`` is a
-product with ``f32(1/n_tot)``; ``beta*v + (1-beta)*x`` and
+(``torch.addcmul``).  The sparse mix under the default fault guards
+divides each layer by its valid-row count, a traced value, so it stays a
+true division (by ``deg+1`` on a clean payload); unguarded
+(``comm.faults.guards_disabled``, ``--no-quarantine``) it divides by the
+constant ``deg+1``, a product with ``f32(1/(deg+1))``.  ``err_sq /
+n_tot`` is a product with ``f32(1/n_tot)``; ``beta*v + (1-beta)*x`` and
 ``own + lr_t*e`` are each one fused multiply-add (``torch.add`` with
 ``alpha``, ``torch.addcmul``).
 
-The JAX package decodes with fault verdicts by default; on a clean
-payload the valid-row count is ``deg+1`` and the results agree.  The
-quarantine of invalid rows and the own-row EF freeze come with the
-faulty transport, which the port does not have yet.
+**The §16 guards.**  The decode of the own and the received rows runs
+the verdicts unless ``comm.faults.guards_active()`` is False: a
+quarantined neighbour row adds nothing and leaves the mix over the valid
+rows; a quarantined own row (slot 0) freezes the leaf's EF memory for the
+round.  The ``rows_quarantined`` telemetry counts this worker's
+quarantined rows.  The dense leaves carry no verdict, as in JAX.
 """
 from __future__ import annotations
 
@@ -59,14 +63,14 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.comm.bucket import decode_buckets, encode_buckets
+from repro_torch.comm.bucket import decode_guarded, encode_buckets
 from repro_torch.comm.exchange import check_bucket_payload
 from repro_torch.comm.ring import _global_rank
 from repro_torch.comm.topology import TOPOLOGIES, Topology
 from repro_torch.comm.transport import register_transport
-from repro_torch.core.dcsgd import _tree_plan
-from repro_torch.core.leafmath import plan_wire_bytes, scatter_layers, \
-    select_and_encode
+from repro_torch.core.dcsgd import _tree_plan, valid_row_mean
+from repro_torch.core.leafmath import jax_index_rules, plan_wire_bytes, \
+    scatter_pairs, select_and_encode
 from repro_torch.core.telemetry import TelemetrySums, sparse_own_sums
 from repro_torch.kernels.ref import ef_acc
 from repro_torch.utils import tree_flatten, tree_unflatten
@@ -186,12 +190,6 @@ def exchange_rows(buf: torch.Tensor, topo: Topology,
     return rows
 
 
-def _true_div(x: torch.Tensor, n: int) -> torch.Tensor:
-    """``x / n`` as a true division on every device (CUDA divides by a
-    host scalar as a product with its reciprocal)."""
-    return x / torch.full((), float(n), dtype=x.dtype, device=x.device)
-
-
 def adagossip_step(cfg: GossipConfig, state: GossipState,
                    err_sq: torch.Tensor, n_tot: int) -> GossipState:
     """``v' = beta v + (1-beta) err_sq/n_tot`` and ``lr_t = min(lr_max,
@@ -249,9 +247,10 @@ def gossip_exchange(flat_g, flat_m, flat_s, eta, comp, group, gamma_t, *,
     # ---- degree neighbour sends of the ONE buffer (own row first) -------
     all_rows = exchange_rows(buf, topo, group)       # (degree+1, words)
 
-    decoded = [None] * n
+    decoded = verdicts = [None] * n
     if plan.total_words:
-        decoded = decode_buckets(plan, all_rows[:, :plan.total_words])
+        decoded, verdicts = decode_guarded(plan,
+                                           all_rows[:, :plan.total_words])
     dense_total = [None] * n
     if dense_ids:
         dcat = all_rows[:, plan.total_words:].view(torch.float32)
@@ -292,21 +291,29 @@ def gossip_exchange(flat_g, flat_m, flat_s, eta, comp, group, gamma_t, *,
             continue
         L, d = lane.L, lane.d
         g_vals, g_idx = decoded[i]                  # (degree+1, L, k)
-        total = scatter_layers(g_vals, g_idx, L, d)
-        mix = _true_div(total, deg + 1)
+        s_vals, s_idx = jax_index_rules(g_vals, g_idx, d)
+        total = scatter_pairs(s_vals, s_idx, L, d)
+        verdict, quar = verdicts[i], None
+        if verdict is None:
+            mix = total * float(f32(1.0) / f32(deg + 1))
+        else:
+            mix, quar = valid_row_mean(total, verdict)
         own_vals, own_idx = g_vals[0], g_idx[0]
-        own_dense = scatter_layers(own_vals, own_idx, L, d)
+        own_dense = scatter_pairs(s_vals[0], s_idx[0], L, d)
         e = mix - own_dense
         if sel.use_fused:
             r = sel.resid[i] + (sel.sent[i] - own_dense)
         else:
             r = sel.acc2[i] - own_dense
+        if verdict is not None:
+            # own row (slot 0) quarantined: freeze this leaf's EF
+            r = torch.where(verdict[0][:, None], r, m.float().reshape(L, d))
         new_mem[i] = r.reshape(m.shape).to(m.dtype)
         own_upd[i], gerr[i] = own_dense, e
         own_sq, own_dot = sparse_own_sums(own_vals, own_idx, sel.g2f[i])
         sums = sums.add(g_sq=sel.leaf_g_sq[i], acc_sq=sel.leaf_acc_sq[i],
                         resid_sq=(r * r).sum(), own_sq=own_sq,
-                        own_dot_g=own_dot)
+                        own_dot_g=own_dot, quar_rows=quar)
         err_sq = err_sq + (e * e).sum()
         n_tot += L * d
 

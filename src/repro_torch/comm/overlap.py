@@ -31,10 +31,16 @@ kernels once per field section each, as ``bucketed`` does.
 ``transport="bucketed"`` in updates, EF memory, wire and effective bytes
 and telemetry.
 
-The JAX package decodes with fault verdicts unless a fault campaign opts
-out; on a clean payload that is bit for bit the division by W done here.
-The quarantine of invalid rows and the own-row EF freeze come with the
-faulty transport, which the port does not have yet.
+The decode runs the §16 verdicts unless ``comm.faults.guards_active()``
+is False (the default is on): quarantined rows add nothing and each
+layer's sum is divided by its valid-row count (``core.dcsgd.
+valid_row_mean``, as bucketed and perleaf do).  At ``delay=0`` a
+quarantined own row freezes the leaf's EF memory for the round; at
+``delay=1`` the own rows are round-tripped and never cross the wire, so
+the quarantined rows (of the previous round's payload) are counted and
+nothing freezes.
+Under a fault campaign (``transport="faulty"`` around ``overlap``) the
+gathered rows are corrupted at decode, whichever round they carry.
 """
 from __future__ import annotations
 
@@ -47,7 +53,7 @@ import torch.distributed as dist
 
 from repro_torch.comm import wire as wire_fmt
 from repro_torch.comm.bucket import BucketPlan, build_bucket_plan, \
-    decode_buckets, encode_buckets
+    decode_guarded, encode_buckets
 from repro_torch.comm.exchange import check_bucket_payload
 from repro_torch.comm.ring import RingGather, ring_all_gather_start
 from repro_torch.comm.transport import register_transport
@@ -271,9 +277,9 @@ def overlap_exchange(flat_g, flat_m, flat_s, eta, comp, group, gamma_t, *,
             post_carried(state, group, cfg.n_chunks)
     else:
         started = OverlapStart(payload, dense_cat, group, cfg.n_chunks)
-    decoded = [None] * len(lanes)
+    decoded = verdicts = [None] * len(lanes)
     if plan.total_words:
-        decoded = decode_buckets(plan, started.gathered())
+        decoded, verdicts = decode_guarded(plan, started.gathered())
     dense_mean = {}
     if dense_ids:
         mean_cat = started.dense_mean(W)
@@ -297,14 +303,16 @@ def overlap_exchange(flat_g, flat_m, flat_s, eta, comp, group, gamma_t, *,
             sums = sums.add_dense(dense_acc[i], g)
             continue
         g_vals, g_idx = decoded[i]
-        upd, mem_leaf, resid_sq, own_sq, own_dot = _consume_decoded_leaf(
-            g, m, sel.g2f[i], g_vals, g_idx, lane.L, lane.d, W, rank,
-            sel.use_fused, sel.sent[i], sel.resid[i], sel.acc2[i],
-            own=own_rt[i])
+        upd, mem_leaf, resid_sq, own_sq, own_dot, quar = \
+            _consume_decoded_leaf(
+                g, m, sel.g2f[i], g_vals, g_idx, lane.L, lane.d, W, rank,
+                sel.use_fused, sel.sent[i], sel.resid[i], sel.acc2[i],
+                own=own_rt[i], verdict=verdicts[i])
         updates.append(upd)
         new_mem.append(mem_leaf)
         sums = sums.add(g_sq=sel.leaf_g_sq[i], acc_sq=sel.leaf_acc_sq[i],
-                        resid_sq=resid_sq, own_sq=own_sq, own_dot_g=own_dot)
+                        resid_sq=resid_sq, own_sq=own_sq, own_dot_g=own_dot,
+                        quar_rows=quar)
 
     # wire bytes are static per plan (the full buffer crosses the wire
     # every step, carried or not); effective bytes describe the buffer

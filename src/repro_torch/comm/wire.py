@@ -24,6 +24,10 @@ Fields and words are uint32 bit patterns carried in int32 tensors (see
 packed words: the compressed downlink (``comm/downlink.py``) decodes its
 payload rows through it and launches no pack/unpack kernel, as the JAX
 package's launches none.
+
+:func:`row_verdict` and :func:`quarantine_rows` are the decode-side
+guards of DESIGN.md §16: every transport's decode runs them unless
+``comm.faults.guards_active()`` says otherwise (the default is on).
 """
 from __future__ import annotations
 
@@ -234,6 +238,12 @@ def fields_to_rows(ifields: torch.Tensor, vfields: torch.Tensor,
         idx = ifields
     if spec.value_bits <= 8:
         scale = scale_words.contiguous().view(torch.float32)
+        # XLA reads a subnormal operand as a signed zero (the JAX
+        # package's decode on the CPU and the TPU); torch keeps it.  Only
+        # a corrupted row carries such a scale: flush it, so that the
+        # decode of any row is JAX's (|q| >= 1 keeps every product normal)
+        scale = torch.where(scale.abs() < float(np.finfo(np.float32).tiny),
+                            scale * 0.0, scale)
         q = to_u32_value(vfields)
         q = torch.where(q >= (1 << (spec.value_bits - 1)),
                         q - (1 << spec.value_bits), q)
@@ -297,3 +307,46 @@ def roundtrip_rows(vals: torch.Tensor, idx: torch.Tensor, spec: WireSpec, *,
         vfields = torch.where(m, vfields, 0)
     scale_words = header[:, -1:] if spec.value_bits <= 8 else None
     return fields_to_rows(ifields, vfields, scale_words, counts, spec)
+
+
+def row_verdict(payload: torch.Tensor, spec: WireSpec, vals: torch.Tensor,
+                idx: torch.Tensor) -> torch.Tensor:
+    """Per-row validity of a decoded payload: (R,) bool, True iff the row
+    is safe to aggregate (the JAX package's rules):
+
+    * every element's index is in ``[0, d)`` or its value is 0 (padding
+      and masked entries hold clamped or zero indices);
+    * 16- and 32-bit values are all finite;
+    * a ragged row's count header is in ``[0, full_count]``;
+    * an 8- or 4-bit row's scale word satisfies ``|scale| <= f32_max /
+      2^(bits-1)``, which rejects NaN/Inf scales and finite ones whose
+      dequantized values would overflow (the values are then finite).
+
+    Honest encodes pass every rule, so the verdict is all True on a clean
+    wire.  The element rules form one boolean per element, reduced once
+    per row."""
+    ok_elems = ((idx >= 0) & (idx < spec.d)) | (vals == 0.0)
+    if spec.value_bits > 8:
+        ok_elems &= torch.isfinite(vals)
+    ok = ok_elems.all(dim=-1)
+    if spec.ragged:
+        counts = payload[:, 0]
+        ok &= (counts >= 0) & (counts <= spec.full_count)
+    if spec.value_bits <= 8:
+        scale = payload[:, spec.header_words - 1].contiguous().view(
+            torch.float32)
+        q_max = float(1 << (spec.value_bits - 1))
+        ok &= scale.abs() <= float(np.finfo(np.float32).max) / q_max
+    return ok
+
+
+def quarantine_rows(vals: torch.Tensor, idx: torch.Tensor,
+                    verdict: torch.Tensor):
+    """An invalid row becomes value 0.0 at index 0 in every entry, so it
+    scatters nothing; a valid row passes through untouched (harmless
+    out-of-range padding indices included).  The caller divides by the
+    valid-row count the verdict gives."""
+    keep = verdict[:, None]
+    return (torch.where(keep, vals, 0.0),
+            torch.where(keep, idx, torch.zeros((), dtype=idx.dtype,
+                                               device=idx.device)))

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import dataclasses
 
+from repro_torch.comm.faults import FaultConfig
 from repro_torch.comm.gossip import GossipConfig
 from repro_torch.comm.overlap import OverlapConfig
 from repro_torch.core.armijo import ArmijoConfig
@@ -135,6 +136,11 @@ class OptimizerConfig:
     downlink: str = "dense"
     # the downlink payload's ragged counts: fixed | linear only
     downlink_gamma: GammaControllerConfig = GammaControllerConfig()
+    # hostile-wire robustness (DESIGN.md §16): a seeded fault-injection
+    # campaign on the gathered payload rows (comm/faults.py).  All rates
+    # 0 (the default) inject nothing; the decode verdicts and the
+    # breaker stay armed either way
+    faults: FaultConfig = FaultConfig()
     # the JAX package's, not ported: only the default is taken
     shard_local_topk: bool = False
 
@@ -142,10 +148,11 @@ class OptimizerConfig:
         from repro_torch.comm.downlink import MODES as DOWNLINK_MODES
         from repro_torch.comm.transport import validate_transport
         validate_transport(self.transport)
-        # JAX's OptimizerConfig checks, then its build_train_step's for
-        # acgd and the downlink, word for word (before the refusal of
-        # shard_local_topk, so that downlink x shard_local_topk raises
-        # JAX's message)
+        # JAX's OptimizerConfig checks (the downlink's, the breaker's and
+        # the fault campaign's), then its build_train_step's for acgd and
+        # the downlink, word for word (before the refusal of
+        # shard_local_topk, so that downlink x shard_local_topk and
+        # faults x shard_local_topk raise JAX's messages)
         if self.downlink not in DOWNLINK_MODES:
             raise ValueError(f"unknown downlink mode {self.downlink!r} "
                              f"(want one of {DOWNLINK_MODES})")
@@ -163,6 +170,30 @@ class OptimizerConfig:
                     f"{self.transport!r} never materializes one "
                     "(gossip mixes neighbors, overlap applies stale "
                     "payloads — DESIGN.md §12/§14/§15)")
+        if self.max_consecutive_skips < 0:
+            raise ValueError(
+                f"max_consecutive_skips must be >= 0 (0 disables the "
+                f"breaker), got {self.max_consecutive_skips}")
+        if self.faults.enabled:
+            if self.kind not in COMPRESSING:
+                raise ValueError(
+                    f"fault injection corrupts the packed uplink wire "
+                    f"(DESIGN.md §16); kind={self.kind!r} ships a dense "
+                    f"pmean with no wire to corrupt — use csgd_asss | "
+                    f"nonadaptive | acgd")
+            if self.downlink == "compressed":
+                raise ValueError(
+                    "fault injection does not compose with "
+                    "downlink='compressed' — the 'faulty' wrapper is a "
+                    "stateful transport and the downlink hook requires a "
+                    "stateless one (DESIGN.md §15/§16)")
+            if self.shard_local_topk:
+                raise ValueError(
+                    "fault injection does not compose with "
+                    "shard_local_topk — fault sites are keyed by whole-"
+                    "gradient leaf index, not a model shard's lane set "
+                    "(DESIGN.md §16)")
+        # then JAX's build_train_step checks
         if self.kind == "acgd" and self.local_steps > 1:
             raise ValueError(
                 "kind='acgd' does not compose with local_steps > 1 — the "
@@ -248,10 +279,6 @@ class OptimizerConfig:
         if self.local_steps < 1:
             raise ValueError(
                 f"local_steps must be >= 1, got {self.local_steps}")
-        if self.max_consecutive_skips < 0:
-            raise ValueError(
-                f"max_consecutive_skips must be >= 0 (0 disables the "
-                f"breaker), got {self.max_consecutive_skips}")
 
 
 @dataclasses.dataclass(frozen=True)

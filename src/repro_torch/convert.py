@@ -83,7 +83,8 @@ def csgd_state_to_torch(state, device="cpu"):
         n_evals_ema=f32(state.n_evals_ema), gamma=f32(state.gamma),
         telemetry=CompressionTelemetry(**{
             f: torch.tensor(f32(getattr(tel, f)), device=device)
-            for f in ("ef_backlog", "cosine", "decode_error", "eff_gamma")}),
+            for f in ("ef_backlog", "cosine", "decode_error", "eff_gamma",
+                      "rows_quarantined")}),
         cum_eff_bytes=f32(state.cum_eff_bytes),
         velocity=to_torch(state.velocity, device) if len(
             state.velocity) else ())

@@ -34,9 +34,16 @@ counts and telemetry, bit for bit.  With an adaptive compressor
 runs at the budget, entries past the round's count are masked behind
 each row's count header (workers may send different counts; each row
 is decoded at its own), the masked mass stays in the EF residual, and
-the effective byte count prices only the valid fields.  With ``downlink_ctx`` the mean update then passes the
-server's EF re-compression (``comm/downlink.py``).  The faulty
-transport of the JAX package is not ported.
+the effective byte count prices only the valid fields.  With
+``downlink_ctx`` the mean update then passes the server's EF
+re-compression (``comm/downlink.py``).
+
+Every decode runs the §16 verdicts (``wire.row_verdict``,
+``quarantine_rows``) unless ``comm.faults.guards_active()`` is False:
+a quarantined row adds nothing, the mean divides by each layer's
+valid-row count, and a quarantined own row freezes the leaf's EF memory
+for the round.  The stateful ``faulty`` transport (``comm/faults.py``)
+wraps any of the others and corrupts the gathered rows before decode.
 
 The EF memory may be f32 or bf16: every path, the dense leaves'
 included, reads it as f32 before the kernels and writes m' back with
@@ -51,19 +58,22 @@ import torch
 import torch.distributed as dist
 from torch.profiler import record_function
 
+from repro_torch.comm import faults
 from repro_torch.comm import wire as wire_fmt
-from repro_torch.comm.bucket import (build_bucket_plan, decode_buckets,
+from repro_torch.comm.bucket import (build_bucket_plan, decode_guarded,
                                      encode_buckets)
 from repro_torch.comm.downlink import DownlinkResult, apply_downlink
 from repro_torch.comm.exchange import (all_reduce_mean, check_bucket_payload,
                                        check_payload, gather_packed)
 from repro_torch.comm.transport import get_transport, register_transport
+from repro_torch.fed.aggregate import support_weighted_mean
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import ef_acc
 from repro_torch.utils import tree_flatten, tree_map, tree_unflatten
 from .compression import Compressor, block_extract_sparse
-from .leafmath import (leaf_2d, leaf_count, per_layer_topk,
-                       plan_wire_bytes, scatter_layers, select_and_encode)
+from .leafmath import (jax_index_rules, leaf_2d, leaf_count,
+                       per_layer_topk, plan_wire_bytes, scatter_layers,
+                       scatter_pairs, select_and_encode)
 from .telemetry import TelemetrySums, sparse_own_sums
 
 f32 = np.float32
@@ -136,25 +146,64 @@ def worker_compress_aggregate(grads, memory, eta, comp: Compressor,
         DownlinkResult(dl_state, down_wire, down_eff),)
 
 
+def valid_row_mean(total: torch.Tensor, verdict: torch.Tensor):
+    """``(total / max(n_valid, 1), quarantined rows)`` for an (L, d) sum
+    of rows whose (W, L) ``verdict`` says which were valid: through
+    ``support_weighted_mean``, a true division by the f32 count on every
+    device, as jitted JAX divides by a traced count.  Quarantined rows
+    scatter zero mass, so an all-invalid layer sums to +0.0 and gets
+    +0.0, as JAX's ``total / max(0, 1)`` gives."""
+    n_valid = verdict.to(torch.float32).sum(dim=0)[:, None]         # (L, 1)
+    return (support_weighted_mean(total, n_valid),
+            float(verdict.numel()) - n_valid.sum())
+
+
 def _consume_decoded_leaf(g, m, g2f, g_vals, g_idx, L, d, W, rank,
-                          use_fused, sent, resid, acc2, own=None):
+                          use_fused, sent, resid, acc2, own=None,
+                          verdict=None):
     """Post-gather per-leaf consumer, shared by the transports: the mean
     update, this worker's EF residual (own rows sliced from the gathered
     decode, or ``own`` = (vals, idx) when the gathered rows are not this
-    round's, as under the overlap transport's delay 1) and the
-    decoded-side telemetry sums.  Entries past the round's count are
-    absent from the decoded own rows, so they land in the residual."""
-    total = scatter_layers(g_vals, g_idx, L, d)
-    mean_dense = total / W
-    own_vals, own_idx = (g_vals[rank], g_idx[rank]) if own is None else own
-    own_dense = scatter_layers(own_vals, own_idx, L, d)
+    round's, as under the overlap transport's delay 1), the decoded-side
+    telemetry sums and the quarantined-row count.  Entries past the
+    round's count are absent from the decoded own rows, so they land in
+    the residual.
+
+    ``verdict`` ((W, L) bool, or None when the decode ran unguarded):
+    quarantined rows arrive as zero mass, the mean divides each layer by
+    its valid-row count (``valid_row_mean``: a true division by an f32
+    tensor, as jitted JAX divides by a traced count), and an invalid own
+    row freezes the leaf's residual at the old memory (r = m in f32) —
+    unless ``own`` is given: own rows that never crossed the wire are
+    never quarantined.
+    Unguarded, the mean divides by the static W, which jitted XLA
+    computes as a product with f32(1/W).  Returns ``(update, memory,
+    resid_sq, own_sq, own_dot, quar_rows)``; ``quar_rows`` is None
+    unguarded."""
+    # JAX's index rules once on the gathered pairs, shared by both scatters
+    s_vals, s_idx = jax_index_rules(g_vals, g_idx, d)
+    total = scatter_pairs(s_vals, s_idx, L, d)
+    quar = None
+    if verdict is None:
+        mean_dense = total * float(f32(1.0) / f32(W))
+    else:
+        mean_dense, quar = valid_row_mean(total, verdict)
+    if own is None:
+        own_vals, own_idx = g_vals[rank], g_idx[rank]
+        own_dense = scatter_pairs(s_vals[rank], s_idx[rank], L, d)
+    else:
+        own_vals, own_idx = own
+        own_dense = scatter_layers(own_vals, own_idx, L, d)
     if use_fused:
         r = resid + (sent - own_dense)
     else:
         r = acc2 - own_dense
+    if verdict is not None and own is None:
+        r = torch.where(verdict[rank][:, None], r,
+                        m.float().reshape(L, d))
     own_sq, own_dot = sparse_own_sums(own_vals, own_idx, g2f)
     return (mean_dense.reshape(g.shape), r.reshape(m.shape).to(m.dtype),
-            (r * r).sum(), own_sq, own_dot)
+            (r * r).sum(), own_sq, own_dot, quar)
 
 
 def _tree_plan(flat_g, flat_s, comp):
@@ -201,16 +250,24 @@ def _perleaf_exchange(flat_g, flat_m, flat_s, eta, comp, group, gamma_t):
             vals, idx, spec, counts=None if count is None else
             wire_fmt.row_counts(count, L, device))
         check_payload(payload, spec, comp, d)
-        g_vals, g_idx = wire_fmt.decode_rows(
-            gather_packed(payload, group).reshape(-1, spec.row_words), spec)
-        upd, mem_leaf, resid_sq, own_sq, own_dot = _consume_decoded_leaf(
-            g, m, g2f, g_vals.reshape(W, L, spec.k),
-            g_idx.reshape(W, L, spec.k), L, d, W, rank, use_fused, sent,
-            resid, acc2)
+        all_rows = faults.maybe_corrupt(
+            gather_packed(payload, group).reshape(-1, spec.row_words), spec,
+            lane.index, L)
+        g_vals, g_idx = wire_fmt.decode_rows(all_rows, spec)
+        verdict = None
+        if faults.guards_active():
+            verdict = wire_fmt.row_verdict(all_rows, spec, g_vals, g_idx)
+            g_vals, g_idx = wire_fmt.quarantine_rows(g_vals, g_idx, verdict)
+            verdict = verdict.reshape(W, L)
+        upd, mem_leaf, resid_sq, own_sq, own_dot, quar = \
+            _consume_decoded_leaf(
+                g, m, g2f, g_vals.reshape(W, L, spec.k),
+                g_idx.reshape(W, L, spec.k), L, d, W, rank, use_fused, sent,
+                resid, acc2, verdict=verdict)
         updates.append(upd)
         new_mem.append(mem_leaf)
         sums = sums.add(g_sq=g_sq, acc_sq=acc_sq, resid_sq=resid_sq,
-                        own_sq=own_sq, own_dot_g=own_dot)
+                        own_sq=own_sq, own_dot_g=own_dot, quar_rows=quar)
     return (updates, new_mem) + plan_wire_bytes(plan, comp, gamma_t) \
         + (sums,)
 
@@ -228,11 +285,12 @@ def _bucketed_exchange(flat_g, flat_m, flat_s, eta, comp, group, gamma_t):
     sel = select_and_encode(flat_g, flat_m, flat_s, eta, comp, gamma_t,
                             plan)
 
-    decoded = [None] * len(plan.leaves)
+    decoded = verdicts = [None] * len(plan.leaves)
     if plan.total_words:
         payload = encode_buckets(plan, sel.enc_rows)
         check_bucket_payload(payload, plan, comp)
-        decoded = decode_buckets(plan, gather_packed(payload, group))
+        decoded, verdicts = decode_guarded(plan,
+                                           gather_packed(payload, group))
 
     dense_ids = list(plan.dense_ids)
     dense_acc = {i: ef_acc(flat_m[i], flat_g[i], eta).reshape(
@@ -258,13 +316,16 @@ def _bucketed_exchange(flat_g, flat_m, flat_s, eta, comp, group, gamma_t):
             sums = sums.add_dense(dense_acc[i], g)
             continue
         g_vals, g_idx = decoded[i]
-        upd, mem_leaf, resid_sq, own_sq, own_dot = _consume_decoded_leaf(
-            g, m, sel.g2f[i], g_vals, g_idx, lane.L, lane.d, W, rank,
-            sel.use_fused, sel.sent[i], sel.resid[i], sel.acc2[i])
+        upd, mem_leaf, resid_sq, own_sq, own_dot, quar = \
+            _consume_decoded_leaf(
+                g, m, sel.g2f[i], g_vals, g_idx, lane.L, lane.d, W, rank,
+                sel.use_fused, sel.sent[i], sel.resid[i], sel.acc2[i],
+                verdict=verdicts[i])
         updates.append(upd)
         new_mem.append(mem_leaf)
         sums = sums.add(g_sq=sel.leaf_g_sq[i], acc_sq=sel.leaf_acc_sq[i],
-                        resid_sq=resid_sq, own_sq=own_sq, own_dot_g=own_dot)
+                        resid_sq=resid_sq, own_sq=own_sq, own_dot_g=own_dot,
+                        quar_rows=quar)
     return (updates, new_mem) + plan_wire_bytes(plan, comp, gamma_t) \
         + (sums,)
 

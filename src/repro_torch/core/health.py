@@ -47,8 +47,8 @@ class HealthState:
     consecutive_skips: int = 0    # current skip run length
     last_good_step: int = -1      # last step that wrote params (-1 before
                                   # the first good step)
-    rows_quarantined: np.float32 = np.float32(0.0)  # cumulative rows the
-                                  # faulty transport's verdicts dropped
+    rows_quarantined: np.float32 = np.float32(0.0)  # cumulative gathered
+                                  # rows the decode verdicts quarantined
 
 
 def all_finite(*trees) -> torch.Tensor:

@@ -32,18 +32,45 @@ def per_layer_topk(acc2d: torch.Tensor, k: int):
     return torch.gather(acc2d, 1, idx), idx.to(torch.int32)
 
 
+def jax_index_rules(vals: torch.Tensor, idx: torch.Tensor, d: int,
+                    dtype=torch.float32):
+    """Sparse pairs as JAX's ``dense.at[lidx, idx].add(vals)`` reads them:
+    ``(vals as dtype, int64 indices in [0, d))``.  An index in ``[-d, 0)``
+    wraps once to ``idx + d``; every other out-of-range one is dropped,
+    written as -0.0 (the exact additive identity) at an in-range index,
+    so none reaches the scatter (on CUDA it would fire a device-side
+    assert).  A subnormal value is written as -0.0 too: XLA adds it as a
+    zero (on the CPU and the TPU), torch would keep it; only a corrupted
+    wire row carries one.  Works on the sparse pairs, never on a dense
+    result."""
+    vals = vals.to(dtype)
+    idx = idx.to(torch.int64)
+    kept = idx.clamp(-d, d - 1)
+    drop = (kept != idx) | (vals.abs() < float(torch.finfo(dtype).tiny))
+    return torch.where(drop, -0.0, vals), kept.remainder(d)
+
+
+def scatter_pairs(vals: torch.Tensor, idx: torch.Tensor, L: int,
+                  d: int) -> torch.Tensor:
+    """Scatter-add (L, k) or (W, L, k) pairs that went through
+    :func:`jax_index_rules` into a dense (L, d) accumulator of their
+    dtype; the W axis sums into the same layer rows."""
+    vals = vals.reshape(-1, L, vals.shape[-1])
+    idx = idx.reshape(vals.shape)
+    lidx = torch.arange(L, device=vals.device)[None, :, None].expand_as(idx)
+    dense = torch.zeros((L, d), dtype=vals.dtype, device=vals.device)
+    return dense.index_put_((lidx, idx), vals, accumulate=True)
+
+
 def scatter_layers(vals: torch.Tensor, idx: torch.Tensor, L: int, d: int,
                    dtype=torch.float32) -> torch.Tensor:
     """Scatter-add (L, k) or gathered (W, L, k) sparse pairs into a dense
-    (L, d) accumulator; the W axis sums into the same layer rows."""
+    (L, d) accumulator under JAX's index rules (:func:`jax_index_rules`);
+    the W axis sums into the same layer rows."""
     if vals.dim() not in (2, 3):
         raise ValueError(f"expected (L, k) or (W, L, k), got "
                          f"{tuple(vals.shape)}")
-    vals = vals.reshape(-1, L, vals.shape[-1])
-    idx = idx.reshape(vals.shape).to(torch.int64)
-    lidx = torch.arange(L, device=vals.device)[None, :, None].expand_as(idx)
-    dense = torch.zeros((L, d), dtype=dtype, device=vals.device)
-    return dense.index_put_((lidx, idx), vals.to(dtype), accumulate=True)
+    return scatter_pairs(*jax_index_rules(vals, idx, d, dtype), L, d)
 
 
 def leaf_2d(x: torch.Tensor, stacked: bool) -> torch.Tensor:

@@ -6,7 +6,9 @@ tree order and turned into ratios once:
 * ``ef_backlog``   — ||m'|| / ||g||;
 * ``cosine``       — cos(decode(own payload), g);
 * ``decode_error`` — ||acc - decode(own)|| / ||acc||;
-* ``eff_gamma``    — 1 - decode_error**2.
+* ``eff_gamma``    — 1 - decode_error**2;
+* ``rows_quarantined`` — gathered rows the decode verdicts quarantined
+  this round (DESIGN.md §16), a sum rather than a ratio.
 
 ``sum g^2`` and ``sum acc^2`` come from the fused EF pass-1 kernel's
 moments on the kernel path; the decoded-side sums touch only the k wire
@@ -31,6 +33,7 @@ class CompressionTelemetry:
     cosine: torch.Tensor
     decode_error: torch.Tensor
     eff_gamma: torch.Tensor
+    rows_quarantined: torch.Tensor = 0.0
 
     @classmethod
     def init(cls, device) -> "CompressionTelemetry":
@@ -38,7 +41,8 @@ class CompressionTelemetry:
         def leaf(v):
             return torch.tensor(v, dtype=torch.float32, device=device)
         return cls(ef_backlog=leaf(0.0), cosine=leaf(1.0),
-                   decode_error=leaf(0.0), eff_gamma=leaf(1.0))
+                   decode_error=leaf(0.0), eff_gamma=leaf(1.0),
+                   rows_quarantined=leaf(0.0))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,20 +54,27 @@ class TelemetrySums:
     resid_sq: torch.Tensor
     own_sq: torch.Tensor
     own_dot_g: torch.Tensor
+    quar_rows: torch.Tensor      # gathered rows quarantined by the verdicts
 
     @classmethod
     def zero(cls, device) -> "TelemetrySums":
         z = torch.zeros((), dtype=torch.float32, device=device)
-        return cls(g_sq=z, acc_sq=z, resid_sq=z, own_sq=z, own_dot_g=z)
+        return cls(g_sq=z, acc_sq=z, resid_sq=z, own_sq=z, own_dot_g=z,
+                   quar_rows=z)
 
-    def add(self, *, g_sq, acc_sq, resid_sq, own_sq,
-            own_dot_g) -> "TelemetrySums":
+    def add(self, *, g_sq, acc_sq, resid_sq, own_sq, own_dot_g,
+            quar_rows=None) -> "TelemetrySums":
+        """``quar_rows``: a leaf's quarantined rows, None for a leaf
+        decoded without verdicts (adds nothing, as JAX's 0.0 adds
+        nothing)."""
         return TelemetrySums(
             g_sq=self.g_sq + g_sq,
             acc_sq=self.acc_sq + acc_sq,
             resid_sq=self.resid_sq + resid_sq,
             own_sq=self.own_sq + own_sq,
-            own_dot_g=self.own_dot_g + own_dot_g)
+            own_dot_g=self.own_dot_g + own_dot_g,
+            quar_rows=self.quar_rows if quar_rows is None
+            else self.quar_rows + quar_rows)
 
     def add_dense(self, acc: torch.Tensor, g: torch.Tensor) -> "TelemetrySums":
         """An uncompressed leaf: decode == acc, residual exactly 0."""
@@ -81,7 +92,8 @@ class TelemetrySums:
             cosine=self.own_dot_g / torch.sqrt(self.own_sq * self.g_sq
                                                + _TINY),
             decode_error=torch.sqrt(resid_sq / (self.acc_sq + _TINY)),
-            eff_gamma=1.0 - resid_sq / (self.acc_sq + _TINY))
+            eff_gamma=1.0 - resid_sq / (self.acc_sq + _TINY),
+            rows_quarantined=self.quar_rows)
 
 
 def sparse_own_sums(own_vals: torch.Tensor, own_idx: torch.Tensor,

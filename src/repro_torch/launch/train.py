@@ -1,7 +1,7 @@
 """Training entry point of the port: the data-parallel trainer on the
 process group (twin of ``src/repro/launch/train.py``, the flags of its
 plain path on the ``bucketed``, ``perleaf``, ``overlap`` and ``gossip``
-transports, plus ``--device``).
+transports and its fault flags, plus ``--device``).
 
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --compress-method block_topk --steps 4
@@ -53,6 +53,16 @@ consensus correction by the AdaGossip rate (``--consensus-lr``,
 ``--consensus-beta``, ``--consensus-lr-max``).  At one worker it posts
 no P2P operation and equals ``bucketed``.
 
+Hostile wire (DESIGN.md §16): ``--fault-bitflip``, ``--fault-count``,
+``--fault-nonfinite`` and ``--fault-zero-row`` set per-row rates of a
+seeded fault campaign (``--fault-seed``, ``--fault-worker``, a burst of
+``--fault-steps`` rounds from ``--fault-start-step``) that corrupts the
+gathered payload rows before decode, through the ``faulty`` wrapper
+around the chosen transport (``comm/faults.py``).  Every decode runs the
+verdicts and quarantines invalid rows by default; ``--no-quarantine``
+turns them off for a campaign, leaving the breaker as the only defense.
+The log line adds ``skips=`` and ``quar=`` once either is nonzero.
+
 Checkpoints: ``--ckpt-dir D`` saves ``{"params", "state"}`` after every
 ``--ckpt-every`` completed steps and at the end, under
 ``D/rank_<r:03d>/step_<n:010d>`` (``checkpoint/checkpoint.py``), where
@@ -74,6 +84,7 @@ import torch.distributed as dist
 
 from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.comm.exchange import init_process_group
+from repro_torch.comm.faults import FaultConfig
 from repro_torch.comm.gossip import GossipConfig
 from repro_torch.comm.overlap import OverlapConfig
 from repro_torch.comm.topology import TOPOLOGIES
@@ -190,6 +201,33 @@ def parse_args(argv=None):
     ap.add_argument("--consensus-lr-max", type=float,
                     default=GossipConfig.lr_max,
                     help="consensus step cap (the fixed-step baseline)")
+    # ---- hostile-wire robustness (DESIGN.md §16) ----
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="seed of the (seed, step, worker)-deterministic "
+                         "fault-injection stream")
+    ap.add_argument("--fault-bitflip", type=float, default=0.0,
+                    help="per-row probability of flipping one random wire "
+                         "bit in the gathered payload")
+    ap.add_argument("--fault-count", type=float, default=0.0,
+                    help="per-row probability of a truncated/overflowed "
+                         "ragged count header")
+    ap.add_argument("--fault-nonfinite", type=float, default=0.0,
+                    help="per-row probability of a NaN/Inf scale or value "
+                         "field")
+    ap.add_argument("--fault-zero-row", type=float, default=0.0,
+                    help="per-row probability of zeroing the whole row "
+                         "(dropped-worker model: decodes as a VALID empty "
+                         "contribution)")
+    ap.add_argument("--fault-worker", type=int, default=-1,
+                    help="gathered row-slot to target (-1 = all workers)")
+    ap.add_argument("--fault-start-step", type=int, default=0,
+                    help="first step of the fault burst")
+    ap.add_argument("--fault-steps", type=int, default=-1,
+                    help="burst length in steps (-1 = open-ended)")
+    ap.add_argument("--no-quarantine", action="store_true",
+                    help="disable the defensive decode verdicts (corrupt "
+                         "rows flow into the mean; the step-level breaker "
+                         "is the only remaining defense)")
     ap.add_argument("--max-consecutive-skips", type=int,
                     default=OptimizerConfig.max_consecutive_skips,
                     help="step-level circuit breaker: this many consecutive "
@@ -320,7 +358,16 @@ def run(argv=None):
             local_steps=args.local_steps, downlink=args.downlink,
             downlink_gamma=GammaControllerConfig(
                 schedule=args.downlink_gamma_schedule,
-                gamma0=args.downlink_gamma)))
+                gamma0=args.downlink_gamma),
+            faults=FaultConfig(seed=args.fault_seed,
+                               p_bitflip=args.fault_bitflip,
+                               p_count=args.fault_count,
+                               p_nonfinite=args.fault_nonfinite,
+                               p_zero_row=args.fault_zero_row,
+                               worker=args.fault_worker,
+                               start_step=args.fault_start_step,
+                               n_steps=args.fault_steps,
+                               quarantine=not args.no_quarantine)))
 
     created = init_process_group(device)
     try:

@@ -1,8 +1,7 @@
 """The data-parallel train step (twin of the plain body of ``worker_fn``
 in ``src/repro/launch/train_step.py``, its acgd round, compressed
-downlink, overlap and gossip seams, and its local-steps round,
-``_local_steps_worker``: no federated cohort, faults or shard-local
-top-k).
+downlink, overlap, gossip and fault seams, and its local-steps round,
+``_local_steps_worker``: no federated cohort or shard-local top-k).
 
 Each worker — one process of the data-parallel group, one device —
 
@@ -52,6 +51,17 @@ initialization; the port's ranks already hold their own), and
 is built once per (name, group size).  The updates are per worker, so
 the breaker's gate reads the group's loss mean alone, as JAX's does.
 
+With a fault campaign (``OptimizerConfig.faults`` with a nonzero rate)
+every exchange — the plain round's, the local-steps round's, overlap's
+and gossip's — runs through the ``faulty`` wrapper transport
+(``comm/faults.py``, JAX's ``wrap_faults``), keyed on the round index
+``TrainState.step``; the decode verdicts run on every transport unless
+the campaign sets ``quarantine=False``.  The round's quarantined-row
+count rides the metrics' one host transfer into
+``HealthState.rows_quarantined``; the ``rows_quarantined`` metric is
+this worker's cumulative count, under gossip (each worker verdicts its
+own neighbours' rows) the group's mean of it, as JAX's is.
+
 Under the downlink the metrics add ``downlink_wire_bytes`` and
 ``downlink_effective_wire_bytes``; ``cum_effective_wire_bytes`` then
 prices both directions, ``(previous + uplink) + downlink`` with each sum
@@ -78,6 +88,7 @@ from torch.profiler import record_function
 from repro_torch.comm.downlink import DownlinkCtx, DownlinkState, \
     init_downlink_state
 from repro_torch.comm.exchange import all_reduce_mean
+from repro_torch.comm.faults import FaultCtx
 from repro_torch.comm.gossip import GossipCtx, GossipState
 from repro_torch.comm.overlap import OverlapCtx, OverlapState, \
     init_overlap_state, post_carried
@@ -102,7 +113,8 @@ METRIC_KEYS = ("loss", "grad_sqnorm", "alpha", "n_evals", "gamma",
                "ef_cosine")
 DOWNLINK_KEYS = ("downlink_wire_bytes", "downlink_effective_wire_bytes")
 OVERLAP_KEYS = ("staleness",)
-TELEMETRY_FIELDS = ("ef_backlog", "cosine", "decode_error", "eff_gamma")
+TELEMETRY_FIELDS = ("ef_backlog", "cosine", "decode_error", "eff_gamma",
+                    "rows_quarantined")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,7 +169,8 @@ def init_train_state(params, run_cfg) -> TrainState:
         # neutral: zero backlog, perfect alignment
         telemetry=CompressionTelemetry(ef_backlog=f32(0.0), cosine=f32(1.0),
                                        decode_error=f32(0.0),
-                                       eff_gamma=f32(1.0)),
+                                       eff_gamma=f32(1.0),
+                                       rows_quarantined=f32(0.0)),
         cum_wire_bytes=f32(0.0), cum_eff_bytes=f32(0.0),
         health=HealthState(),
         velocity=tree_map(lambda p: torch.zeros(
@@ -262,12 +275,11 @@ def train_step(params, state: TrainState, batch: dict, run_cfg, group=None):
                     state.downlink.memory, gamma_update(
                         opt.downlink_gamma, opt.compressor,
                         state.downlink.gamma, state.step)))
+            name, t_ctx = _transport(state, opt, started, group)
             out = worker_compress_aggregate(
                 send, state.memory, eta, opt.compressor, group,
                 stacked_mask=lm.stacked_mask(params), gamma_t=gamma_t,
-                transport=opt.transport,
-                transport_ctx=_transport_ctx(state, opt, started, group),
-                downlink_ctx=ctx)
+                transport=name, transport_ctx=t_ctx, downlink_ctx=ctx)
             del send
             updates, new_mem, wire, eff, tel = out[:5]
             if ctx is not None:
@@ -306,16 +318,23 @@ def _topology(name: str, W: int) -> Topology:
     return build_topology(name, W)
 
 
-def _transport_ctx(state: TrainState, opt, started, group):
-    """The exchange's ``transport_ctx``: the overlap or gossip transport's
-    context with its carried state, None for the stateless ones."""
+def _transport(state: TrainState, opt, started, group):
+    """The exchange's transport and ``transport_ctx``: the overlap or
+    gossip transport's context with its carried state (None for the
+    stateless ones), wrapped in the ``faulty`` transport when a fault
+    campaign is configured (JAX's ``wrap_faults``), keyed on the round
+    index."""
+    ctx = None
     if state.overlap is not None:
-        return OverlapCtx(opt.overlap, state.overlap, started)
-    if state.gossip is not None:
-        return GossipCtx(_topology(opt.gossip.topology,
-                                   dist.get_world_size(group)),
-                         opt.gossip, state.gossip)
-    return None
+        ctx = OverlapCtx(opt.overlap, state.overlap, started)
+    elif state.gossip is not None:
+        ctx = GossipCtx(_topology(opt.gossip.topology,
+                                  dist.get_world_size(group)),
+                        opt.gossip, state.gossip)
+    if not opt.faults.enabled:
+        return opt.transport, ctx
+    return "faulty", FaultCtx(cfg=opt.faults, step=state.step,
+                              inner=opt.transport, inner_ctx=ctx)
 
 
 def _local_steps_step(params, state: TrainState, batch: dict, run_cfg,
@@ -372,11 +391,11 @@ def _local_steps_step(params, state: TrainState, batch: dict, run_cfg,
         del p_loc
         # the overlap seam: at delay 1 the carried payload's collectives,
         # posted before the H local steps, ship during them
+        name, t_ctx = _transport(state, opt, started, group)
         out = worker_compress_aggregate(
             delta, state.memory, f32(1.0), opt.compressor, group,
             stacked_mask=lm.stacked_mask(params), gamma_t=gamma_t,
-            transport=opt.transport,
-            transport_ctx=_transport_ctx(state, opt, started, group))
+            transport=name, transport_ctx=t_ctx)
         del delta
         updates, new_mem, wire, eff, tel = out[:5]
     return _finish_round(
@@ -404,6 +423,14 @@ def _finish_round(params, state: TrainState, run_cfg, group, *, loss, gsq,
     # JAX: f32(delay) * seeded of the incoming state, then the mean
     stale = [f32(opt.overlap.delay) * state.overlap.seeded] \
         if new_ov is not None else []
+    compressing = opt.kind in COMPRESSING
+    # under gossip the metric is the group's mean of each worker's new
+    # cumulative count (the f32 sum advance_health forms), as JAX's
+    quar_mean = []
+    if new_gs is not None:
+        keys = keys + ("rows_quarantined",)
+        quar_mean = [torch.full((), float(state.health.rows_quarantined),
+                                device=loss.device) + tel.rows_quarantined]
     with record_function("train_step.metrics"):
         local = torch.stack(
             [loss.float(), gsq.float()]
@@ -412,7 +439,7 @@ def _finish_round(params, state: TrainState, run_cfg, group, *, loss, gsq,
             + [tel.ef_backlog, tel.cosine]
             + [torch.tensor(float(x), device=loss.device)
                for x in (list(dl_res[1:]) if dl_res is not None else [])
-               + stale])
+               + stale] + quar_mean)
         # one host transfer: the group means and this worker's own
         # telemetry, which the next round's controller reads
         own = torch.stack([getattr(tel, f) for f in TELEMETRY_FIELDS])
@@ -436,13 +463,13 @@ def _finish_round(params, state: TrainState, run_cfg, group, *, loss, gsq,
     # anywhere poisons the mean within one round), as JAX's does
     step_ok = bool(np.isfinite(metrics["loss"])) and (
         new_gs is not None or bool(all_finite(updates)))
-    # rows_quarantined advances by 0 until the faulty transport, whose
-    # verdicts count the rows, is ported
-    health = advance_health(state.health, step_ok, state.step, 0.0)
+    # the round's quarantined rows came back with the metrics above
+    health = advance_health(state.health, step_ok, state.step,
+                            tel.rows_quarantined if compressing else 0.0)
     metrics.update(steps_skipped=float(health.steps_skipped),
                    consecutive_skips=float(health.consecutive_skips),
-                   last_good_step=float(health.last_good_step),
-                   rows_quarantined=float(health.rows_quarantined))
+                   last_good_step=float(health.last_good_step))
+    metrics.setdefault("rows_quarantined", float(health.rows_quarantined))
     if not step_ok and opt.max_consecutive_skips > 0:
         return params, dataclasses.replace(
             state, step=state.step + 1, cum_wire_bytes=cum_wire,

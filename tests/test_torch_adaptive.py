@@ -474,10 +474,10 @@ def test_adaptive_default_gamma_t_is_the_compressors():
 def test_unknown_transport_is_refused_everywhere():
     from repro_torch.comm import transport
     from repro_torch.configs.base import OptimizerConfig
-    assert transport.transport_names() == ("bucketed", "gossip", "overlap",
-                                           "perleaf")
-    with pytest.raises(ValueError, match="unknown transport 'faulty'"):
-        OptimizerConfig(transport="faulty")
+    assert transport.transport_names() == ("bucketed", "faulty", "gossip",
+                                           "overlap", "perleaf")
+    with pytest.raises(ValueError, match="unknown transport 'star'"):
+        OptimizerConfig(transport="star")
     tree, mem = _inputs()
     with pytest.raises(ValueError, match="unknown transport"):
         worker_compress_aggregate(to_torch(tree), to_torch(mem), 0.7,

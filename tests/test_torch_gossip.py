@@ -173,8 +173,8 @@ def test_rounding_rules_follow_jitted_jax():
     np.testing.assert_array_equal(
         _bits(dense), _bits((tx[0] + tx[1] + tx[2]) * float(f32(1) / f32(3))))
     assert (_bits(dense) != _bits((x[0] + x[1] + x[2]) / f32(3))).any()
-    np.testing.assert_array_equal(_bits(sparse),
-                                  _bits(gs._true_div(tx[0], 3)))
+    np.testing.assert_array_equal(_bits(sparse), _bits(gs.valid_row_mean(
+        tx[0][None], torch.ones((3, 1), dtype=torch.bool))[0][0]))
     assert (_bits(sparse) != _bits(x[0] * (f32(1) / f32(3)))).any()
     # the AdaGossip step on 20,000 (v, err_sq) pairs at once
     cfg = gs.GossipConfig(consensus_lr=0.03, lr_max=0.7, beta=0.5)

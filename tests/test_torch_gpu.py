@@ -1152,3 +1152,86 @@ def test_gossip_exchange_on_card(cuda, value_bits):
         assert g[2:4] == w[2:4] == b[2:4]
         assert g[5].v.is_cuda and float(g[5].v) == 0.0
         assert float(g[5].lr) == 1.0
+
+
+@pytest.mark.gpu
+def test_scatter_drops_out_of_range_on_card(cuda):
+    """``scatter_layers`` on the card with indices JAX wraps or drops (and
+    a subnormal value): no device-side assert, and the CPU's sums bit for
+    bit."""
+    from repro_torch.core.leafmath import scatter_layers
+    d, L = 8, 2
+    idx = torch.tensor([[[-1, 9, 3, -9, 2**31 - 1, -8, 8, -2**31],
+                         [0, 0, 5, 7, -3, 1, 2**31 - 1, 2]]] * 3,
+                       dtype=torch.int32)
+    vals = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        idx.shape).astype(np.float32))
+    vals[0, 0, 2] = 1e-41
+    want = scatter_layers(vals, idx, L, d)
+    got = scatter_layers(vals.to(cuda), idx.to(cuda), L, d)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quarantine", [True, False])
+def test_faulty_exchange_on_card(cuda, quarantine):
+    """Two exchanges through the ``faulty`` wrapper around ragged perleaf
+    (8-bit, the ragged CUDA codec) inside a bitflip / count / NaN burst,
+    on the card against the CPU: the same rows corrupted and quarantined,
+    updates and EF memory equal (as values: an unguarded NaN's payload
+    may differ), the bytes, and the clean run's launches."""
+    import socket
+
+    import torch.distributed as dist
+    from repro_torch.comm import faults
+    from repro_torch.core.compression import Compressor
+    from repro_torch.core.dcsgd import worker_compress_aggregate
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(4)
+    tree = {"a": rng.standard_normal((3, 4096)), "b": rng.standard_normal(
+        (5000,)), "tiny": rng.standard_normal((50,))}
+    tree = {k: torch.from_numpy(v.astype(np.float32))
+            for k, v in tree.items()}
+    comp = Compressor(gamma=0.04, max_gamma=0.1, method="block_topk",
+                      value_bits=8, min_compress_size=64)
+    cfg = faults.FaultConfig(seed=5, p_bitflip=1.0, p_count=0.5,
+                             p_nonfinite=0.3, quarantine=quarantine)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("cpu:gloo,cuda:nccl",
+                            init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        def rounds(device, transport, ctx_of):
+            m = {k: 0.05 * v.to(device) for k, v in tree.items()}
+            outs, counts = [], []
+            for r in range(2):
+                ops.reset_launch_counts()
+                out = worker_compress_aggregate(
+                    {k: (v * (1 + r)).to(device) for k, v in tree.items()},
+                    m, np.float32(0.7), comp, gamma_t=np.float32(0.07),
+                    transport=transport, transport_ctx=ctx_of(r))
+                torch.cuda.synchronize()
+                counts.append(ops.launch_counts())
+                m = out[1]
+                outs.append(out)
+            return outs, counts
+
+        def faulty(r):
+            return faults.FaultCtx(cfg=cfg, step=r, inner="perleaf")
+        want, _ = rounds("cpu", "faulty", faulty)
+        got, counts = rounds(cuda, "faulty", faulty)
+        _, clean = rounds(cuda, "perleaf", lambda r: None)
+    finally:
+        dist.destroy_process_group()
+    assert counts == clean and all(c["unpack_words_ragged"] for c in counts)
+    for g, w in zip(got, want):
+        for i in (0, 1):
+            for k in tree:
+                np.testing.assert_array_equal(g[i][k].cpu().numpy(),
+                                              w[i][k].numpy())
+        assert g[2:4] == w[2:4]
+        assert float(g[4].rows_quarantined) == float(w[4].rows_quarantined)
+        assert (float(g[4].rows_quarantined) > 0) == quarantine

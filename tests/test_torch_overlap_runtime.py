@@ -153,6 +153,6 @@ def test_two_workers_through_the_cli(tmp_path):
                                           err_msg=f"rank {rank} {k}")
     for i, (a, b) in enumerate(zip(got[0][5], got[1][5])):
         np.testing.assert_array_equal(a, b, err_msg=f"parameter leaf {i}")
-    # leaf_40: the carried payload (after 38 parameter and EF leaves and
-    # the two empty optional states); each rank carries its own
-    assert not np.array_equal(got[0][3]["leaf_40"], got[1][3]["leaf_40"])
+    # leaf_41: the carried payload (after 39 parameter, EF and telemetry
+    # leaves and the two empty optional states); each rank carries its own
+    assert not np.array_equal(got[0][3]["leaf_41"], got[1][3]["leaf_41"])

@@ -47,13 +47,17 @@ def _entry(rank, W, port, queue, fn, args):
 class Spawned:
     """``fn(rank, W, *args)`` on W gloo workers, started now so that the
     caller can work meanwhile; :meth:`result` waits and returns
-    ``{rank: result}``."""
+    ``{rank: result}``.  ``preload``: modules for a fork server to import
+    once, the workers then forked from it (each spawned worker would
+    import torch on its own); the default spawns each worker."""
 
-    def __init__(self, fn, W, *args):
+    def __init__(self, fn, W, *args, preload=None):
         with socket.socket() as s:
             s.bind(("localhost", 0))
             port = s.getsockname()[1]
-        ctx = mp.get_context("spawn")
+        ctx = mp.get_context("spawn" if preload is None else "forkserver")
+        if preload is not None:
+            ctx.set_forkserver_preload(list(preload))
         self.queue = ctx.Queue()
         self.procs = [ctx.Process(target=_entry,
                                   args=(r, W, port, self.queue, fn, args))
