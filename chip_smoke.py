@@ -191,7 +191,8 @@ Phases, each fatal on failure (no phase catches and continues):
    ``sls`` and ``acgd``, ``--local-steps 2 --microbatches 2``,
    ``--ef-dtype bfloat16``, ``--downlink compressed``, ``--transport
    overlap`` at delay 1 and 0, ``--transport gossip``,
-   ``--fault-bitflip 0.1`` with equal quarantined rows, and on
+   ``--fault-bitflip 0.1`` with equal quarantined rows, ``--n-clients 4
+   --clients-per-round 3``, and on
    ``--transport perleaf --max-gamma 0.1``), through
    CSGD-ASSS for 3 and through serving
    (qwen1.5-4b and rwkv6-1.6b, ctx 96, 4 tokens), and compare: equal
@@ -288,6 +289,14 @@ GOSSIP_STEPS = 3
 #: phase 4k: steps of each guarded / unguarded run, and the reps of the
 #: exchange timed alone each way
 FAULT_STEPS, FAULT_REPS = 3, 10
+#: phase 4l: the cohort's flags (4 clients, 3 a round, a 10% budget with
+#: each client's own linear ramp 0.04 -> 0.1, non-IID clients), the
+#: rounds of each run at 32 and at 8 bits, and the clients
+COHORT_ARGS = ["--n-clients", "4", "--clients-per-round", "3",
+               "--max-gamma", "0.1", "--gamma", "0.04", "--gamma-schedule",
+               "linear", "--gamma-ramp-steps", "2", "--dirichlet-alpha",
+               "0.5"]
+COHORT_ROUNDS, COHORT_CLIENTS = 3, 4
 
 
 def fail(msg: str) -> None:
@@ -2138,6 +2147,328 @@ def fault_trainer(dev, root: Path) -> dict:
     return summary
 
 
+def cohort_launches(plan, value_bits: int, clients: int) -> dict:
+    """Each kernel's launches in one cohort round: one EF launch pair and
+    one encode a client (a pack launch per bucket field section below 32
+    bits), one decode of every gathered row (an unpack launch per
+    section)."""
+    sections = sum((b.index_bits < 32) + (value_bits < 32)
+                   for b in plan.buckets)
+    return dict(ef_stats_telemetry=clients, ef_apply=clients,
+                pack_words=clients * sections, unpack_words=sections)
+
+
+def cohort_trainer(dev, root: Path) -> dict:
+    """Phase 4l: the federated cohort at full width through
+    ``launch.train --n-clients 4`` on one worker, the launch counts set to
+    0 just before each run and read just after: 3 rounds at 32 and at 8
+    bits with each round's exact launches of the four training kernels;
+    the cohort exchange from one state through the kernels and through
+    their plain versions on the card (``dispatch`` sent to ``ref``), the
+    gathered payload, the updates and every client's EF memory bit for
+    bit, the non-participant's memory unchanged; ``support`` == ``mean``
+    at a full budget with 32-bit values; a NaN round on client 1's rows,
+    quarantined, its memory frozen; a cohort checkpoint resumed bit for
+    bit.  Returns the runs' step times, launches and bytes."""
+    import shutil
+
+    from repro_torch.comm.bucket import build_bucket_plan
+    from repro_torch.comm.exchange import init_process_group
+    from repro_torch.configs import get_config
+    from repro_torch.core.compression import Compressor
+    from repro_torch.fed import clients as fed_clients
+    from repro_torch.fed.sampling import participation_mask
+    from repro_torch.kernels import dispatch, ops
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.utils import tree_flatten, tree_map, value_and_grad
+    cfg = get_config("paper-lm-100m")
+    base = MAIN_ARGS + COHORT_ARGS
+    params0 = lm.init_params(cfg, seed=0, device=dev)
+    leaves = tree_flatten(params0)[0]
+    shapes = [tuple(p.shape) for p in leaves]
+    stacked = tree_flatten(lm.stacked_mask(params0))[0]
+    smask = lm.stacked_mask(params0)
+    plans = {bits: build_bucket_plan(shapes, stacked, Compressor(
+        gamma=0.04, max_gamma=0.1, method="block_topk", value_bits=bits))
+        for bits in (32, 8)}
+    plan = plans[32]
+    n_rows = sum(ln.L for ln in plan.leaves if not ln.dense)
+
+    def checked_run(label, extra, steps, want=None, first=0, bits=32):
+        """Rounds ``first`` ... ``steps`` - 1 of ``base + extra`` (at
+        ``bits``-bit values), each round's state recorded; fails on a
+        non-finite loss, a skipped round, participants other than 3,
+        bytes other than 3 clients', or launches other than ``want``
+        (per round) when given."""
+        # 3 participants' bytes, priced in f32 as JAX prices them
+        want_wire = float(np.float32(3.0) * np.float32(
+            fed_clients.per_client_wire_bytes(plans[bits])))
+        torch.cuda.reset_peak_memory_stats(dev)
+        live = torch.cuda.memory_allocated(dev)
+        states = []
+        real = train.train_step
+
+        def recording(*a, **k):
+            out = real(*a, **k)
+            states.append(out[1])
+            return out
+        train.train_step = recording
+        try:
+            ops.reset_launch_counts()
+            log, params, state = train.run(base + extra + ["--steps",
+                                                           str(steps)])
+            torch.cuda.synchronize(dev)
+            counts = ops.launch_counts()
+        finally:
+            train.train_step = real
+        peak = torch.cuda.max_memory_allocated(dev) - live
+        byte_pairs = [(x["wire_bytes"], x["effective_wire_bytes"])
+                      for x in log]
+        print(f"cohort [{label}]: launches {counts}; step_s "
+              f"{[round(x['step_s'], 4) for x in log]}; participants "
+              f"{[x['participants'] for x in log]}; (static, effective) "
+              f"bytes {byte_pairs}; losses {[x['loss'] for x in log]}; "
+              f"gamma {[x['gamma'] for x in log]}; alpha "
+              f"{[x['alpha'] for x in log]}; rows_quarantined "
+              f"{[x['rows_quarantined'] for x in log]}; peak memory "
+              f"{peak / 2**30:.2f} GiB above the {live / 2**30:.2f} GiB "
+              "live before the run", flush=True)
+        n = steps - first
+        if len(log) != n or not all(np.isfinite(x["loss"]) for x in log) \
+                or any(x["steps_skipped"] for x in log) \
+                or any(x["participants"] != 3.0 for x in log):
+            fail(f"[cohort {label}] non-finite loss, a skipped round or "
+                 f"participants other than 3: {log}")
+        if any(x["wire_bytes"] != want_wire
+               or not 0 < x["effective_wire_bytes"] <= x["wire_bytes"]
+               for x in log):
+            fail(f"[cohort {label}] bytes {log}: want {want_wire} B "
+                 "static, effective in (0, static]")
+        if want is not None:
+            full = {k: 0 for k in counts}
+            full.update({k: v * n for k, v in want.items()})
+            if counts != full:
+                fail(f"[cohort {label}] launches {counts}, want {full}")
+        return log, params, state, counts, peak, states
+
+    summary = {}
+    for bits in (32, 8):
+        want = cohort_launches(plans[bits], bits, COHORT_CLIENTS)
+        log, params, state, counts, peak, _ = checked_run(
+            f"{bits}-bit", ["--value-bits", str(bits)], COHORT_ROUNDS,
+            want=want, bits=bits)
+        if tree_flatten(state.fed.memory)[0][0].device != dev:
+            fail("[cohort] the clients' EF memory is not on the card")
+        summary[f"{bits}-bit"] = dict(
+            step_s=[x["step_s"] for x in log], launches_a_round=want,
+            wire=[x["wire_bytes"] for x in log],
+            effective=[x["effective_wire_bytes"] for x in log],
+            peak_gib=peak / 2**30)
+        del log, params, state
+
+    # ---- the exchange through the kernels and through the plain route --
+    created = init_process_group(dev)
+    try:
+        mask = participation_mask(COHORT_CLIENTS, 0, mode="fixed",
+                                  clients_per_round=3)
+        idle = int(np.flatnonzero(mask == 0)[0])
+        tokens = torch.randint(0, cfg.vocab_size, (COHORT_CLIENTS, 2, 256),
+                               generator=torch.Generator().manual_seed(3)
+                               ).to(dev)
+        grads = None
+        for c in range(COHORT_CLIENTS):
+            _, g = value_and_grad(lambda p: lm.loss_fn(
+                p, {"tokens": tokens[c]}, cfg), params0)
+            if grads is None:
+                grads = tree_map(lambda x: torch.empty(
+                    (COHORT_CLIENTS,) + tuple(x.shape), device=dev), g)
+            tree_map(lambda b, x: b[c].copy_(x), grads, g)
+            del g
+        gen = torch.Generator(device=dev).manual_seed(5)
+        memory = tree_map(lambda x: 1e-3 * torch.randn(
+            x.shape, generator=gen, device=dev), grads)
+        eta = np.array([0.03, 0.05, 0.02, 0.04], np.float32)
+        gamma = np.array([0.04, 0.07, 0.1, 0.055], np.float32)
+        real_decode = fed_clients.decode_guarded
+        real_resolve = dispatch.resolve
+
+        def exchange(bits, plain):
+            """One cohort exchange: (gathered payload, updates, memory,
+            wire, eff, quarantined) and the launches it made."""
+            got = []
+
+            def capture(plan_, pay):
+                got.append(pay.clone())
+                return real_decode(plan_, pay)
+            fed_clients.decode_guarded = capture
+            if plain:
+                dispatch.resolve = lambda x: "ref"
+            try:
+                ops.reset_launch_counts()
+                out = fed_clients.cohort_compress_aggregate(
+                    grads, memory, eta, Compressor(
+                        gamma=0.04, max_gamma=0.1, method="block_topk",
+                        value_bits=bits), None, mask, gamma,
+                    stacked_mask=smask, return_quarantined=True)
+                torch.cuda.synchronize(dev)
+                return (got[0],) + out, ops.launch_counts()
+            finally:
+                fed_clients.decode_guarded = real_decode
+                dispatch.resolve = real_resolve
+
+        for bits in (32, 8):
+            (pay, upd, mem, wire, eff, quar), counts = exchange(bits, False)
+            (ppay, pupd, pmem, pwire, peff, pquar), pcounts = exchange(
+                bits, True)
+            want = {k: 0 for k in counts}
+            want.update(cohort_launches(plans[bits], bits, COHORT_CLIENTS))
+            if counts != want or any(pcounts.values()):
+                fail(f"[cohort exchange {bits}-bit] launches {counts} "
+                     f"(want {want}), plain route {pcounts} (want none)")
+            if not (bits_equal(pay, ppay) and trees_equal(upd, pupd)
+                    and trees_equal(mem, pmem) and wire == pwire
+                    and bits_equal(eff, peff) and bits_equal(quar, pquar)):
+                fail(f"[cohort exchange {bits}-bit] the kernel route "
+                     "differs from the plain route on the card")
+            if not all(bits_equal(a[idle], b[idle]) for a, b in zip(
+                    tree_flatten(mem)[0], tree_flatten(memory)[0])):
+                fail(f"[cohort exchange {bits}-bit] the non-participant's "
+                     "EF memory moved")
+            print(f"cohort [exchange {bits}-bit]: kernels == plain route "
+                  f"on the card bit for bit (payload {tuple(pay.shape)} "
+                  f"words, updates, all {COHORT_CLIENTS} clients' EF "
+                  f"memory; wire {float(wire)} B, effective {float(eff)} "
+                  f"B); client {idle} sits out, its memory unchanged; "
+                  f"launches {counts}", flush=True)
+            del pay, upd, mem, ppay, pupd, pmem
+
+        # support == mean where every participant sends every coordinate
+        full = Compressor(gamma=1.0, method="block_topk")
+        rnd = tree_map(lambda x: torch.randn(x.shape, generator=gen,
+                                             device=dev), grads)
+        zero = tree_map(torch.zeros_like, grads)
+        outs = [fed_clients.cohort_compress_aggregate(
+            rnd, zero, eta, full, None, mask, stacked_mask=smask,
+            aggregation=agg) for agg in ("support", "mean")]
+        if not (trees_equal(outs[0][0], outs[1][0])
+                and trees_equal(outs[0][1], outs[1][1])):
+            fail("[cohort] support != mean at a full budget with 32-bit "
+                 "values")
+        print("cohort [full budget, 32-bit]: support == mean bit for bit "
+              "(updates and every client's EF memory)", flush=True)
+        del grads, memory, rnd, zero, outs
+    finally:
+        if created:
+            torch.distributed.destroy_process_group()
+    del params0, leaves
+
+    # ---- a NaN round on client 1's rows ---------------------------------
+    nan = ["--fault-nonfinite", "1.0", "--fault-worker", "1",
+           "--fault-start-step", "1", "--fault-steps", "1"]
+    log, _, _, _, _, states = checked_run("NaN round on client 1", nan,
+                                          COHORT_ROUNDS)
+    if participation_mask(COHORT_CLIENTS, 1, mode="fixed",
+                          clients_per_round=3)[1] != 1.0:
+        fail("[cohort NaN] client 1 sits out round 1: nothing to freeze")
+    quar = [x["rows_quarantined"] for x in log]
+    if quar != [0.0, float(n_rows), float(n_rows)]:
+        fail(f"[cohort NaN] rows_quarantined {quar}, want [0, {n_rows}, "
+             f"{n_rows}]")
+    before, after = states[0].fed.memory, states[1].fed.memory
+    comp_leaves = [i for i, ln in enumerate(plan.leaves) if not ln.dense]
+    fb, fa = tree_flatten(before)[0], tree_flatten(after)[0]
+    if not all(bits_equal(fb[i][1], fa[i][1]) for i in comp_leaves):
+        fail("[cohort NaN] client 1's EF memory moved in the round its "
+             "rows were quarantined")
+    if all(bits_equal(fb[i][0], fa[i][0]) for i in comp_leaves):
+        fail("[cohort NaN] client 0's EF memory did not move")
+    print(f"cohort [NaN round on client 1]: {n_rows} rows quarantined in "
+          f"round 1, client 1's EF memory frozen bit for bit, client 0's "
+          f"moved, no skip", flush=True)
+    del states
+
+    # ---- a cohort checkpoint, resumed -----------------------------------
+    tmp = root / "_smoke_ckpt"
+    shutil.rmtree(tmp, ignore_errors=True)
+    try:
+        d = str(tmp / "cohort")
+        straight = checked_run("4 rounds", [], 4)
+        checked_run("2 rounds, saved", ["--ckpt-dir", d, "--ckpt-every",
+                                        "2"], 2)
+        log, params, state, _, _, _ = checked_run(
+            "resumed to 4", ["--ckpt-dir", d, "--resume"], 4, first=2)
+        s = straight[2].fed
+        if [x["step"] for x in log] != [2, 3] or not trees_equal(
+                params, straight[1]) or not trees_equal(
+                    state.fed.memory, s.memory) or not all(
+                bits_equal(getattr(state.fed, f), getattr(s, f))
+                for f in ("gamma", "rounds", "alpha")):
+            fail("[cohort checkpoint] a resume from round 2 to 4 differs "
+                 "from 4 uninterrupted rounds")
+        print("cohort [checkpoint]: resumed from round 2 to 4 bit for bit "
+              "with 4 straight rounds (parameters, every client's EF "
+              "memory, gamma, rounds, alpha)", flush=True)
+        summary["4 rounds"] = dict(step_s=[x["step_s"]
+                                           for x in straight[0]])
+        del straight, params, state
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return summary
+
+
+def profile_cohort(dev, cfg) -> None:
+    """Phase 4l: one warm full-width cohort round under torch.profiler,
+    as in 4b, beside a bucketed step at the same batch, compressor and
+    first gamma_t: device busy time, idle share, the kernels under their
+    own names and the peak memory above what was live before each."""
+    from repro_torch.comm.exchange import init_process_group
+    from repro_torch.configs.base import FederatedConfig, OptimizerConfig, \
+        RunConfig, ShapeConfig
+    from repro_torch.core.compression import Compressor
+    from repro_torch.core.gamma import GammaControllerConfig
+    from repro_torch.launch.train import batch_source
+    from repro_torch.launch.train_step import init_train_state, train_step
+    from repro_torch.models import lm
+    comp = Compressor(gamma=0.04, max_gamma=0.1, method="block_topk")
+    ctrl = GammaControllerConfig(schedule="linear", ramp_steps=2)
+    for label, fed in (("bucketed", FederatedConfig()),
+                       ("cohort of 4, 3 a round", FederatedConfig(
+                           n_clients=4, clients_per_round=3,
+                           dirichlet_alpha=0.5))):
+        run = RunConfig(model=cfg, shape=ShapeConfig(256, 8),
+                        optimizer=OptimizerConfig(
+                            compressor=comp, gamma_controller=ctrl,
+                            federated=fed))
+        torch.cuda.reset_peak_memory_stats(dev)
+        live = torch.cuda.memory_allocated(dev)
+        created = init_process_group(dev)
+        try:
+            params = lm.init_params(cfg, seed=0, device=dev)
+            state = init_train_state(params, run)
+            make = batch_source(run, 1, 0, dev)
+            for step in range(2):
+                params, state, _ = train_step(params, state, make(step),
+                                              run)
+            batch = make(2)
+            prof, wall_ms = profiled(
+                dev, lambda: train_step(params, state, batch, run))
+        finally:
+            if created:
+                torch.distributed.destroy_process_group()
+        peak = torch.cuda.max_memory_allocated(dev) - live
+        spans = report_profile(f"trainer {label}", prof, wall_ms,
+                               ("ef_stats_telemetry_kernel",
+                                "ef_apply_kernel", "pack_words_kernel",
+                                "unpack_words_kernel"))
+        if len(spans) != 4 or min(spans.values()) <= 0:
+            fail(f"the profiler saw {label} train_step spans {spans}, "
+                 "want 4 timed")
+        print(f"  peak memory {peak / 2**30:.2f} GiB above the "
+              f"{live / 2**30:.2f} GiB live before the run", flush=True)
+        del params, state, prof
+
+
 def exchange_collectives(prof) -> list[str]:
     """Names of the collective calls and NCCL kernels that the profile
     shows inside the ``train_step.exchange`` span."""
@@ -2883,6 +3214,10 @@ def main() -> None:
     # ---- 4k. the hostile wire: verdicts, quarantine, fault injection ----
     fault_summary = fault_trainer(dev, root)
 
+    # ---- 4l. the federated cohort: 4 clients, 3 a round ------------------
+    cohort_summary = cohort_trainer(dev, root)
+    profile_cohort(dev, cfg)
+
     # ---- 5. small input: the card against the CPU's plain path ----------
     small = ["--smoke", "--steps", "2", "--seq-len", "33", "--global-batch",
              "4", "--compress-method", "block_topk", "--log-every", "1"]
@@ -2898,7 +3233,8 @@ def main() -> None:
             ("overlap delay 0", ["--transport", "overlap",
                                  "--overlap-delay", "0"]),
             ("gossip", ["--transport", "gossip"]),
-            ("fault bitflip 0.1", ["--fault-bitflip", "0.1"])):
+            ("fault bitflip 0.1", ["--fault-bitflip", "0.1"]),
+            ("cohort", ["--n-clients", "4", "--clients-per-round", "3"])):
         on_card = train.main(small + extra)
         on_cpu = train.main(small + extra + ["--device", "cpu"])
         for a, b in zip(on_card, on_cpu):
@@ -2957,6 +3293,7 @@ def main() -> None:
     # phase 4k's times again, where the end of the output keeps them
     print("faults summary (guarded, unguarded): "
           + json.dumps(fault_summary), flush=True)
+    print("cohort summary: " + json.dumps(cohort_summary), flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

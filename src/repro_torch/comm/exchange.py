@@ -80,6 +80,10 @@ def all_reduce_mean(x: torch.Tensor, group=None) -> torch.Tensor:
     return x / dist.get_world_size(group)
 
 
+#: tries at a group of one, each on a fresh port
+PORT_ATTEMPTS = 3
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("localhost", 0))
@@ -90,15 +94,22 @@ def init_process_group(device: torch.device) -> bool:
     """Join the data-parallel process group: NCCL on cuda, gloo on cpu.
     Under ``torchrun`` the rank and world size come from its environment;
     otherwise a group of one on a free localhost port, so the collectives
-    run on one device too.  Returns True when this call created the group
-    (the caller destroys it)."""
+    run on one device too (another process can take the port between
+    ``_free_port`` and the bind: then a fresh port, up to
+    ``PORT_ATTEMPTS`` in all).  Returns True when this call created the
+    group (the caller destroys it)."""
     if dist.is_initialized():
         return False
     backend = "nccl" if device.type == "cuda" else "gloo"
     if "WORLD_SIZE" in os.environ and "RANK" in os.environ:
         dist.init_process_group(backend, init_method="env://")
-    else:
-        dist.init_process_group(
-            backend, init_method=f"tcp://localhost:{_free_port()}",
-            world_size=1, rank=0)
-    return True
+        return True
+    for attempt in range(PORT_ATTEMPTS):
+        try:
+            dist.init_process_group(
+                backend, init_method=f"tcp://localhost:{_free_port()}",
+                world_size=1, rank=0)
+            return True
+        except dist.DistNetworkError:
+            if attempt == PORT_ATTEMPTS - 1:
+                raise

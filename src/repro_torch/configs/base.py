@@ -1,6 +1,6 @@
 """Config system (twin of ``src/repro/configs/base.py``): the fields the
-training paths of the dense LM and the serving paths of the dense LM and
-RWKV-6 read."""
+training paths of the dense LM (the federated cohort's included) and the
+serving paths of the dense LM and RWKV-6 read."""
 from __future__ import annotations
 
 import dataclasses
@@ -80,11 +80,65 @@ OVERLAP_KINDS = GOSSIP_KINDS = ("csgd_asss", "nonadaptive")
 LOCAL_STEP_KINDS = ("csgd_asss", "nonadaptive")
 #: kinds that run the Armijo search
 SEARCHING = ("csgd_asss", "sls")
+#: kinds the federated cohort takes (JAX's build_train_step)
+FED_KINDS = ("csgd_asss", "nonadaptive")
 #: EF memory dtypes of the trainer
 EF_DTYPES = ("float32", "bfloat16")
 #: fields of JAX paths the port lacks: (the only value taken, the feature)
 NOT_PORTED = {
     "shard_local_topk": (False, "shard-local top-k under a model mesh")}
+
+
+@dataclasses.dataclass(frozen=True)
+class FederatedConfig:
+    """Federated cohort simulation (DESIGN.md §13, ``repro_torch/fed/``).
+
+    ``n_clients`` > 0 turns the train step into a cohort round: each
+    data-parallel worker runs ``n_clients / W`` simulated clients (each
+    with its own EF memory, gamma controller and Armijo step, in
+    ``TrainState.fed``) through the compressed exchange, ONE all_gather
+    and ONE all-reduce for the whole cohort.  Participation is sampled
+    on the host each round (``fed/sampling.py``) and enters the step
+    beside the batch as the ``"participation"`` mask.
+    """
+
+    n_clients: int = 0            # 0 = disabled (plain dp training)
+    clients_per_round: int = 0    # fixed sampler: 0 -> all clients
+    sampling: str = "fixed"       # fixed | bernoulli
+    participation_rate: float = 1.0   # bernoulli per-client probability
+    straggler_rate: float = 0.0   # drop each selected client with this p
+    # "support" divides each coordinate by its nonzero-support count
+    # across participants; "mean" keeps the zero-averaging dense mean
+    # as the reference (fed/aggregate.py)
+    aggregation: str = "support"
+    # per-client gamma controllers (fixed | linear schedules; the linear
+    # ramp advances on each client's OWN participation counter)
+    per_client_gamma: bool = True
+    dirichlet_alpha: float = 0.0  # >0: non-IID client data skew
+    seed: int = 0                 # sampling stream seed
+
+    @property
+    def enabled(self) -> bool:
+        return self.n_clients > 0
+
+    def __post_init__(self):
+        # JAX's checks, word for word
+        from repro_torch.fed.aggregate import validate_aggregation
+        from repro_torch.fed.sampling import validate_sampler
+        validate_sampler(self.sampling)
+        validate_aggregation(self.aggregation)
+        if self.n_clients < 0:
+            raise ValueError(f"n_clients must be >= 0, got {self.n_clients}")
+        if not 0 <= self.clients_per_round <= self.n_clients:
+            raise ValueError(
+                f"clients_per_round={self.clients_per_round} out of range "
+                f"for n_clients={self.n_clients}")
+        if not 0.0 <= self.participation_rate <= 1.0:
+            raise ValueError(f"participation_rate must be in [0, 1], got "
+                             f"{self.participation_rate}")
+        if not 0.0 <= self.straggler_rate < 1.0:
+            raise ValueError(f"straggler_rate must be in [0, 1), got "
+                             f"{self.straggler_rate}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,7 +195,12 @@ class OptimizerConfig:
     # 0 (the default) inject nothing; the decode verdicts and the
     # breaker stay armed either way
     faults: FaultConfig = FaultConfig()
-    # the JAX package's, not ported: only the default is taken
+    # federated cohort simulation (DESIGN.md §13): n_clients > 0 runs a
+    # client cohort on each worker with per-client EF/gamma/alpha state
+    # and support-weighted aggregation of the decoded top-k payloads
+    federated: FederatedConfig = FederatedConfig()
+    # the JAX package's, not ported: only the default is taken (a cohort
+    # refuses it with JAX's own message, in RunConfig)
     shard_local_topk: bool = False
 
     def __post_init__(self):
@@ -170,6 +229,23 @@ class OptimizerConfig:
                     f"{self.transport!r} never materializes one "
                     "(gossip mixes neighbors, overlap applies stale "
                     "payloads — DESIGN.md §12/§14/§15)")
+            if self.federated.enabled:
+                raise ValueError(
+                    "downlink='compressed' does not compose with the "
+                    "federated cohort yet — the cohort's support-weighted "
+                    "aggregate is produced inside the fed worker "
+                    "(DESIGN.md §13), not by the §11 transport the "
+                    "downlink hooks")
+        if self.federated.enabled and self.transport == "gossip":
+            raise ValueError(
+                "federated cohort simulation does not compose with "
+                "transport='gossip' — the cohort has its own one-gather "
+                "collective schedule (DESIGN.md §13)")
+        if self.federated.enabled and self.transport == "overlap":
+            raise ValueError(
+                "federated cohort simulation does not compose with "
+                "transport='overlap' — the cohort gather carries per-client "
+                "rows on its own schedule (DESIGN.md §13/§14)")
         if self.max_consecutive_skips < 0:
             raise ValueError(
                 f"max_consecutive_skips must be >= 0 (0 disables the "
@@ -244,6 +320,10 @@ class OptimizerConfig:
                     "shard_local_topk (the carried payload geometry is the "
                     "whole-gradient bucket plan, not a model-shard's)")
         for name, (default, feature) in NOT_PORTED.items():
+            # a cohort refuses shard_local_topk with JAX's message, in
+            # RunConfig after JAX's earlier build-time checks
+            if name == "shard_local_topk" and self.federated.enabled:
+                continue
             if getattr(self, name) != default:
                 raise ValueError(f"{name}={getattr(self, name)!r}: "
                                  f"{feature} is not ported (the port takes "
@@ -300,6 +380,45 @@ class RunConfig:
                 f"local_steps={opt.local_steps} requires microbatches == "
                 f"local_steps (got microbatches={micro}): each local Armijo "
                 f"step consumes exactly one microbatch of the global batch")
+        # then its cohort checks that need no worker count (the rest:
+        # check_cohort, when the state is built for W workers)
+        if opt.federated.enabled:
+            if opt.kind not in FED_KINDS:
+                raise ValueError(
+                    f"federated cohort simulation needs a compressing "
+                    f"optimizer (csgd_asss | nonadaptive), got "
+                    f"kind={opt.kind!r}")
+            if opt.local_steps > 1:
+                raise ValueError(
+                    "federated cohort simulation does not compose with "
+                    "local_steps > 1")
+            if opt.shard_local_topk:
+                raise ValueError(
+                    "federated cohort simulation does not compose with "
+                    "shard_local_topk")
+            if micro > 1:
+                raise ValueError(
+                    "federated cohort simulation does not compose with "
+                    "microbatches > 1 (each client IS a batch row group)")
+
+
+def check_cohort(opt: OptimizerConfig, W: int) -> None:
+    """JAX's last two cohort checks of ``build_train_step``, word for
+    word, for a group of W workers (``launch.train_step.init_train_state``
+    runs them)."""
+    fed = opt.federated
+    if not fed.enabled:
+        return
+    if fed.n_clients % W:
+        raise ValueError(
+            f"n_clients={fed.n_clients} must divide evenly over the "
+            f"{W} dp workers (each worker vmaps n_clients/W clients)")
+    if opt.gamma_controller.schedule not in ("fixed", "linear"):
+        raise ValueError(
+            f"per-client gamma controllers support the 'fixed' and "
+            f"'linear' schedules (each client sees only its own "
+            f"participation counter, not the coupled telemetry), got "
+            f"{opt.gamma_controller.schedule!r}")
 
 
 def smoke_variant(cfg: ModelConfig) -> ModelConfig:

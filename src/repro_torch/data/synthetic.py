@@ -1,7 +1,10 @@
 """Deterministic synthetic data (twin of ``src/repro/data/synthetic.py``).
 
 * ``TokenPipeline`` — LM token streams: Zipfian unigrams with an order-2
-  Markov mixing, deterministic per (seed, step, shard);
+  Markov mixing, deterministic per (seed, step, shard); with
+  ``dirichlet_alpha`` > 0 each shard's unigrams are tilted by a
+  Dirichlet(alpha) reweighting keyed on (seed, shard) only — the
+  federated cohort's non-IID clients (DESIGN.md §13);
 * ``interpolated_regression`` / ``regression_batch`` — the paper's Fig. 4
   least squares with an exact interpolant;
 * ``teacher_classification`` / ``class_batch`` — 32x32x3 images (NHWC)
@@ -17,6 +20,10 @@ import dataclasses
 import numpy as np
 import torch
 
+# SeedSequence domain tag of the per-shard Dirichlet tilt stream (the JAX
+# package's): independent of the per-(seed, step, shard) batch streams
+_DIRICHLET_TAG = 0xD161_C4E7
+
 
 @dataclasses.dataclass(frozen=True)
 class TokenPipeline:
@@ -26,6 +33,10 @@ class TokenPipeline:
     seed: int = 0
     n_shards: int = 1
     shard: int = 0
+    # > 0: non-IID shards — a per-shard Dirichlet(alpha) reweighting of
+    # the zipf unigrams, keyed on (seed, shard) only; small alpha puts
+    # each shard's mass on a few shard-specific symbols
+    dirichlet_alpha: float = 0.0
 
     @property
     def local_batch(self) -> int:
@@ -35,8 +46,22 @@ class TokenPipeline:
         return self.global_batch // self.n_shards
 
     def unigram_probs(self) -> np.ndarray:
-        probs = 1.0 / np.arange(1, self.vocab_size + 1)
-        return probs / probs.sum()
+        """This shard's unigram distribution: zipf, Dirichlet-tilted when
+        ``dirichlet_alpha`` > 0 — a function of (seed, shard,
+        dirichlet_alpha, vocab_size), never of the step or n_shards."""
+        V = self.vocab_size
+        probs = 1.0 / np.arange(1, V + 1)
+        probs /= probs.sum()
+        if self.dirichlet_alpha > 0:
+            trng = np.random.default_rng(np.random.SeedSequence(
+                [self.seed, _DIRICHLET_TAG, self.shard]))
+            # gamma weights ~ the un-normalized Dirichlet sample; the
+            # floor guards tiny-alpha underflow to an all-zero draw
+            w = np.maximum(trng.gamma(self.dirichlet_alpha, 1.0, size=V),
+                           1e-300)
+            probs = probs * w
+            probs /= probs.sum()
+        return probs
 
     def batch(self, step: int) -> dict:
         """{"tokens": (local_batch, seq_len) int32} on the CPU."""

@@ -1,7 +1,8 @@
 """Training entry point of the port: the data-parallel trainer on the
 process group (twin of ``src/repro/launch/train.py``, the flags of its
 plain path on the ``bucketed``, ``perleaf``, ``overlap`` and ``gossip``
-transports and its fault flags, plus ``--device``).
+transports, its fault flags and its federated cohort's flags, plus
+``--device``).
 
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --compress-method block_topk --steps 4
@@ -63,6 +64,17 @@ verdicts and quarantines invalid rows by default; ``--no-quarantine``
 turns them off for a campaign, leaving the breaker as the only defense.
 The log line adds ``skips=`` and ``quar=`` once either is nonzero.
 
+The federated cohort (DESIGN.md §13): ``--n-clients N`` runs N
+simulated clients, ``N / W`` on each worker, each with its own EF
+memory, gamma controller and Armijo step; client c draws its rows from
+shard c of the ``(--fed-seed, step, shard)`` stream, tilted per client
+by ``--dirichlet-alpha`` (non-IID), and each round samples its
+participants on the host (``--client-sampling fixed
+--clients-per-round K``, or ``bernoulli --participation-rate p``, then
+``--straggler-rate``).  ``--aggregation support`` divides each
+coordinate by the participants that sent it, ``mean`` by all of them.
+The log line adds ``part=``, the round's participants.
+
 Checkpoints: ``--ckpt-dir D`` saves ``{"params", "state"}`` after every
 ``--ckpt-every`` completed steps and at the end, under
 ``D/rank_<r:03d>/step_<n:010d>`` (``checkpoint/checkpoint.py``), where
@@ -90,13 +102,14 @@ from repro_torch.comm.overlap import OverlapConfig
 from repro_torch.comm.topology import TOPOLOGIES
 from repro_torch.comm.transport import transport_names
 from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.configs.base import EF_DTYPES, KINDS, OptimizerConfig, \
-    RunConfig, ShapeConfig
+from repro_torch.configs.base import EF_DTYPES, KINDS, FederatedConfig, \
+    OptimizerConfig, RunConfig, ShapeConfig
 from repro_torch.core.armijo import ArmijoConfig
 from repro_torch.core.compression import Compressor
 from repro_torch.core.gamma import SCHEDULES, GammaControllerConfig
 from repro_torch.core.health import check_divergence
 from repro_torch.data.synthetic import TokenPipeline
+from repro_torch.fed.sampling import participation_mask
 from repro_torch.launch.train_step import init_train_state, train_step
 from repro_torch.models import lm
 
@@ -256,6 +269,34 @@ def parse_args(argv=None):
                     choices=["fixed", "linear"],
                     help="open-loop downlink gamma schedule (the simulated "
                          "server has no telemetry to couple to)")
+    # ---- federated cohort simulation (DESIGN.md §13) ----
+    ap.add_argument("--n-clients", type=int, default=0,
+                    help="> 0: federated cohort simulation — vmap "
+                         "n-clients/W simulated clients per dp worker, "
+                         "each with its own non-IID shard, EF memory and "
+                         "gamma controller")
+    ap.add_argument("--clients-per-round", type=int, default=0,
+                    help="fixed-size sampling: participants per round "
+                         "(0 = all clients)")
+    ap.add_argument("--client-sampling", default="fixed",
+                    choices=["fixed", "bernoulli"],
+                    help="per-round participation sampler (fed/sampling.py)")
+    ap.add_argument("--participation-rate", type=float, default=1.0,
+                    help="bernoulli sampling: per-client participation "
+                         "probability")
+    ap.add_argument("--straggler-rate", type=float, default=0.0,
+                    help="probability a sampled client drops out "
+                         "(straggler model, applied after sampling)")
+    ap.add_argument("--aggregation", default="support",
+                    choices=["support", "mean"],
+                    help="cohort aggregation: 'support' divides each "
+                         "coordinate by its nonzero-support count; 'mean' "
+                         "is the zero-averaging dense-pmean reference")
+    ap.add_argument("--dirichlet-alpha", type=float, default=0.0,
+                    help="> 0: non-IID client shards via per-client "
+                         "Dirichlet(alpha) unigram tilt (data/synthetic.py)")
+    ap.add_argument("--fed-seed", type=int, default=0,
+                    help="seed for participation sampling + client shards")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--resume", action="store_true")
@@ -367,18 +408,31 @@ def run(argv=None):
                                worker=args.fault_worker,
                                start_step=args.fault_start_step,
                                n_steps=args.fault_steps,
-                               quarantine=not args.no_quarantine)))
+                               quarantine=not args.no_quarantine),
+            federated=FederatedConfig(
+                n_clients=args.n_clients,
+                clients_per_round=args.clients_per_round,
+                sampling=args.client_sampling,
+                participation_rate=args.participation_rate,
+                straggler_rate=args.straggler_rate,
+                aggregation=args.aggregation,
+                dirichlet_alpha=args.dirichlet_alpha,
+                seed=args.fed_seed)))
 
     created = init_process_group(device)
     try:
         W, rank = dist.get_world_size(), dist.get_rank()
         B = run_cfg.shape.global_batch
-        if B % W:
+        fed = run_cfg.optimizer.federated
+        if fed.enabled and B % fed.n_clients:
+            raise SystemExit(
+                f"--global-batch {B} must divide evenly across "
+                f"--n-clients {fed.n_clients}")
+        if not fed.enabled and B % W:
             raise SystemExit(f"--global-batch {B} does not split over {W} "
                              "workers")
-        rows = slice(rank * B // W, (rank + 1) * B // W)
         params = lm.init_params(cfg, seed=0, device=device)
-        state = init_train_state(params, run_cfg)
+        state = init_train_state(params, run_cfg, W)
         start = 0
         if args.resume and args.ckpt_dir:
             got = resume(args.ckpt_dir, {"params": params, "state": state},
@@ -393,13 +447,11 @@ def run(argv=None):
                                      f"{W} workers)")
                 if rank == 0:
                     print(f"resumed from step {start}", flush=True)
-        pipe = TokenPipeline(vocab_size=cfg.vocab_size,
-                             seq_len=run_cfg.shape.seq_len, global_batch=B)
+        make_batch = batch_source(run_cfg, W, rank, device)
         log = []
         saved = None
         for step in range(start, args.steps):
-            batch = {k: v[rows].to(device)
-                     for k, v in pipe.batch(step).items()}
+            batch = make_batch(step)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             t0 = time.perf_counter()
@@ -417,11 +469,13 @@ def run(argv=None):
                             if "downlink_effective_wire_bytes" in m else "")
                     stale = (f"stale={m['staleness']:.0f} "
                              if "staleness" in m else "")
+                    part = (f"part={m['participants']:.0f} "
+                            if "participants" in m else "")
                     print(f"step {step:5d} loss={m['loss']:.4f} "
                           f"alpha={m['alpha']:.4g} evals={m['n_evals']:.2f} "
                           f"up={m['wire_bytes']:.3e}B "
                           f"eff={m['effective_wire_bytes']:.3e}B "
-                          f"{down}{stale}"
+                          f"{down}{stale}{part}"
                           f"cum={m['cum_effective_wire_bytes']:.3e}B "
                           f"gamma={m['gamma']:.4g} "
                           f"backlog={m['ef_backlog']:.3g} "
@@ -445,6 +499,39 @@ def run(argv=None):
     finally:
         if created:
             dist.destroy_process_group()
+
+
+def batch_source(run_cfg, W: int, rank: int, device):
+    """``step -> batch`` of this rank: its rows of the global batch; in a
+    cohort its C = n_clients / W clients' rows, ``tokens`` (C, rows,
+    seq) from clients ``rank*C ... rank*C + C - 1`` (client c is shard c
+    of the ``(fed.seed, step, shard)`` stream, Dirichlet-tilted), and
+    the round's whole (n_clients,) participation mask, built on the host
+    as JAX's trainer builds it."""
+    cfg, B = run_cfg.model, run_cfg.shape.global_batch
+    fed = run_cfg.optimizer.federated
+    if not fed.enabled:
+        pipe = TokenPipeline(vocab_size=cfg.vocab_size,
+                             seq_len=run_cfg.shape.seq_len, global_batch=B)
+        rows = slice(rank * B // W, (rank + 1) * B // W)
+        return lambda step: {k: v[rows].to(device)
+                             for k, v in pipe.batch(step).items()}
+    C = fed.n_clients // W
+    pipes = [TokenPipeline(
+        vocab_size=cfg.vocab_size, seq_len=run_cfg.shape.seq_len,
+        global_batch=B, seed=fed.seed, n_shards=fed.n_clients, shard=c,
+        dirichlet_alpha=fed.dirichlet_alpha)
+        for c in range(rank * C, rank * C + C)]
+
+    def make(step):
+        return {"tokens": torch.stack([p.batch(step)["tokens"]
+                                       for p in pipes]).to(device),
+                "participation": participation_mask(
+                    fed.n_clients, step, seed=fed.seed, mode=fed.sampling,
+                    clients_per_round=fed.clients_per_round,
+                    rate=fed.participation_rate,
+                    straggler_rate=fed.straggler_rate)}
+    return make
 
 
 def _save(ckpt_dir: str, rank: int, W: int, params, state) -> int:

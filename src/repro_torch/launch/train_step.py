@@ -1,7 +1,8 @@
 """The data-parallel train step (twin of the plain body of ``worker_fn``
 in ``src/repro/launch/train_step.py``, its acgd round, compressed
-downlink, overlap, gossip and fault seams, and its local-steps round,
-``_local_steps_worker``: no federated cohort or shard-local top-k).
+downlink, overlap, gossip and fault seams, its local-steps round,
+``_local_steps_worker``, and its federated cohort round,
+``_federated_worker``: no shard-local top-k).
 
 Each worker — one process of the data-parallel group, one device —
 
@@ -68,6 +69,23 @@ prices both directions, ``(previous + uplink) + downlink`` with each sum
 rounded to f32 as JAX's does, and the port's own ``cum_wire_bytes``
 adds the downlink's static bytes in the same order.
 
+With ``federated.n_clients > 0`` the step is a cohort round
+(``_cohort_step``, JAX's ``_federated_worker``): each worker runs its
+``C = n_clients / W`` clients one after another — each client's loss and
+gradients on its own row group of the batch, its gamma controller on
+its own participation counter (or the shared one), its own Armijo search
+(``csgd_asss``) or ``eta`` (``nonadaptive``) — then ONE cohort exchange
+(``fed/clients.py``) aggregates the participants' payloads
+support-weighted, inside ``faults.active_faults`` when a campaign is
+set.  ``TrainState.fed`` carries the clients' EF memory, gamma, rounds
+and alpha (``TrainState.memory`` is None, as JAX keeps ``memory=()``);
+non-participants still compute and ship, and the mask discards them.
+The batch holds ``tokens`` (C, rows, seq) and ``participation``, the
+(n_clients,) host mask of ``fed.sampling.participation_mask``.  The
+metrics are participation-weighted means (a true division by the
+participant count, as jitted JAX's), plus ``participants``;
+``ef_backlog`` is 0 and ``ef_cosine`` 1, as in JAX.
+
 The finite check is the JAX package's breaker (core/health.py): with
 ``max_consecutive_skips > 0`` a failed check skips the step — the
 parameters and every carried optimizer quantity stay as they were, while
@@ -77,6 +95,7 @@ skips (``check_divergence``); with 0 non-finite rounds write through.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 
@@ -87,6 +106,7 @@ from torch.profiler import record_function
 
 from repro_torch.comm.downlink import DownlinkCtx, DownlinkState, \
     init_downlink_state
+from repro_torch.comm import faults
 from repro_torch.comm.exchange import all_reduce_mean
 from repro_torch.comm.faults import FaultCtx
 from repro_torch.comm.gossip import GossipCtx, GossipState
@@ -94,7 +114,7 @@ from repro_torch.comm.overlap import OverlapCtx, OverlapState, \
     init_overlap_state, post_carried
 from repro_torch.comm.topology import Topology, build_topology
 from repro_torch.configs.base import COMPRESSING, LOCAL_STEP_KINDS, \
-    SEARCHING
+    SEARCHING, check_cohort
 from repro_torch.core.acgd import nesterov
 from repro_torch.core.armijo import armijo_search, local_evals_ema, \
     next_alpha_max, next_evals_ema, reciprocal_product, tree_sqnorm
@@ -103,6 +123,8 @@ from repro_torch.core.error_feedback import init_ef
 from repro_torch.core.gamma import gamma_init, gamma_update
 from repro_torch.core.health import HealthState, advance_health, all_finite
 from repro_torch.core.telemetry import CompressionTelemetry, SearchTelemetry
+from repro_torch.fed.clients import ClientState, cohort_compress_aggregate, \
+    init_client_state, local_participation
 from repro_torch.models import lm
 from repro_torch.utils import tree_flatten, tree_map, value_and_grad
 
@@ -141,10 +163,20 @@ class TrainState:
                                            # transport="overlap"
     gossip: GossipState | None = None      # the AdaGossip (v, lr) under
                                            # transport="gossip"
+    fed: ClientState | None = None         # this worker's clients under
+                                           # federated.n_clients > 0
 
 
-def init_train_state(params, run_cfg) -> TrainState:
+def init_train_state(params, run_cfg, n_workers: int = 1) -> TrainState:
+    """The initial state of one of ``n_workers`` workers; a cohort's
+    worker holds ``n_clients / n_workers`` clients (JAX's checks of the
+    split and the schedule, word for word, raise here)."""
     opt = run_cfg.optimizer
+    check_cohort(opt, n_workers)
+    fed = None
+    if opt.federated.enabled:
+        fed = init_client_state(params, opt,
+                                opt.federated.n_clients // n_workers)
     downlink = overlap = gossip = None
     leaves = tree_flatten(params)[0]
     # the geometry the exchange uses: leaf shapes and lm.stacked_mask
@@ -163,7 +195,7 @@ def init_train_state(params, run_cfg) -> TrainState:
     return TrainState(
         step=0, alpha_prev=f32(opt.armijo.alpha0),
         memory=init_ef(params, getattr(torch, opt.ef_dtype))
-        if opt.kind in COMPRESSING else None,
+        if opt.kind in COMPRESSING and fed is None else None,
         n_evals_ema=f32(0.0),
         gamma=gamma_init(opt.gamma_controller, opt.compressor),
         # neutral: zero backlog, perfect alignment
@@ -176,7 +208,7 @@ def init_train_state(params, run_cfg) -> TrainState:
         velocity=tree_map(lambda p: torch.zeros(
             p.shape, dtype=torch.float32, device=p.device), params)
         if opt.kind == "acgd" else None,
-        downlink=downlink, overlap=overlap, gossip=gossip)
+        downlink=downlink, overlap=overlap, gossip=gossip, fed=fed)
 
 
 def microbatch_mean(total: torch.Tensor, micro: int) -> torch.Tensor:
@@ -220,12 +252,15 @@ def _accumulated_grads(params, batch: dict, cfg, micro: int):
 def train_step(params, state: TrainState, batch: dict, run_cfg, group=None):
     """One step on this worker's local ``batch``.  Returns
     ``(params, state, metrics)``; metrics are means over the group, as
-    host floats, and this worker's health counters.  With
+    host floats, and this worker's health counters.  A cohort state
+    (``state.fed``) takes the cohort round (``_cohort_step``).  With
     ``local_steps > 1`` ``csgd_asss`` and ``nonadaptive`` take the
     local-steps round (``_local_steps_step``), exactly where JAX's
     ``worker_fn`` does; ``sls``, ``sgd`` and ``dense`` ignore
     ``local_steps``, as JAX's do (acgd and the downlink refuse it)."""
     opt = run_cfg.optimizer
+    if state.fed is not None:
+        return _cohort_step(params, state, batch, run_cfg, group)
     started = _overlap_start(state, opt, group)
     if opt.local_steps > 1 and opt.kind in LOCAL_STEP_KINDS:
         return _local_steps_step(params, state, batch, run_cfg, group,
@@ -485,3 +520,131 @@ def _finish_round(params, state: TrainState, run_cfg, group, *, loss, gsq,
         downlink=new_downlink,
         overlap=state.overlap if new_ov is None else new_ov,
         gossip=state.gossip if new_gs is None else new_gs), metrics
+
+
+def _cohort_step(params, state: TrainState, batch: dict, run_cfg,
+                 group=None):
+    """The twin of JAX's ``_federated_worker``: one cohort round of this
+    worker's C clients (module docstring).  ``batch``: ``tokens`` (C,
+    rows, seq), client c's rows at ``tokens[c]``, and ``participation``,
+    the (n_clients,) mask.  ``group``: the data-parallel group (None:
+    the default group)."""
+    opt = run_cfg.optimizer
+    cfg = run_cfg.model
+    fed, arm = opt.federated, opt.armijo
+    fst = state.fed
+    C = fst.gamma.shape[0]
+    group = dist.group.WORLD if group is None else group
+    tokens = batch["tokens"]
+    if tokens.shape[0] != C:
+        raise ValueError(f"the cohort batch holds {tokens.shape[0]} "
+                         f"clients' rows, this worker has {C} clients")
+    mask = np.asarray(batch["participation"], np.float32)
+    pl = local_participation(mask, group, C)
+    device = tokens.device
+
+    # ---- per-client gradients, one client after another -----------------
+    losses, gsqs, grads_c = [], [], None
+    with record_function("train_step.grad"):
+        for c in range(C):
+            mb = {"tokens": tokens[c]}
+            lo, g = value_and_grad(lambda p: lm.loss_fn(p, mb, cfg), params)
+            if grads_c is None:
+                grads_c = tree_map(lambda x: torch.empty(
+                    (C,) + tuple(x.shape), dtype=x.dtype,
+                    device=x.device), g)
+            tree_map(lambda buf, x: buf[c].copy_(x), grads_c, g)
+            losses.append(lo)
+            gsqs.append(tree_sqnorm(g))
+            del g
+
+    # ---- per-client gamma controllers ------------------------------------
+    if fed.per_client_gamma:
+        # each client's linear ramp advances on its OWN participation
+        # counter: heterogeneous k_t across the cohort by design
+        gamma_t_c = [gamma_update(opt.gamma_controller, opt.compressor,
+                                  f32(fst.gamma[c]), int(fst.rounds[c]))
+                     for c in range(C)]
+    else:
+        gamma_t_c = [gamma_update(opt.gamma_controller, opt.compressor,
+                                  f32(fst.gamma[0]), state.step)] * C
+    gamma_used = [gamma_t_c[c] if pl[c] > 0 else f32(fst.gamma[c])
+                  for c in range(C)]
+
+    # ---- per-client step sizes -------------------------------------------
+    if opt.kind == "csgd_asss":
+        alpha_c, evals_c = [], []
+        with record_function("train_step.armijo"):
+            for c in range(C):
+                mb = {"tokens": tokens[c]}
+                res = armijo_search(
+                    lambda p: lm.loss_fn(p, mb, cfg), params,
+                    tree_map(lambda x: x[c], grads_c),
+                    next_alpha_max(f32(fst.alpha[c]), arm), arm,
+                    f0=losses[c], grad_sqnorm=gsqs[c])
+                alpha_c.append(res.alpha)
+                evals_c.append(f32(res.n_evals))
+        eta_c = [arm.scale_for(gamma_used[c]) * alpha_c[c]
+                 for c in range(C)]
+    else:
+        alpha_c = eta_c = [f32(opt.eta)] * C
+        evals_c = [f32(0.0)] * C
+
+    # ---- the cohort exchange: ONE gather + ONE all-reduce ----------------
+    with record_function("train_step.exchange"):
+        scope = faults.active_faults(opt.faults, state.step) \
+            if opt.faults.enabled else contextlib.nullcontext()
+        with scope:
+            updates, new_mem, wire, eff, quar = cohort_compress_aggregate(
+                grads_c, fst.memory, eta_c, opt.compressor, group, mask,
+                gamma_used, stacked_mask=lm.stacked_mask(params),
+                aggregation=fed.aggregation, return_quarantined=True)
+        del grads_c
+
+    # ---- metrics: participation-weighted means, one host transfer -------
+    with record_function("train_step.metrics"):
+        pl_t = torch.from_numpy(pl).to(device)
+        per_client = torch.stack([
+            torch.stack(losses).float(), torch.stack(gsqs).float()]
+            + [torch.tensor(np.asarray(x, np.float32), device=device)
+               for x in (gamma_used, alpha_c, evals_c)])     # (5, C)
+        sums = (per_client * pl_t).sum(dim=1)
+        dist.all_reduce(sums, group=group)
+        n_part = torch.tensor(max(f32(mask.sum()), f32(1.0)),
+                              dtype=torch.float32, device=device)
+        values = torch.cat([sums / n_part, eff.reshape(1),
+                            quar.reshape(1)]).tolist()
+    metrics = dict(zip(("loss", "grad_sqnorm", "gamma", "alpha", "n_evals",
+                        "effective_wire_bytes"), values))
+    metrics.update(participants=float(f32(mask.sum())),
+                   wire_bytes=float(wire), ef_backlog=0.0, ef_cosine=1.0)
+    cum_wire = state.cum_wire_bytes + f32(wire)
+    cum_eff = state.cum_eff_bytes + f32(metrics["effective_wire_bytes"])
+    metrics["cum_wire_bytes"] = float(cum_wire)
+    metrics["cum_effective_wire_bytes"] = float(cum_eff)
+
+    step_ok = bool(np.isfinite(metrics["loss"])) and bool(all_finite(updates))
+    health = advance_health(state.health, step_ok, state.step, values[-1])
+    metrics.update(steps_skipped=float(health.steps_skipped),
+                   consecutive_skips=float(health.consecutive_skips),
+                   last_good_step=float(health.last_good_step),
+                   rows_quarantined=float(health.rows_quarantined))
+    new_state = dataclasses.replace(state, step=state.step + 1,
+                                    cum_wire_bytes=cum_wire,
+                                    cum_eff_bytes=cum_eff, health=health)
+    if not step_ok and opt.max_consecutive_skips > 0:
+        # the breaker: the parameters and every client's state frozen
+        return params, new_state, metrics
+    took = torch.from_numpy(pl > 0.0)
+    new_fed = ClientState(
+        memory=new_mem,
+        gamma=torch.where(took, torch.tensor(np.asarray(gamma_t_c,
+                                                        np.float32)),
+                          fst.gamma),
+        rounds=fst.rounds + took.to(torch.int32),
+        alpha=torch.where(took, torch.tensor(np.asarray(alpha_c,
+                                                        np.float32)),
+                          fst.alpha))
+    new_params = tree_map(lambda p, u: (p.float() - u).to(p.dtype),
+                          params, updates)
+    return new_params, dataclasses.replace(new_state, fed=new_fed), metrics

@@ -200,3 +200,27 @@ def test_two_workers_resume_equals_uninterrupted(tmp_path):
     finally:
         if created:
             dist.destroy_process_group()
+
+
+def test_group_of_one_retries_a_port_taken_before_its_bind(monkeypatch):
+    """A port ``_free_port`` returned can be taken before the store binds
+    it (EADDRINUSE, seen once on the card): the group comes up on a fresh
+    port, and a port still taken after every attempt raises."""
+    with socket.socket() as taken:
+        taken.bind(("localhost", 0))
+        taken.listen()
+        busy = taken.getsockname()[1]
+        ports = [busy]
+        real = exchange._free_port
+        monkeypatch.setattr(exchange, "_free_port",
+                            lambda: ports.pop(0) if ports else real())
+        assert not dist.is_initialized()
+        assert exchange.init_process_group(torch.device("cpu"))
+        try:
+            assert dist.get_world_size() == 1 and not ports
+        finally:
+            dist.destroy_process_group()
+        monkeypatch.setattr(exchange, "_free_port", lambda: busy)
+        with pytest.raises(dist.DistNetworkError):
+            exchange.init_process_group(torch.device("cpu"))
+        assert not dist.is_initialized()

@@ -768,3 +768,293 @@ def run_gossip_workers(case: Case, W: int, steps: int = STEPS):
                     m["cum_effective_wire_bytes"]) == \
                 (ref["wire"], ref["eff"], ref["cum"]), where
     return got
+
+
+# ---- the federated cohort round (tests/test_torch_fed_train.py)
+
+#: the cohort rounds' global batch: 2 rows a client at 4 clients
+FED_BATCH = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class FedCase:
+    """One cohort configuration, in the terms both packages share; a
+    fault campaign as FaultConfig keyword pairs."""
+
+    kind: str = "csgd_asss"
+    n_clients: int = 4
+    sampling: str = "fixed"
+    clients_per_round: int = 3
+    rate: float = 1.0
+    straggler: float = 0.0
+    aggregation: str = "support"
+    dirichlet_alpha: float = 0.0
+    per_client_gamma: bool = True
+    schedule: str = "fixed"
+    gamma: float = GAMMA
+    max_gamma: float = 0.0
+    value_bits: int = 32
+    eta: float = 0.1
+    faults: tuple = ()
+
+    def comp_kw(self):
+        return dict(gamma=self.gamma, method="block_topk",
+                    value_bits=self.value_bits, max_gamma=self.max_gamma)
+
+    def fed_kw(self):
+        return dict(n_clients=self.n_clients,
+                    clients_per_round=self.clients_per_round,
+                    sampling=self.sampling,
+                    participation_rate=self.rate,
+                    straggler_rate=self.straggler,
+                    aggregation=self.aggregation,
+                    per_client_gamma=self.per_client_gamma,
+                    dirichlet_alpha=self.dirichlet_alpha)
+
+    def run(self) -> RunConfig:
+        from repro_torch.comm.faults import FaultConfig
+        from repro_torch.configs.base import FederatedConfig
+        return RunConfig(
+            model=get_smoke_config(ARCH), shape=ShapeConfig(SEQ, FED_BATCH),
+            optimizer=OptimizerConfig(
+                kind=self.kind, eta=self.eta,
+                compressor=Compressor(**self.comp_kw()),
+                gamma_controller=GammaControllerConfig(
+                    schedule=self.schedule, ramp_steps=2),
+                federated=FederatedConfig(**self.fed_kw()),
+                faults=FaultConfig(**dict(self.faults))))
+
+    def mask(self, t):
+        from repro_torch.fed.sampling import participation_mask
+        return participation_mask(
+            self.n_clients, t, mode=self.sampling,
+            clients_per_round=self.clients_per_round, rate=self.rate,
+            straggler_rate=self.straggler)
+
+    def tokens(self, t):
+        """(n_clients, rows, SEQ) int32: client c is shard c of the
+        (seed 0, step, shard) stream, Dirichlet-tilted, as the CLI's."""
+        return np.stack([TokenPipeline(
+            vocab_size=jax_smoke_config(ARCH).vocab_size, seq_len=SEQ,
+            global_batch=FED_BATCH, n_shards=self.n_clients, shard=c,
+            dirichlet_alpha=self.dirichlet_alpha).batch(t)["tokens"].numpy()
+            for c in range(self.n_clients)])
+
+
+def _jax_cohort_round(case: FedCase):
+    """One worker's round of ``_federated_worker`` (:511-636) for
+    ``case`` at W = 1, written as the worker writes it, with the model
+    outside any mesh and the exchange at ``dp_axes=None`` (equal to a
+    one-device mesh: its gather and psum are identities).  ``fst``:
+    (memory, gamma, rounds, alpha); ``ctx``: (step, health, cum_eff)."""
+    from repro.comm.faults import FaultConfig as JFaultConfig
+    from repro.comm.faults import active_faults as jactive_faults
+    from repro.fed.clients import cohort_compress_aggregate as jcohort
+    model, _ = jax_model()
+    comp = JCompressor(**case.comp_kw())
+    arm = JArmijo()
+    ctrl = JGammaCfg(schedule=case.schedule, ramp_steps=2)
+    C = case.n_clients
+
+    def local_loss(params, batch):
+        return model.loss(params, batch)[0]
+
+    def step(params, fst, ctx, tokens, mask):
+        memory, gamma, rounds, alpha = fst
+        t, health, cum_eff = ctx
+        cbatch = {"tokens": tokens}
+        pl = mask
+        n_part = jnp.maximum(jnp.sum(mask), 1.0)
+
+        def wmean(x_c):
+            return jnp.sum(pl * x_c) / n_part
+        losses, grads_c = jax.vmap(
+            lambda mb: jax.value_and_grad(local_loss)(params, mb))(cbatch)
+        gsq_c = jax.vmap(jsqnorm)(grads_c)
+        metrics = {"loss": wmean(losses), "grad_sqnorm": wmean(gsq_c),
+                   "participants": jnp.sum(mask)}
+        if case.per_client_gamma:
+            gamma_t_c = jax.vmap(lambda g, r: jgamma_update(
+                ctrl, comp, g, r))(gamma, rounds)
+        else:
+            gamma_t_c = jnp.broadcast_to(
+                jgamma_update(ctrl, comp, gamma[0], t), (C,))
+        gamma_used = jnp.where(pl > 0, gamma_t_c, gamma)
+        metrics["gamma"] = wmean(gamma_used)
+        if case.kind == "csgd_asss":
+            res = jax.vmap(lambda mb, g, f0, gsq, amax: jarmijo(
+                lambda p: local_loss(p, mb), params, g, amax, arm, f0=f0,
+                grad_sqnorm=gsq))(cbatch, grads_c, losses, gsq_c,
+                                  jnext_alpha_max(alpha, arm))
+            alpha_c = res.alpha
+            evals_c = res.n_evals.astype(jnp.float32)
+            eta_c = jax.vmap(lambda g, a: arm.scale_for(g) * a)(
+                gamma_used, alpha_c)
+        else:
+            alpha_c = jnp.full((C,), case.eta, jnp.float32)
+            evals_c = jnp.zeros((C,), jnp.float32)
+            eta_c = jnp.full((C,), case.eta, jnp.float32)
+        metrics["alpha"] = wmean(alpha_c)
+        metrics["n_evals"] = wmean(evals_c)
+
+        def exchange():
+            return jcohort(grads_c, memory, eta_c, comp, None, mask,
+                           gamma_used, stacked_mask=model.stacked_mask(
+                               params), aggregation=case.aggregation,
+                           return_quarantined=True)
+        if case.faults:
+            with jactive_faults(JFaultConfig(**dict(case.faults)), t):
+                updates, new_mem, wire, eff, quar = exchange()
+        else:
+            updates, new_mem, wire, eff, quar = exchange()
+        new_params = jax.tree.map(
+            lambda p, u: (p.astype(jnp.float32) - u).astype(p.dtype),
+            params, updates)
+        step_ok = jnp.isfinite(metrics["loss"]) & jall_finite(updates)
+        new_params = jax.tree.map(lambda a, b: jnp.where(step_ok, a, b),
+                                  new_params, params)
+        new_health = jadvance_health(health, step_ok, t, quar)
+        cum = cum_eff + eff
+        metrics.update(wire=wire, eff=eff, cum=cum, quar=quar,
+                       step_ok=step_ok)
+        new_fst = (new_mem, jnp.where(pl > 0, gamma_t_c, gamma),
+                   rounds + (pl > 0).astype(jnp.int32),
+                   jnp.where(pl > 0, alpha_c, alpha))
+        new_fst = jax.tree.map(lambda a, b: jnp.where(step_ok, a, b),
+                               new_fst, fst)
+        return new_params, new_fst, (t + 1, new_health, cum), metrics
+
+    return step
+
+
+@functools.lru_cache(maxsize=None)
+def jax_cohort_rounds(cases: tuple):
+    """``STEPS`` cohort rounds of every case in ``cases`` through JAX,
+    ONE jitted program over all of them (one compile), each case from
+    JAX's initial weights and the zero client state: {case: [(inputs,
+    outputs) per round]} as NumPy, the inputs the round's (params, fst,
+    ctx, tokens, mask)."""
+    model, params = jax_model()
+    fns = [_jax_cohort_round(case) for case in cases]
+    # keyed by position: a pytree's dict keys must sort
+    fn = jax.jit(lambda ins: {i: f(*ins[i]) for i, f in enumerate(fns)})
+    carry = {}
+    for case in cases:
+        comp = JCompressor(**case.comp_kw())
+        n = case.n_clients
+        fst = (jax.tree.map(lambda p: jnp.zeros((n,) + p.shape, p.dtype),
+                            params),
+               jnp.full((n,), jgamma_init(JGammaCfg(
+                   schedule=case.schedule, ramp_steps=2), comp),
+                   jnp.float32),
+               jnp.zeros((n,), jnp.int32),
+               jnp.full((n,), JArmijo().alpha0, jnp.float32))
+        carry[case] = (params, fst, (jnp.int32(0), JHealth.init(),
+                                     jnp.float32(0.0)))
+    rounds = {case: [] for case in cases}
+    for t in range(STEPS):
+        ins = [carry[case] + (jnp.asarray(case.tokens(t)),
+                              jnp.asarray(case.mask(t))) for case in cases]
+        outs = fn(dict(enumerate(ins)))
+        for i, case in enumerate(cases):
+            rounds[case].append((_np(ins[i]), _np(outs[i])))
+            carry[case] = _copy(outs[i][:3])
+    return rounds
+
+
+def armijo_sides(params, grads, tokens, alpha, run):
+    """Both sides of the Armijo condition at ``alpha`` on the port:
+    (f(x - alpha g), f(x) - sigma alpha ||g||^2), for a message."""
+    from repro_torch.core.armijo import tree_sqnorm
+    from repro_torch.utils import tree_map as ttree_map
+    mb = {"tokens": tokens}
+    f0 = lm.loss_fn(params, mb, run.model)
+    cand = ttree_map(lambda p, g: p - float(alpha) * g, params, grads)
+    return (float(lm.loss_fn(cand, mb, run.model)),
+            float(f32(float(f0)) - f32(0.1) * f32(alpha)
+                  * f32(float(tree_sqnorm(grads)))))
+
+
+def run_fed_both(case: FedCase, cases: tuple):
+    """``STEPS`` cohort rounds of ``case`` through both packages (JAX's
+    in the one program of ``cases``), each port round from the
+    reference's parameters and client state (EF memory, gamma, rounds,
+    alpha), checked round by round.  Returns the port's per-round
+    metrics."""
+    from repro_torch.fed.clients import ClientState
+    from repro_torch.utils import value_and_grad
+    run = case.run()
+    log = []
+    state = None
+    for t, (ins, outs) in enumerate(jax_cohort_rounds(cases)[case]):
+        params, fst, ctx, tokens, mask = ins
+        new_params, new_fst, new_ctx, jm = outs
+        tparams = to_torch(params)
+        if state is None:
+            state = init_train_state(tparams, run)
+            assert state.memory is None and state.fed is not None
+        state = dataclasses.replace(state, fed=ClientState(
+            memory=to_torch(fst[0]), gamma=torch.from_numpy(fst[1]),
+            rounds=torch.from_numpy(fst[2]),
+            alpha=torch.from_numpy(fst[3])))
+        tp, state, m = train_step(
+            tparams, state, {"tokens": torch.from_numpy(tokens),
+                             "participation": mask}, run)
+        log.append(m)
+        where = f"{case} round {t}"
+        np.testing.assert_allclose(m["loss"], float(jm["loss"]),
+                                   rtol=1e-5, err_msg=where)
+        np.testing.assert_allclose(m["grad_sqnorm"],
+                                   float(jm["grad_sqnorm"]), rtol=1e-5,
+                                   err_msg=where)
+        assert m["participants"] == float(jm["participants"]), where
+        for c in range(case.n_clients):
+            a, b = float(state.fed.alpha[c]), float(new_fst[3][c])
+            if abs(a - b) > 1e-5 * abs(b):
+                mb = torch.from_numpy(tokens[c])
+                _, g = value_and_grad(lambda p: lm.loss_fn(
+                    p, {"tokens": mb}, run.model), tparams)
+                raise AssertionError(
+                    f"{where} client {c}: alpha {a} vs JAX {b}; "
+                    f"Armijo sides (f_try, rhs) at the port's alpha "
+                    f"{armijo_sides(tparams, g, mb, a, run)}, at "
+                    f"JAX's {armijo_sides(tparams, g, mb, b, run)}")
+        np.testing.assert_allclose(m["alpha"], float(jm["alpha"]),
+                                   rtol=1e-5, err_msg=where)
+        assert m["n_evals"] == float(jm["n_evals"]), where
+        np.testing.assert_array_max_ulp(
+            f32(m["gamma"]), np.float32(jm["gamma"]), maxulp=8)
+        np.testing.assert_array_equal(
+            state.fed.gamma.numpy().view(np.int32),
+            np.asarray(new_fst[1], np.float32).view(np.int32),
+            err_msg=where)
+        np.testing.assert_array_equal(state.fed.rounds.numpy(),
+                                      new_fst[2], err_msg=where)
+        assert (m["wire_bytes"], m["effective_wire_bytes"],
+                m["cum_effective_wire_bytes"]) == \
+            (float(jm["wire"]), float(jm["eff"]), float(jm["cum"])), \
+            where
+        h = new_ctx[1]
+        assert (state.health.steps_skipped,
+                state.health.consecutive_skips,
+                state.health.last_good_step,
+                float(state.health.rows_quarantined)) == \
+            (int(h.steps_skipped), int(h.consecutive_skips),
+             int(h.last_good_step), float(h.rows_quarantined)), where
+        assert (m["ef_backlog"], m["ef_cosine"]) == (0.0, 1.0)
+        assert_tree_close(new_params, tp, params, f"{where} params")
+        _assert_memory_close(new_fst[0], state.fed.memory, params,
+                             where)
+    return log
+
+
+def _assert_memory_close(jmem, tmem, params, where):
+    """Every client's EF memory within 1e-5 of the leaf's max |p|."""
+    for k, v in jmem.items():
+        if isinstance(v, dict):
+            _assert_memory_close(v, tmem[k], params[k], f"{where}/{k}")
+            continue
+        err = float(np.abs(np.asarray(v) - tmem[k].numpy()).max())
+        scale = float(np.abs(np.asarray(params[k])).max())
+        assert err <= 1e-5 * scale, f"{where} memory/{k}: {err} vs " \
+            f"max|p| {scale}"
