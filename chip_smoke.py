@@ -44,7 +44,7 @@ Phases, each fatal on failure (no phase catches and continues):
    its f32 CUDA-core route at small cases with a window, without
    causality, with Sq < Sk and at D 32, atol 3e-5, and timed at the qwen
    shape on an earlier line; RMSNorm at (8192, 2560),
-   (4, 2560) and (4096, 2048) bf16 within 1 bf16 ulp and (4096, 2048) f32
+   (4, 2560), (8192, 1024), (4, 1024) and (4096, 2048) bf16 within 1 bf16 ulp and (4096, 2048) f32
    within 1e-5, its ptxas spills none; WKV at (4, 1024, 32, 64) and at
    S = 1 within 2e-5, timed at both, its ptxas spills none),
    beside the library calls ``F.scaled_dot_product_attention`` and
@@ -71,6 +71,9 @@ Phases, each fatal on failure (no phase catches and continues):
    all through the bf16 tensor-core kernel, and 81 x 16 = 1296 RMSNorm
    launches, no other kernel), then rwkv6-1.6b at
    ctx 1024 (24 x 16 = 384 WKV and 49 x 16 = 784 RMSNorm launches);
+   then granite-moe-1b-a400m at ctx 2048 (24 layers, 16 heads over 8 kv
+   heads of 64, 32 experts top-8: 24 flash-attention and 49 x 16 = 784
+   RMSNorm launches, no other kernel);
    finite logits; prefill seconds, decode ms per step, tokens per second
    and peak memory; then one profiled prefill and one profiled decode
    step of each, with device time under each kernel's own name and the
@@ -185,6 +188,27 @@ Phases, each fatal on failure (no phase catches and continues):
    overlap (delay 1) and gossip outside its burst, bit for bit with
    them; a checkpoint at step 2 of a 3-step burst, resumed to 4, bit for
    bit with 4 straight steps;
+4m. the MoE family: flash attention's bf16 route against its plain
+   version at granite's prefill shape (4, 16, 2048, 64), its 8 kv heads
+   broadcast 2:1 by the model's ``_expand_kv``, and at qwen3-moe's (4,
+   32, 2048, 128), 4 kv heads 8:1, within 1 bf16 ulp of the plain value
+   plus 1e-5, timed beside both and ``F.scaled_dot_product_attention``;
+   a second granite serve run whose logits equal phase 4d's bit for bit
+   (the deterministic combine); qwen3-moe-30b-a3b at full width with 12
+   of its 48 layers (128 experts top-8) through ``serve.load`` and
+   ``serve.generate``, batch 4, ctx 2048, 16 tokens: 12 flash-attention
+   and 25 x 16 = 400 RMSNorm launches, no other kernel, finite logits;
+   the trainer on granite at full width and depth (seq 256, global
+   batch 8, ``block_topk``, gamma 0.01) for 3 steps: one
+   ``ef_stats_telemetry`` and one ``ef_apply`` a step and the
+   ``pack_words`` / ``unpack_words`` launches the bucket plan gives, no
+   other kernel, finite losses, the plan's wire bytes every step, bf16
+   parameters (the router f32) and f32 EF memory after it, peak memory;
+   ``moe_block`` at the granite smoke size on the card against the CPU
+   in f32 (routes exact, y within 1e-5 of max|y|) and bf16 (routes
+   exact, y within 1e-2 of max|y|); 2 trainer steps of the granite
+   smoke on the card and on the CPU: equal bytes, losses within rel
+   1e-5;
 5. run the 2-layer smoke variants on the card and on the CPU (the plain
    versions, which the CPU tests hold against the JAX package), through
    the trainer for 2 steps (``--opt csgd_asss``, ``nonadaptive``,
@@ -195,7 +219,8 @@ Phases, each fatal on failure (no phase catches and continues):
    --clients-per-round 3``, and on
    ``--transport perleaf --max-gamma 0.1``), through
    CSGD-ASSS for 3 and through serving
-   (qwen1.5-4b and rwkv6-1.6b, ctx 96, 4 tokens), and compare: equal
+   (qwen1.5-4b, rwkv6-1.6b and granite-moe-1b-a400m, ctx 96, 4 tokens),
+   and compare: equal
    greedy tokens and logits within 1e-4 of max|logits| for serving;
 6. print the kernels as one JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
@@ -260,7 +285,10 @@ SERVE_RUNS = (("qwen1.5-4b", 2048, dict(flash_attention=40,
                ("flash_attention_sm90_kernel", "rmsnorm_kernel")),
               ("rwkv6-1.6b", 1024, dict(wkv_forward=24 * 16,
                                         rmsnorm=49 * 16),
-               ("wkv_forward_kernel", "rmsnorm_kernel")))
+               ("wkv_forward_kernel", "rmsnorm_kernel")),
+              ("granite-moe-1b-a400m", 2048, dict(flash_attention=24,
+                                                  rmsnorm=49 * 16),
+               ("flash_attention_sm90_kernel", "rmsnorm_kernel")))
 SERVE_BATCH, SERVE_GEN = 4, 16
 #: phase 4e: a 10% budget, gamma_t ramping 0.04 -> 0.07 -> 0.1
 ADAPTIVE_ARGS = ["--max-gamma", "0.1", "--gamma", "0.04",
@@ -297,6 +325,12 @@ COHORT_ARGS = ["--n-clients", "4", "--clients-per-round", "3",
                "linear", "--gamma-ramp-steps", "2", "--dirichlet-alpha",
                "0.5"]
 COHORT_ROUNDS, COHORT_CLIENTS = 3, 4
+#: phase 4m: the MoE family's trainer run (granite at full width and
+#: depth, as phase 4 runs paper-lm-100m) and qwen3-moe's served depth
+MOE_ARCH, MOE_STEPS = "granite-moe-1b-a400m", 3
+MOE_ARGS = ["--arch", MOE_ARCH, "--compress-method", "block_topk",
+            "--seq-len", "256", "--global-batch", "8", "--log-every", "1"]
+QWEN3_MOE, QWEN3_MOE_LAYERS, QWEN3_MOE_CTX = "qwen3-moe-30b-a3b", 12, 2048
 
 
 def fail(msg: str) -> None:
@@ -2810,10 +2844,13 @@ def check_serving_kernels(dev, report) -> None:
           f"and {dev_lib:.4f} ms", flush=True)
     del q, k, v, got, want
 
-    # RMSNorm: qwen1.5-4b prefill and decode rows, rwkv6-1.6b prefill rows
+    # RMSNorm: qwen1.5-4b prefill and decode rows, rwkv6-1.6b prefill
+    # rows, granite-moe-1b-a400m prefill and decode rows (d 1024)
     errs = {}
     for rows, d, dt in ((8192, 2560, torch.bfloat16),
                         (4, 2560, torch.bfloat16),
+                        (8192, 1024, torch.bfloat16),
+                        (4, 1024, torch.bfloat16),
                         (4096, 2048, torch.bfloat16),
                         (4096, 2048, torch.float32)):
         x, w = randn(rows, d, dtype=dt), randn(d, dtype=dt)
@@ -2911,12 +2948,12 @@ def profile_serving(dev, arch, ctx, kernels_of_path) -> None:
     torch.cuda.empty_cache()
 
 
-def run_serving(dev) -> dict:
-    """Phase 4d: both serving paths at full width through the launcher;
-    returns each path's launch counts."""
+def run_serving(dev) -> tuple[dict, dict]:
+    """Phase 4d: the serving paths at full width through the launcher;
+    returns each path's launch counts and logits."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
-    counts_of = {}
+    counts_of, logits_of = {}, {}
     for arch, ctx, want, traced in SERVE_RUNS:
         ops.reset_launch_counts()
         res = serve.main(["--arch", arch, "--full", "--batch",
@@ -2937,10 +2974,11 @@ def run_serving(dev) -> dict:
                 or not torch.isfinite(res["logits"]).all():
             fail(f"[serve {arch}] tokens {tuple(res['tokens'].shape)} or "
                  "non-finite logits")
+        logits_of[arch] = res["logits"]
         del res
         torch.cuda.empty_cache()
         profile_serving(dev, arch, ctx, traced)
-    return counts_of
+    return counts_of, logits_of
 
 
 def serve_smoke(dev) -> None:
@@ -2960,6 +2998,217 @@ def serve_smoke(dev) -> None:
         print(f"serve smoke {arch} card vs cpu: tokens "
               f"{card['tokens'].tolist()} equal, logits max diff {err:.3e} "
               f"(limit {tol:.3e})", flush=True)
+
+
+def check_gqa_flash(dev) -> None:
+    """Phase 4m: flash attention's bf16 route against its plain version at
+    the MoE models' prefill shapes, the kv heads broadcast by the model's
+    own ``_expand_kv`` (granite 2:1 at D 64, qwen3-moe 8:1 at D 128),
+    timed beside the plain version and the library call."""
+    import torch.nn.functional as F_
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.attention import _expand_kv
+    gen = torch.Generator(device=dev).manual_seed(11)
+    B, S = SERVE_BATCH, 2048
+    for arch, H, Hkv, D in ((MOE_ARCH, 16, 8, 64), (QWEN3_MOE, 32, 4, 128)):
+        q, k, v = (torch.randn((B, S, h, D), generator=gen, device=dev)
+                   .to(torch.bfloat16) for h in (H, Hkv, Hkv))
+        q = q.transpose(1, 2)
+        k, v = (_expand_kv(t, H).transpose(1, 2) for t in (k, v))
+        got = flash_attention(q, k, v, causal=True)
+        want = ref.mha_reference(q, k, v, causal=True)
+        e = bf16_ulp_err(got, want, 1e-5)
+        if not e <= 1:
+            fail(f"flash_attention bf16 at {arch}'s ({B}, {H}, {S}, {D}) "
+                 f"with kv heads {Hkv} -> {H} is {e} bf16 ulp (beyond 1e-5)"
+                 " from the plain version (limit 1)")
+        del want
+        ms = time_ms(lambda: flash_attention(q, k, v, causal=True))
+        plain = time_ms(lambda: ref.mha_reference(q, k, v, causal=True),
+                        reps=5, warmup=1)
+        lib = time_ms(lambda: F_.scaled_dot_product_attention(
+            q, k, v, is_causal=True))
+        # causal: half of the S x S scores, 2 products of D each
+        ops_ms = 2 * B * H * S * S * D / BF16_OPS_PER_S * 1e3
+        byte_ms = 4 * B * H * S * D * 2 / HBM_BYTES_PER_S * 1e3
+        print(f"flash_attention GQA [{arch}] ({B}, {H}, {S}, {D}) bf16, "
+              f"{Hkv} kv heads: {e:.3f} bf16 ulp; {ms:.4f} ms (plain "
+              f"{plain:.4f} ms, library {lib:.4f} ms, bound "
+              f"{max(ops_ms, byte_ms):.4f} ms by "
+              f"{'operations' if ops_ms >= byte_ms else 'bytes'})",
+              flush=True)
+        del q, k, v, got
+    torch.cuda.empty_cache()
+
+
+def moe_serving(dev, granite_logits: torch.Tensor) -> None:
+    """Phase 4m serving: granite again, bit for bit with phase 4d's run;
+    qwen3-moe at full width and 12 of its 48 layers through the serving
+    launcher's load and generate, counts set to 0 just before."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    res = serve.main(["--arch", MOE_ARCH, "--full", "--batch",
+                      str(SERVE_BATCH), "--ctx", "2048", "--gen",
+                      str(SERVE_GEN)])
+    if not bits_equal(res["logits"], granite_logits):
+        diff = float((res["logits"] - granite_logits).abs().max())
+        fail(f"[serve {MOE_ARCH}] a second run's logits differ from the "
+             f"first's (max {diff}): the MoE combine is not deterministic")
+    print(f"serve [{MOE_ARCH}] second run: logits bit-identical to the "
+          "first", flush=True)
+    del res
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model, params, prompt = serve.load(QWEN3_MOE, False, SERVE_BATCH,
+                                       QWEN3_MOE_CTX, dev,
+                                       n_layers=QWEN3_MOE_LAYERS)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    ops.reset_launch_counts()
+    res = serve.generate(model, params, prompt, SERVE_GEN)
+    counts = ops.launch_counts()
+    want = dict(flash_attention=QWEN3_MOE_LAYERS,
+                rmsnorm=(2 * QWEN3_MOE_LAYERS + 1) * SERVE_GEN)
+    print(f"serve [{QWEN3_MOE}, {QWEN3_MOE_LAYERS} of 48 layers, "
+          f"{n_params} parameters]: launches {counts}; prefill "
+          f"{res['prefill_s']:.4f} s, decode "
+          f"{res['decode_ms_per_step']:.3f} ms/step "
+          f"({res['decode_tokens_per_s']:.1f} tokens/s), peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB",
+          flush=True)
+    for name, n in counts.items():
+        if n != want.get(name, 0):
+            fail(f"[serve {QWEN3_MOE}] {name} launched {n} times, want "
+                 f"{want.get(name, 0)}")
+    if tuple(res["tokens"].shape) != (SERVE_BATCH, SERVE_GEN) \
+            or not torch.isfinite(res["logits"]).all():
+        fail(f"[serve {QWEN3_MOE}] tokens {tuple(res['tokens'].shape)} or "
+             "non-finite logits")
+    del model, params, prompt, res
+    torch.cuda.empty_cache()
+
+
+def tree_leaves(tree) -> list:
+    from repro_torch.utils import tree_flatten
+    return tree_flatten(tree)[0]
+
+
+def moe_trainer(dev) -> dict:
+    """Phase 4m: DCSGD-ASSS on granite at full width and depth; the
+    launches of pack_words / unpack_words from the bucket plan, worked
+    out before the run (a stream pack or unpack launches below 32
+    bits)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.comm.bucket import build_bucket_plan
+    from repro_torch.configs import get_config
+    from repro_torch.core.compression import Compressor
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.utils import tree_flatten
+    comp = Compressor(gamma=0.01, method="block_topk")
+    with FakeTensorMode():
+        fake = lm.init_params(get_config(MOE_ARCH))
+        shapes = [tuple(x.shape) for x in tree_leaves(fake)]
+        stacked = tree_flatten(lm.stacked_mask(fake))[0]
+    plan = build_bucket_plan(shapes, stacked, comp)
+    codec = sum((b.index_bits < 32) + (comp.value_bits < 32)
+                for b in plan.buckets)
+    per_step = dict(ef_stats_telemetry=1, ef_apply=1, pack_words=codec,
+                    unpack_words=codec)
+    # the metric is an f32 sum: 81,180,540 B reads 81,180,544
+    want_bytes = float(np.float32(step_wire_bytes(shapes, stacked, comp)))
+    print(f"trainer [{MOE_ARCH}] plan: {len(plan.leaves)} leaves, buckets "
+          f"{[(b.index_bits, len(b.leaf_ids)) for b in plan.buckets]}, "
+          f"{plan.total_words} payload words, {want_bytes} B a step; "
+          f"launches a step {per_step}", flush=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    log, params, state = train.run(MOE_ARGS + ["--steps", str(MOE_STEPS)])
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"trainer [{MOE_ARCH}]: launches {counts}; loss "
+          f"{[x['loss'] for x in log]}; alpha {[x['alpha'] for x in log]};"
+          f" n_evals {[x['n_evals'] for x in log]}; step_s "
+          f"{[round(x['step_s'], 4) for x in log]}; wire bytes "
+          f"{[x['wire_bytes'] for x in log]}; peak memory "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    for name, n in counts.items():
+        if n != per_step.get(name, 0) * MOE_STEPS:
+            fail(f"[{MOE_ARCH} trainer] {name} launched {n} times in "
+                 f"{MOE_STEPS} steps, want "
+                 f"{per_step.get(name, 0) * MOE_STEPS}")
+    if not all(np.isfinite(x["loss"]) for x in log):
+        fail(f"[{MOE_ARCH} trainer] non-finite loss")
+    if any(x["wire_bytes"] != want_bytes for x in log) \
+            or any(x["steps_skipped"] for x in log):
+        fail(f"[{MOE_ARCH} trainer] wire bytes "
+             f"{[x['wire_bytes'] for x in log]} != {want_bytes}, or a "
+             "step was skipped")
+    dtypes = {str(p.dtype) for p in tree_leaves(params)}
+    router = params["blocks"]["moe"]["router"]["w"]
+    memory = {m.dtype for m in tree_leaves(state.memory)}
+    if dtypes != {"torch.bfloat16", "torch.float32"} \
+            or router.dtype != torch.float32 or memory != {torch.float32}:
+        fail(f"[{MOE_ARCH} trainer] parameter dtypes {dtypes}, router "
+             f"{router.dtype}: want bf16 with an f32 router and f32 EF "
+             "memory")
+    del params, state
+    torch.cuda.empty_cache()
+    return dict(steps_s=[x["step_s"] for x in log],
+                loss=[x["loss"] for x in log], peak_bytes=peak,
+                wire_bytes=want_bytes)
+
+
+def moe_card_vs_cpu(dev) -> None:
+    """Phase 4m: ``moe_block`` at the granite smoke size on the card
+    against the CPU in f32 and bf16 (routes exact), and 2 trainer steps
+    of the granite smoke on both (bytes equal, losses rel 1e-5)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import train
+    from repro_torch.models import moe
+    cfg = get_smoke_config(MOE_ARCH)
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((2, 96, cfg.d_model), generator=gen)
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+        p = moe.init_moe(torch.Generator().manual_seed(1), cfg, dtype)
+        xd = x.to(dtype)
+        want = moe.route(p, xd.reshape(-1, cfg.d_model), cfg)
+        wy, waux = moe.moe_block(p, xd, cfg)
+        pd = {k: ({kk: vv.to(dev) for kk, vv in v.items()}
+                  if isinstance(v, dict) else v.to(dev))
+              for k, v in p.items()}
+        got = moe.route(pd, xd.to(dev).reshape(-1, cfg.d_model), cfg)
+        gy, gaux = moe.moe_block(pd, xd.to(dev), cfg)
+        top = torch.sort(want.probs, -1, descending=True).values
+        gap = float((top[:, cfg.experts_per_token - 1]
+                     - top[:, cfg.experts_per_token]).min())
+        for f in ("eids", "se", "st", "pos", "keep"):
+            if not torch.equal(getattr(got, f).cpu(), getattr(want, f)):
+                fail(f"moe_block {dtype} on the card routes {f} unlike the "
+                     f"CPU (least top-k probability gap {gap})")
+        err = float((gy.float().cpu() - wy.float()).abs().max())
+        lim = tol * float(wy.float().abs().max())
+        if not err <= lim or not abs(float(gaux) - float(waux)) <= \
+                1e-6 * abs(float(waux)):
+            fail(f"moe_block {dtype} on the card: y {err} > {lim} or aux "
+                 f"{float(gaux)} vs {float(waux)}")
+        print(f"moe_block {dtype} granite smoke card vs cpu: routes equal "
+              f"(least top-k gap {gap:.3e}), y max diff {err:.3e} (limit "
+              f"{lim:.3e}), aux {float(gaux)} vs {float(waux)}", flush=True)
+    small = ["--arch", MOE_ARCH, "--smoke", "--steps", "2", "--seq-len",
+             "33", "--global-batch", "4", "--compress-method", "block_topk",
+             "--log-every", "1"]
+    on_card = train.main(small)
+    on_cpu = train.main(small + ["--device", "cpu"])
+    for a, b in zip(on_card, on_cpu):
+        if abs(a["loss"] - b["loss"]) > 1e-5 * abs(b["loss"]) or \
+                a["wire_bytes"] != b["wire_bytes"]:
+            fail(f"{MOE_ARCH} smoke trainer on the card {a} disagrees "
+                 f"with the CPU {b}")
+    print(f"{MOE_ARCH} smoke trainer card vs cpu: losses "
+          f"{[x['loss'] for x in on_card]} vs {[x['loss'] for x in on_cpu]}"
+          f", bytes {[x['wire_bytes'] for x in on_card]}", flush=True)
 
 
 def main() -> None:
@@ -3175,7 +3424,7 @@ def main() -> None:
                                  armijo=ArmijoConfig(), compressor=c)))
 
     # ---- 4d. serving at full width through its kernels -------------------
-    serve_counts = run_serving(dev)
+    serve_counts, serve_logits = run_serving(dev)
 
     # ---- 4e. the adaptive trainer: the ragged codec on a trainer path ---
     adaptive_counts = adaptive_trainer(dev, shapes, stacked)
@@ -3217,6 +3466,12 @@ def main() -> None:
     # ---- 4l. the federated cohort: 4 clients, 3 a round ------------------
     cohort_summary = cohort_trainer(dev, root)
     profile_cohort(dev, cfg)
+
+    # ---- 4m. the MoE family: GQA flash, serving, the trainer ------------
+    check_gqa_flash(dev)
+    moe_serving(dev, serve_logits[MOE_ARCH])
+    moe_summary = moe_trainer(dev)
+    moe_card_vs_cpu(dev)
 
     # ---- 5. small input: the card against the CPU's plain path ----------
     small = ["--smoke", "--steps", "2", "--seq-len", "33", "--global-batch",
@@ -3294,6 +3549,7 @@ def main() -> None:
     print("faults summary (guarded, unguarded): "
           + json.dumps(fault_summary), flush=True)
     print("cohort summary: " + json.dumps(cohort_summary), flush=True)
+    print("moe summary: " + json.dumps(moe_summary), flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -90,17 +90,20 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def init_process_group(device: torch.device) -> bool:
-    """Join the data-parallel process group: NCCL on cuda, gloo on cpu.
-    Under ``torchrun`` the rank and world size come from its environment;
-    otherwise a group of one on a free localhost port, so the collectives
-    run on one device too (another process can take the port between
-    ``_free_port`` and the bind: then a fresh port, up to
-    ``PORT_ATTEMPTS`` in all).  Returns True when this call created the
-    group (the caller destroys it)."""
+def init_process_group(device: torch.device,
+                       backend: str | None = None) -> bool:
+    """Join the data-parallel process group: NCCL on cuda, gloo on cpu,
+    or ``backend`` where given (``"cpu:gloo,cuda:nccl"`` for one group
+    that serves a CPU run and a card run).  Under ``torchrun`` the rank
+    and world size come from its environment; otherwise a group of one
+    on a free localhost port, so the collectives run on one device too
+    (another process can take the port between ``_free_port`` and the
+    bind: then a fresh port, up to ``PORT_ATTEMPTS`` in all).  Returns
+    True when this call created the group (the caller destroys it)."""
     if dist.is_initialized():
         return False
-    backend = "nccl" if device.type == "cuda" else "gloo"
+    if backend is None:
+        backend = "nccl" if device.type == "cuda" else "gloo"
     if "WORLD_SIZE" in os.environ and "RANK" in os.environ:
         dist.init_process_group(backend, init_method="env://")
         return True

@@ -1,12 +1,18 @@
 """Model and run configuration of the port (twin of ``src/repro/configs``)."""
 from .base import ModelConfig, OptimizerConfig, RunConfig, ShapeConfig, \
     smoke_variant
-from . import qwen1_5_4b, rwkv6_1_6b
+from . import (granite_moe_1b_a400m, llama3_405b, qwen1_5_32b, qwen1_5_4b,
+               qwen3_moe_30b_a3b, rwkv6_1_6b, yi_34b)
 from .paper_models import LM_100M_CONFIG
 
 ARCH_CONFIGS = {
+    "llama3-405b": llama3_405b.CONFIG,
+    "qwen1.5-32b": qwen1_5_32b.CONFIG,
+    "granite-moe-1b-a400m": granite_moe_1b_a400m.CONFIG,
+    "yi-34b": yi_34b.CONFIG,
     "qwen1.5-4b": qwen1_5_4b.CONFIG,
     "rwkv6-1.6b": rwkv6_1_6b.CONFIG,
+    "qwen3-moe-30b-a3b": qwen3_moe_30b_a3b.CONFIG,
     LM_100M_CONFIG.name: LM_100M_CONFIG,
 }
 

@@ -1,6 +1,7 @@
 """Config system (twin of ``src/repro/configs/base.py``): the fields the
-training paths of the dense LM (the federated cohort's included) and the
-serving paths of the dense LM and RWKV-6 read."""
+training paths of the dense and MoE LMs (the federated cohort's
+included) and the serving paths of the dense and MoE LMs and RWKV-6
+read."""
 from __future__ import annotations
 
 import dataclasses
@@ -16,7 +17,7 @@ from repro_torch.core.gamma import GammaControllerConfig
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                   # dense | ssm (RWKV-6 only, by name)
+    family: str                   # dense | moe | ssm (RWKV-6 only, by name)
     n_layers: int
     d_model: int
     n_heads: int
@@ -28,6 +29,15 @@ class ModelConfig:
     rope_theta: float = 500000.0
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
+    # --- MoE ---
+    n_experts: int = 0
+    experts_per_token: int = 0
+    moe_d_ff: int = 0             # per-expert hidden size
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01
+    # JAX's expert-parallel shard_map needs a ``model`` mesh axis, which
+    # comes with sharding.py: only the default is accepted
+    moe_expert_parallel: bool = False
     rwkv_lora_rank: int = 64
     sliding_window: int = 0       # 0 = full attention
     # the int8 KV cache and rematerialisation are not ported: only the
@@ -44,11 +54,17 @@ class ModelConfig:
     citation: str = ""
 
     def __post_init__(self):
-        if not (self.family == "dense"
+        if not (self.family in ("dense", "moe")
                 or (self.family == "ssm" and self.name.startswith("rwkv"))):
             raise ValueError(f"model family {self.family!r} of "
                              f"{self.name!r} is not ported (the port has "
-                             "'dense' and the RWKV-6 'ssm' models)")
+                             "'dense', 'moe' and the RWKV-6 'ssm' models)")
+        if self.moe_expert_parallel:
+            raise ValueError(
+                "moe_expert_parallel=True: the expert-parallel shard_map "
+                "(JAX's _maybe_expert_parallel / _moe_local) needs a "
+                "'model' mesh axis, which is not ported (it comes with "
+                "sharding.py); the port routes every expert locally")
         if self.kv_cache_dtype != "" or not self.remat:
             raise ValueError("kv_cache_dtype and remat: the port takes only "
                              "their defaults ('' and True)")
@@ -423,12 +439,16 @@ def check_cohort(opt: OptimizerConfig, W: int) -> None:
 
 def smoke_variant(cfg: ModelConfig) -> ModelConfig:
     """Reduced same-family config for CPU tests: 2 layers, d_model 128,
-    query chunks of 64, LoRA rank 8 for RWKV (JAX's ``smoke_variant``
-    less the fields the port does not read)."""
+    query chunks of 64, LoRA rank 8 for RWKV, 4 experts top-2 of width 64
+    at capacity factor 2 (E/k: C = T, drop-free) for MoE (JAX's
+    ``smoke_variant`` less the fields the port does not read)."""
     kw = dict(n_layers=2, d_model=128, n_heads=4,
               n_kv_heads=min(cfg.n_kv_heads, 4) if cfg.n_kv_heads else 0,
               d_ff=256, vocab_size=512, head_dim=32, param_dtype="float32",
               compute_dtype="float32", attn_chunk=64)
+    if cfg.family == "moe":
+        kw.update(n_experts=4, experts_per_token=2, moe_d_ff=64,
+                  capacity_factor=2.0)
     if cfg.name.startswith("rwkv"):
         kw.update(rwkv_lora_rank=8)
     if cfg.sliding_window:

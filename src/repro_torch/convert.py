@@ -12,7 +12,9 @@ bfloat16 dtype, which ``torch.from_numpy`` refuses; such a leaf is
 recognised by its dtype's name and carried over as its 16-bit pattern
 (``.view(np.uint16)``, then ``.view(torch.bfloat16)``), bits unchanged.
 The serving caches (``DecodeCache``, ``KVCache``, ``RWKVState``) become
-the port's named tuples of the same name and fields.
+the port's named tuples of the same name and fields.  An MoE tree
+carries over leaf by leaf like any other: its f32 router beside bf16 or
+f32 experts.
 """
 from __future__ import annotations
 

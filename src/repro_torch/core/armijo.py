@@ -71,6 +71,16 @@ def tree_sqnorm(tree) -> torch.Tensor:
     return total
 
 
+def _candidate(p: torch.Tensor, g: torch.Tensor, a: float) -> torch.Tensor:
+    """JAX's ``y - a * x.astype(y.dtype)`` with an f32 ``a``: a bf16 leaf
+    is promoted, so the candidate is f32 (its users cast it as they cast
+    the parameter); an f32 leaf stays f32."""
+    g = g.to(p.dtype)
+    if p.dtype != torch.float32:
+        p, g = p.float(), g.float()
+    return torch.add(p, g, alpha=-a)
+
+
 def armijo_search(loss_fn: Callable, params, grads, alpha_max,
                   cfg: ArmijoConfig, f0=None,
                   grad_sqnorm=None) -> ArmijoResult:
@@ -87,8 +97,7 @@ def armijo_search(loss_fn: Callable, params, grads, alpha_max,
 
         def trial(alpha):
             a = float(alpha)
-            cand = tree_map(lambda p, g: torch.add(p, g.to(p.dtype),
-                                                   alpha=-a), params, grads)
+            cand = tree_map(lambda p, g: _candidate(p, g, a), params, grads)
             return f32(float(loss_fn(cand)))
 
         def ok(f_try, alpha):

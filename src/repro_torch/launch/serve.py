@@ -5,13 +5,15 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-4b \\
         --full --batch 4 --ctx 2048 --gen 16
 
-runs qwen1.5-4b at full width on the GPU; ``--smoke --device cpu`` runs
-the 2-layer variant on the CPU with the kernels' plain versions.  The
-config is built with ``use_pallas=True``: on the card that takes the
-flash-attention, RMSNorm and WKV kernels; on the CPU it resolves to their
-plain versions, which compute what the JAX package's ``use_pallas=False``
-path computes (the JAX launcher never sets the flag).  Without CUDA and
-without ``--device cpu`` it raises: it never falls back.
+runs qwen1.5-4b at full width on the GPU (also ``--arch rwkv6-1.6b``,
+``granite-moe-1b-a400m`` or ``qwen3-moe-30b-a3b``); ``--smoke --device
+cpu`` runs the 2-layer variant on the CPU with the kernels' plain
+versions.  The config is built with ``use_pallas=True``: on the card
+that takes the flash-attention, RMSNorm and WKV kernels; on the CPU it
+resolves to their plain versions, which compute what the JAX package's
+``use_pallas=False`` path computes (the JAX launcher never sets the
+flag).  Without CUDA and without ``--device cpu`` it raises: it never
+falls back.
 
 Weights are random, from seed 0.  Smoke sizes are drawn on the CPU, so
 the seed gives the same weights on every device; ``--full`` draws them
@@ -31,7 +33,8 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.launch.train import resolve_device
 from repro_torch.models import build_model
 
-ARCHS = ("qwen1.5-4b", "rwkv6-1.6b")
+ARCHS = ("qwen1.5-4b", "rwkv6-1.6b", "granite-moe-1b-a400m",
+         "qwen3-moe-30b-a3b")
 
 
 def parse_args(argv=None):
@@ -48,9 +51,13 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def load(arch: str, smoke: bool, batch: int, ctx: int, device):
-    """(model, params, prompt (batch, ctx) on ``device``) for serving."""
+def load(arch: str, smoke: bool, batch: int, ctx: int, device,
+         n_layers: int | None = None):
+    """(model, params, prompt (batch, ctx) on ``device``) for serving;
+    ``n_layers`` cuts the depth (the widths stay the config's)."""
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     model = build_model(dataclasses.replace(cfg, use_pallas=True))
     draw = "cpu" if smoke else device
     params = model.init(0, device=device, draw_device=draw)

@@ -7,8 +7,10 @@ transports, its fault flags and its federated cohort's flags, plus
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --compress-method block_topk --steps 4
 
-runs DCSGD-ASSS on paper-lm-100m on the GPU; ``--smoke --device cpu``
-runs the 2-layer variant on the CPU with the kernels' plain versions.
+runs DCSGD-ASSS on paper-lm-100m on the GPU (``--arch
+granite-moe-1b-a400m``: the MoE model, bf16 parameters with JAX's f32
+update); ``--smoke --device cpu`` runs the 2-layer variant on the CPU
+with the kernels' plain versions.
 Several GPUs: ``torchrun --nproc-per-node N -m repro_torch.launch.train
 ...`` (one process per GPU; each takes its rows of the global batch).
 Without CUDA and without ``--device cpu`` it raises: it never falls
@@ -134,7 +136,7 @@ def resolve_device(name: str) -> torch.device:
 def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="paper-lm-100m",
-                    choices=["paper-lm-100m"])
+                    choices=["paper-lm-100m", "granite-moe-1b-a400m"])
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced 2-layer variant of --arch")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])

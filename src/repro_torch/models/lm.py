@@ -1,5 +1,7 @@
-"""Decoder-only LMs (twin of the ``dense`` family and the RWKV-6 branch of
-the ``ssm`` family of ``src/repro/models/lm.py``).
+"""Decoder-only LMs (twin of the ``dense`` and ``moe`` families and the
+RWKV-6 branch of the ``ssm`` family of ``src/repro/models/lm.py``).  An
+MoE block is the dense block with ``models/moe.py``'s layer in place of
+the MLP.
 
 Layer parameters are stacked on a leading layer axis, as the JAX package's
 ``scan`` layout has them, so the per-layer compression rows and the wire
@@ -23,6 +25,7 @@ import torch
 
 from repro_torch.utils import tree_map, tree_map_with_path
 from . import attention as attn
+from . import moe as moe_mod
 from . import rwkv as rwkv_mod
 from .layers import (embed, init_embed, init_lm_head, init_mlp,
                      init_rms_norm, lm_head, mlp, rms_norm, softmax_xent)
@@ -64,13 +67,19 @@ def init_params(cfg, seed: int = 0, device="cpu", draw_device="cpu"):
             "attn_norm": init_rms_norm(cfg.d_model, dtype, dev, lead=L),
             "attn": attn.init_attn(gen, cfg, dtype, lead=L),
             "mlp_norm": init_rms_norm(cfg.d_model, dtype, dev, lead=L),
-            "mlp": init_mlp(gen, cfg, dtype, lead=L),
         }
+        if cfg.family == "moe":
+            params["blocks"]["moe"] = moe_mod.init_moe(gen, cfg, dtype,
+                                                       lead=L)
+        else:
+            params["blocks"]["mlp"] = init_mlp(gen, cfg, dtype, lead=L)
     return tree_map(lambda x: x.to(device), params)
 
 
 def stacked_mask(params):
-    """True for leaves with a leading layer axis (per-layer compression)."""
+    """True for leaves with a leading layer axis (per-layer compression):
+    every leaf under ``blocks``, the MoE's ``(L, E, D, F)`` experts and
+    ``(L, D, E)`` router included."""
     return tree_map_with_path(lambda path, _: path[0] == "blocks", params)
 
 
@@ -89,13 +98,17 @@ def _head(params):
 # ---------------------------------------------------------------------------
 
 def _dense_block(p, x, cfg):
-    """Pre-norm attention + SwiGLU MLP.  Returns (x, this layer's KV)."""
+    """Pre-norm attention + SwiGLU MLP or MoE (with capacity drops).
+    Returns (x, this layer's KV, the MoE's aux loss or None)."""
     h, kv = attn.attention_block(
         p["attn"], rms_norm(p["attn_norm"], x, cfg.norm_eps, cfg.use_pallas),
         cfg)
     x = x + h
-    return x + mlp(p["mlp"], rms_norm(p["mlp_norm"], x, cfg.norm_eps,
-                                      cfg.use_pallas)), kv
+    hn = rms_norm(p["mlp_norm"], x, cfg.norm_eps, cfg.use_pallas)
+    if cfg.family == "moe":
+        h2, aux = moe_mod.moe_block(p["moe"], hn, cfg)
+        return x + h2, kv, aux
+    return x + mlp(p["mlp"], hn), kv, None
 
 
 def _dense_block_decode(p, x, kv, cur_len, cfg):
@@ -103,8 +116,10 @@ def _dense_block_decode(p, x, kv, cur_len, cfg):
         p["attn"], rms_norm(p["attn_norm"], x, cfg.norm_eps, cfg.use_pallas),
         kv, cur_len, cfg)
     x = x + h
-    return x + mlp(p["mlp"], rms_norm(p["mlp_norm"], x, cfg.norm_eps,
-                                      cfg.use_pallas))
+    hn = rms_norm(p["mlp_norm"], x, cfg.norm_eps, cfg.use_pallas)
+    if cfg.family == "moe":
+        return x + moe_mod.moe_block(p["moe"], hn, cfg, no_drop=True)[0]
+    return x + mlp(p["mlp"], hn)
 
 
 def _rwkv_block(p, x, cfg, state: rwkv_mod.RWKVState):
@@ -123,19 +138,25 @@ def _rwkv_block(p, x, cfg, state: rwkv_mod.RWKVState):
 # ---------------------------------------------------------------------------
 
 def loss_fn(params, batch: dict, cfg) -> torch.Tensor:
-    """Next-token cross-entropy.  batch["tokens"]: (B, S) integers."""
+    """Next-token cross-entropy plus the MoE layers' aux losses, summed in
+    layer order from an f32 zero (0 without MoE layers: the cross-entropy
+    alone, bit for bit).  batch["tokens"]: (B, S) integers."""
     tokens = batch["tokens"]
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     x = embed(params["embed"], inputs, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
         lp = _layer(params["blocks"], i)
         if _is_rwkv(cfg):
             x, _ = _rwkv_block(lp, x, cfg, rwkv_mod.init_rwkv_state(
                 cfg, x.shape[0], x.device))
         else:
-            x, _ = _dense_block(lp, x, cfg)
+            x, _, a = _dense_block(lp, x, cfg)
+            if a is not None:
+                aux = aux + a
     x = rms_norm(params["final_norm"], x, cfg.norm_eps, cfg.use_pallas)
-    return softmax_xent(lm_head(_head(params), x, cfg.vocab_size), targets)
+    ce = softmax_xent(lm_head(_head(params), x, cfg.vocab_size), targets)
+    return ce + aux
 
 
 # ---------------------------------------------------------------------------
@@ -172,7 +193,7 @@ def prefill(params, batch: dict, cfg, capacity: int | None = None):
             for stacked, new in zip(cache.ssm, st):
                 stacked[i] = new
         else:
-            x, kv = _dense_block(lp, x, cfg)
+            x, kv, _ = _dense_block(lp, x, cfg)
             cache.kv.k[i, :, :S] = kv.k
             cache.kv.v[i, :, :S] = kv.v
     x = rms_norm(params["final_norm"], x[:, -1:], cfg.norm_eps,

@@ -541,7 +541,8 @@ def test_paper_lm_exchange_bytes(value_bits):
 
 @pytest.mark.parametrize("gamma", [0.01, 0.04, 0.10])
 @pytest.mark.parametrize("arch", ["paper-lm-100m", "qwen1.5-4b",
-                                  "rwkv6-1.6b"])
+                                  "rwkv6-1.6b", "granite-moe-1b-a400m",
+                                  "qwen3-moe-30b-a3b"])
 def test_collective_bytes_match_jax(arch, gamma):
     """benchmarks/collective_bytes.py's table for every ported config: the
     port's ``tree_wire_bytes`` over its own parameter tree (shapes only,

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.comm import exchange
 from repro_torch.kernels import ef_topk, ref, wire_pack
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rmsnorm import rmsnorm
@@ -377,7 +378,7 @@ def _check_rmsnorm(cuda, shape, xdt, wdt):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(8, 128), (200, 256), (21, 512),
-                                   (4, 2560)])
+                                   (4, 1024), (4, 2560)])
 @pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("wdt", [torch.float32, torch.bfloat16])
 def test_rmsnorm_kernel_matches_plain_on_card(cuda, shape, xdt, wdt):
@@ -457,6 +458,25 @@ def test_flash_attention_tensor_core_route_matches_plain_on_card(
     q, k, v = _bshd_views(Sq * 7 + Sk, B, H, Sq, Sk, D, cuda)
     got = flash_attention(q, k, v, causal=causal, window=window)
     want = ref.mha_reference(q, k, v, causal=causal, window=window)
+    assert got.dtype == torch.bfloat16
+    assert _bf16_ulp_err(got, want, 1e-5) <= 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,Hkv", [(16, 8), (16, 2)])
+def test_flash_attention_tensor_core_route_gqa_d64_on_card(cuda, H, Hkv):
+    """Grouped-query attention at D 64 as the MoE models hand it over:
+    kv heads broadcast 2:1 (granite-moe-1b-a400m) and 8:1 (qwen3-moe's
+    ratio) by ``attention._expand_kv``, then (B, H, S, D) views."""
+    from repro_torch.models.attention import _expand_kv
+    rng = np.random.default_rng(H * 100 + Hkv)
+    B, S, D = 2, 300, 64
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, S, h, D)).astype(
+        np.float32)).to(cuda, torch.bfloat16) for h in (H, Hkv, Hkv))
+    q, k, v = q.transpose(1, 2), *(
+        _expand_kv(t, H).transpose(1, 2) for t in (k, v))
+    got = flash_attention(q, k, v, causal=True)
+    want = ref.mha_reference(q, k, v, causal=True)
     assert got.dtype == torch.bfloat16
     assert _bf16_ulp_err(got, want, 1e-5) <= 1
 
@@ -658,7 +678,6 @@ def test_perleaf_exchange_on_card(cuda, value_bits):
     telemetry rel 1e-5 (the pass-1 moments sum in f64 on the card).  One
     fused-EF pair and one ragged pack/unpack launch per section and per
     compressed leaf; the bucketed exchange launches no ragged kernel."""
-    import socket
 
     import torch.distributed as dist
     from repro_torch.core.compression import Compressor
@@ -673,12 +692,7 @@ def test_perleaf_exchange_on_card(cuda, value_bits):
     mem = {k: 0.05 * torch.flip(v, [-1]) for k, v in tree.items()}
     comp = Compressor(gamma=0.01, max_gamma=0.1, method="block_topk",
                       value_bits=value_bits, min_compress_size=64)
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
-    dist.init_process_group("cpu:gloo,cuda:nccl",
-                            init_method=f"tcp://localhost:{port}",
-                            world_size=1, rank=0)
+    exchange.init_process_group(cuda, backend="cpu:gloo,cuda:nccl")
     try:
         def run(device, transport):
             return worker_compress_aggregate(
@@ -727,7 +741,6 @@ def test_trainer_rounds_on_card(cuda, opt_kw, micro, tmp_path):
     losses of the CPU's plain path; then the state saved from the card
     and restored onto it, bit for bit."""
     import dataclasses
-    import socket
 
     import torch.distributed as dist
     from repro_torch.checkpoint import checkpoint as ckpt
@@ -748,13 +761,8 @@ def test_trainer_rounds_on_card(cuda, opt_kw, micro, tmp_path):
                         **opt_kw))
     pipe = TokenPipeline(vocab_size=run.model.vocab_size, seq_len=33,
                          global_batch=4)
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
     # one group for both runs: gloo for the CPU's, NCCL for the card's
-    dist.init_process_group("cpu:gloo,cuda:nccl",
-                            init_method=f"tcp://localhost:{port}",
-                            world_size=1, rank=0)
+    exchange.init_process_group(cuda, backend="cpu:gloo,cuda:nccl")
     try:
         logs = {}
         for dev in ("cpu", cuda):
@@ -807,7 +815,6 @@ def test_downlink_exchange_on_card(cuda, transport, value_bits):
     CPU: updates, EF memory, server memory and both directions' bytes bit
     for bit; the server round launches no kernel (the counts equal the
     exchange's without it)."""
-    import socket
 
     import torch.distributed as dist
     from repro_torch.comm import downlink as dl
@@ -830,12 +837,7 @@ def test_downlink_exchange_on_card(cuda, transport, value_bits):
         0.01 * torch.randn(server.memory.shape,
                            generator=torch.Generator().manual_seed(2)),
         server.gamma)
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
-    dist.init_process_group("cpu:gloo,cuda:nccl",
-                            init_method=f"tcp://localhost:{port}",
-                            world_size=1, rank=0)
+    exchange.init_process_group(cuda, backend="cpu:gloo,cuda:nccl")
     try:
         def run(device, with_server=True):
             ctx = dl.DownlinkCtx(dl.DownlinkState(
@@ -910,7 +912,6 @@ def test_acgd_and_downlink_rounds_on_card(cuda, opt_kw, tmp_path):
     compressed leaf), none more for the downlink; bytes both ways equal
     the CPU's and losses within rel 1e-4; the velocity and the server
     memory f32 on the card, saved and restored onto it bit for bit."""
-    import socket
 
     import torch.distributed as dist
     from repro_torch.checkpoint import checkpoint as ckpt
@@ -931,12 +932,7 @@ def test_acgd_and_downlink_rounds_on_card(cuda, opt_kw, tmp_path):
                         **opt_kw))
     pipe = TokenPipeline(vocab_size=run.model.vocab_size, seq_len=33,
                          global_batch=4)
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
-    dist.init_process_group("cpu:gloo,cuda:nccl",
-                            init_method=f"tcp://localhost:{port}",
-                            world_size=1, rank=0)
+    exchange.init_process_group(cuda, backend="cpu:gloo,cuda:nccl")
     try:
         logs = {}
         for dev in ("cpu", cuda):
@@ -999,7 +995,6 @@ def test_overlap_exchange_on_card(cuda, delay, value_bits):
     bytes and the carried payload bit for bit; each launches what the
     bucketed exchange launches (the delay-1 own-row round trip adds
     none); at delay 1 the first update is zero."""
-    import socket
 
     import torch.distributed as dist
     from repro_torch.comm import overlap as ov
@@ -1018,12 +1013,7 @@ def test_overlap_exchange_on_card(cuda, delay, value_bits):
     cfg = ov.OverlapConfig(n_chunks=3, delay=delay)
     shapes = [tree[k].shape for k in sorted(tree)]
     stacked = [tree[k].dim() >= 2 for k in sorted(tree)]
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
-    dist.init_process_group("cpu:gloo,cuda:nccl",
-                            init_method=f"tcp://localhost:{port}",
-                            world_size=1, rank=0)
+    exchange.init_process_group(cuda, backend="cpu:gloo,cuda:nccl")
     try:
         def rounds(device, transport):
             st = ov.init_overlap_state(shapes, stacked, comp, device=device)
@@ -1078,7 +1068,6 @@ def test_gossip_exchange_on_card(cuda, value_bits):
     card: updates, EF memory and bytes bit for bit, (v, lr) at (0, 1) on
     the card, bucketed's launches, and no collective at all (bucketed
     all-gathers and all-reduces on one rank)."""
-    import socket
 
     import torch.distributed as dist
     from repro_torch.comm import gossip as gs
@@ -1095,12 +1084,7 @@ def test_gossip_exchange_on_card(cuda, value_bits):
     mem = {k: 0.05 * torch.flip(v, [-1]) for k, v in tree.items()}
     comp = Compressor(gamma=0.01, method="block_topk",
                       value_bits=value_bits, min_compress_size=64)
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
-    dist.init_process_group("cpu:gloo,cuda:nccl",
-                            init_method=f"tcp://localhost:{port}",
-                            world_size=1, rank=0)
+    exchange.init_process_group(cuda, backend="cpu:gloo,cuda:nccl")
     collectives = []
     real = {n: getattr(dist, n) for n in ("all_gather_into_tensor",
                                           "all_reduce", "batch_isend_irecv")}
@@ -1181,7 +1165,6 @@ def test_faulty_exchange_on_card(cuda, quarantine):
     on the card against the CPU: the same rows corrupted and quarantined,
     updates and EF memory equal (as values: an unguarded NaN's payload
     may differ), the bytes, and the clean run's launches."""
-    import socket
 
     import torch.distributed as dist
     from repro_torch.comm import faults
@@ -1197,12 +1180,7 @@ def test_faulty_exchange_on_card(cuda, quarantine):
                       value_bits=8, min_compress_size=64)
     cfg = faults.FaultConfig(seed=5, p_bitflip=1.0, p_count=0.5,
                              p_nonfinite=0.3, quarantine=quarantine)
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
-    dist.init_process_group("cpu:gloo,cuda:nccl",
-                            init_method=f"tcp://localhost:{port}",
-                            world_size=1, rank=0)
+    exchange.init_process_group(cuda, backend="cpu:gloo,cuda:nccl")
     try:
         def rounds(device, transport, ctx_of):
             m = {k: 0.05 * v.to(device) for k, v in tree.items()}

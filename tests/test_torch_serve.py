@@ -1,5 +1,9 @@
 """Serving in the port (prefill, then greedy decode) against the JAX
-package, on the CPU, for qwen1.5-4b and rwkv6-1.6b's smoke variants.
+package, on the CPU, for the smoke variants of qwen1.5-4b, rwkv6-1.6b and
+the two MoE configs (granite-moe-1b-a400m, qwen3-moe-30b-a3b), and for
+grouped-query attention: qwen1.5-4b's and granite's smoke variants at 2
+and 1 kv heads of their 4 query heads (the smoke variants themselves
+are MHA).
 
 The same numpy weights (the JAX initialisers' draw, with the leaves JAX
 initialises to constants — QKV biases, LoRA B, norm weights, decay and
@@ -28,16 +32,33 @@ from repro.configs import get_smoke_config as jax_smoke_config
 from repro.models import attention as jattn
 from repro.models import build_model as jax_build_model
 from repro.models import rwkv as jrwkv
-from repro_torch.configs import get_smoke_config
-from repro_torch.configs.base import ModelConfig
+from repro.configs import ARCH_CONFIGS as JAX_ARCH_CONFIGS
+from repro.configs import smoke_variant as jax_smoke_variant
+from repro_torch.configs import ARCH_CONFIGS, get_smoke_config
+from repro_torch.configs.base import ModelConfig, smoke_variant
 from repro_torch.convert import to_torch
 from repro_torch.launch import serve
 from repro_torch.models import attention, build_model, rwkv
 
 torch.set_num_threads(2)
 
-ARCHS = ("qwen1.5-4b", "rwkv6-1.6b")
+ARCHS = ("qwen1.5-4b", "rwkv6-1.6b", "granite-moe-1b-a400m",
+         "qwen3-moe-30b-a3b")
+#: (arch, kv heads or None for the smoke variant's own): every arch, then
+#: grouped-query attention at 2 and 1 kv heads
+SERVED = [(a, None) for a in ARCHS] + [
+    (a, n) for a in ("qwen1.5-4b", "granite-moe-1b-a400m") for n in (2, 1)]
 B, N_DECODE = 2, 4
+
+
+def _configs(arch, n_kv=None):
+    """(JAX's, the port's) smoke config of ``arch``, at ``n_kv`` kv
+    heads if given."""
+    jcfg, cfg = jax_smoke_config(arch), get_smoke_config(arch)
+    if n_kv is not None:
+        jcfg = dataclasses.replace(jcfg, n_kv_heads=n_kv)
+        cfg = dataclasses.replace(cfg, n_kv_heads=n_kv)
+    return jcfg, cfg
 
 
 def _perturbed(tree, seed):
@@ -133,23 +154,25 @@ def test_attention_blocks_match_jax(S):
 # the slice: prefill + decode of both smoke models
 # --------------------------------------------------------------------------
 
-@pytest.fixture(scope="module", params=ARCHS)
+@pytest.fixture(scope="module", params=SERVED,
+                ids=[a if n is None else f"{a}-kv{n}" for a, n in SERVED])
 def served(request):
     """JAX's prefill + N_DECODE greedy steps of one smoke model, with the
     weights, prompt and the JAX results (numpy)."""
-    arch = request.param
-    jcfg = jax_smoke_config(arch)
+    arch, n_kv = request.param
+    jcfg, cfg = _configs(arch, n_kv)
     jm = jax_build_model(jcfg)
     params = _perturbed(jm.init(jax.random.PRNGKey(0)), 3)
     jp = jax.tree.map(jnp.asarray, params)
-    ctx = 96 if arch.startswith("qwen") else 40     # qwen: > attn_chunk
+    # attention: a context past attn_chunk
+    ctx = 40 if cfg.family == "ssm" else 96
     cap = ctx + N_DECODE + 1
     prompt = np.random.default_rng(4).integers(
         0, jcfg.vocab_size, (B, ctx)).astype(np.int32)
     logits, cache = jax.jit(lambda p, t: jm.prefill(
         p, {"tokens": t}, capacity=cap))(jp, jnp.asarray(prompt))
     decode = jax.jit(jm.decode_step)
-    out = dict(arch=arch, params=params, prompt=prompt, cap=cap,
+    out = dict(arch=arch, cfg=cfg, params=params, prompt=prompt, cap=cap,
                logits=[np.asarray(logits[:, -1])],
                caches=[jax.tree.map(np.asarray, cache)], tokens=[])
     for i in range(N_DECODE):
@@ -165,8 +188,7 @@ def _port_run(served, use_pallas: bool):
     """The port's prefill + decode from the same weights, fed the JAX
     run's greedy tokens; returns (logits per step, own greedy tokens,
     caches after prefill and after the last step)."""
-    cfg = dataclasses.replace(get_smoke_config(served["arch"]),
-                              use_pallas=use_pallas)
+    cfg = dataclasses.replace(served["cfg"], use_pallas=use_pallas)
     model = build_model(cfg)
     params = to_torch(served["params"])
     ctx = served["prompt"].shape[1]
@@ -194,14 +216,14 @@ def _cache_leaves(cache):
 
 def test_prefill_and_decode_match_jax(served):
     logits, toks, caches = _port_run(served, use_pallas=True)
-    V = get_smoke_config(served["arch"]).vocab_size
+    V = served["cfg"].vocab_size
     for got, want in zip(logits, served["logits"]):
         _rel_close(got[:, :V], want[:, :V], 1e-4)
     for got, want in zip(toks, served["tokens"]):
         np.testing.assert_array_equal(got.numpy(), want)
     for got, want in zip(caches, served["caches"]):
-        jl = ([want.kv.k, want.kv.v] if served["arch"].startswith("qwen")
-              else list(want.ssm))
+        jl = (list(want.ssm) if served["cfg"].family == "ssm"
+              else [want.kv.k, want.kv.v])
         for g, w in zip(_cache_leaves(got), jl):
             assert tuple(g.shape) == w.shape
             _rel_close(g, w, 1e-5)
@@ -220,18 +242,19 @@ def test_use_pallas_on_cpu_is_bit_identical(served):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_loss_matches_jax(arch):
-    """``Model.loss`` of both smoke models (the dense one with its QKV
-    bias, RWKV-6 with fresh states per layer) against JAX's, outside any
-    mesh: rel 1e-5."""
+    """``Model.loss`` of every smoke model (the dense one with its QKV
+    bias, RWKV-6 with fresh states per layer, the MoE ones as ce + the
+    layers' aux) against JAX's, outside any mesh: rel 1e-5."""
     jcfg = jax_smoke_config(arch)
     jm = jax_build_model(jcfg)
     params = _perturbed(jm.init(jax.random.PRNGKey(6)), 7)
     tokens = np.random.default_rng(8).integers(
         0, jcfg.vocab_size, (2, 33)).astype(np.int32)
-    want, _ = jax.jit(jm.loss)(jax.tree.map(jnp.asarray, params),
-                               {"tokens": jnp.asarray(tokens)})
+    want, parts = jax.jit(jm.loss)(jax.tree.map(jnp.asarray, params),
+                                   {"tokens": jnp.asarray(tokens)})
     got = build_model(get_smoke_config(arch)).loss(
         to_torch(params), {"tokens": torch.from_numpy(tokens)})
+    assert (float(parts["aux"]) > 0) == (jcfg.family == "moe")
     assert abs(float(got) - float(want)) <= 1e-5 * abs(float(want))
 
 
@@ -272,12 +295,35 @@ def test_serve_without_cuda_raises(monkeypatch):
                     "--ctx", "8", "--gen", "2"])
 
 
-@pytest.mark.parametrize("kw", [dict(family="moe"),
+@pytest.mark.parametrize("kw", [dict(family="hybrid"),
                                 dict(family="ssm", name="mamba2-x"),
                                 dict(kv_cache_dtype="int8"),
-                                dict(remat=False)])
+                                dict(remat=False),
+                                dict(family="moe", moe_expert_parallel=True)])
 def test_config_refuses_what_is_not_ported(kw):
     base = dict(name="x", family="dense", n_layers=1, d_model=64,
                 n_heads=2, n_kv_heads=2, d_ff=64, vocab_size=256)
     with pytest.raises(ValueError):
         ModelConfig(**{**base, **kw})
+
+
+@pytest.mark.parametrize("arch", sorted(
+    a for a in ARCH_CONFIGS if not a.startswith("paper-")))
+def test_arch_config_equals_jax(arch):
+    """Every ported arch config (JAX's ``ARCH_NAMES`` leaves out the
+    paper models), and its smoke variant, equals the JAX package's field
+    for field over the fields both define (every field of the port's).
+    JAX's smoke variant turns ``remat`` off, which the port refuses;
+    rematerialisation changes memory, never values."""
+    fields = [f.name for f in dataclasses.fields(ModelConfig)]
+    jfields = {f.name for f in dataclasses.fields(JAX_ARCH_CONFIGS[arch])}
+    assert set(fields) <= jfields, set(fields) - jfields
+    full, smoke = ARCH_CONFIGS[arch], smoke_variant(ARCH_CONFIGS[arch])
+    jfull = JAX_ARCH_CONFIGS[arch]
+    jsmoke = jax_smoke_variant(jfull)
+    assert smoke.remat and not jsmoke.remat
+    for mine, theirs, skip in ((full, jfull, ()), (smoke, jsmoke, ("remat",))):
+        for f in fields:
+            if f not in skip:
+                assert getattr(mine, f) == getattr(theirs, f), \
+                    (arch, f, getattr(mine, f), getattr(theirs, f))

@@ -112,6 +112,7 @@ class Case:
     overlap_chunks: int = 3
     local_steps: int = 1
     topology: str = "ring"        # read under transport="gossip"
+    arch: str = ARCH              # the smoke variant of this config
 
     def comp_kw(self):
         return dict(gamma=self.gamma, method="block_topk",
@@ -129,7 +130,8 @@ class Case:
 
     def run(self) -> RunConfig:
         return RunConfig(
-            model=get_smoke_config(ARCH), shape=ShapeConfig(SEQ, BATCH),
+            model=get_smoke_config(self.arch),
+            shape=ShapeConfig(SEQ, BATCH),
             microbatches=self.local_steps,
             optimizer=OptimizerConfig(
                 overlap=OverlapConfig(**self.overlap()),
@@ -149,8 +151,8 @@ def case_id(case: Case) -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def jax_model():
-    model = build_model(jax_smoke_config(ARCH))
+def jax_model(arch: str = ARCH):
+    model = build_model(jax_smoke_config(arch))
     return model, model.init(jax.random.PRNGKey(0))
 
 
@@ -162,7 +164,7 @@ def jax_step(case: Case):
     0-word placeholder without the downlink); ``ov`` the carried
     ``OverlapState`` (``()`` without the overlap transport), returned
     last."""
-    model, _ = jax_model()
+    model, _ = jax_model(case.arch)
     comp = JCompressor(**case.comp_kw())
     arm = JArmijo()
     ctrl = JGammaCfg(**case.ctrl_kw())
@@ -450,7 +452,7 @@ def run_both(case: Case, steps: int = STEPS):
     """``steps`` rounds of ``case`` through both packages from JAX's
     initial weights, checked round by round.  Returns the port's last
     parameters, its state and its metrics."""
-    model, params = jax_model()
+    model, params = jax_model(case.arch)
     comp = JCompressor(**case.comp_kw())
     jstep = jax_step(case)
     mem = jax.tree.map(jnp.zeros_like, params)
