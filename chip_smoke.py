@@ -209,6 +209,31 @@ Phases, each fatal on failure (no phase catches and continues):
    exact, y within 1e-2 of max|y|); 2 trainer steps of the granite
    smoke on the card and on the CPU: equal bytes, losses within rel
    1e-5;
+4n. the hybrid family: flash attention's bf16 route at zamba2-7b's head
+   dim 112 (tiles zero-filled to 128 columns by TMA) against its plain
+   version at the prefill shape (4, 32, 2048, 112) causal and at 24 edge
+   cases (Sq < Sk, a window, off every tile edge) through strided (B, S,
+   H, D) views, within 1 bf16 ulp of the plain value plus 1e-5, its
+   ptxas line without spills, timed beside the plain version and
+   ``F.scaled_dot_product_attention``; the f32 route at D 112 in small
+   cases, atol 3e-5; RMSNorm in bf16 at (8192, 3584), (4, 3584), (8192,
+   7168) and (4, 7168) (the last two the wide body), within 1 bf16 ulp,
+   timed beside ``F.rms_norm``; zamba2-7b at full width and depth (81
+   Mamba2 layers, the shared block 13 times; 6.75 B parameters) through
+   ``serve.load`` and ``serve.generate``, batch 4, ctx 2048, 16 tokens:
+   exactly 13 flash-attention and 16 x 189 = 3,024 RMSNorm launches and
+   no other kernel, finite logits, prefill seconds, decode ms a step and
+   peak memory, one profiled warm prefill and decode step, and the SSD
+   scan alone at the prefill's shape; the trainer on zamba2-7b at full
+   width and 13 of its layers through ``train.run(..., n_layers=13)``
+   (seq 256, global batch 8, ``block_topk``, gamma 0.01) for 3 steps:
+   one ``ef_stats_telemetry`` and one ``ef_apply`` a step and the bucket
+   plan's ``pack_words`` / ``unpack_words``, no other kernel, finite
+   losses, the plan's bytes every step, bf16 parameters with ``A_log``,
+   ``D_skip`` and ``dt_bias`` f32, f32 EF memory, peak memory;
+   ``mamba2_block`` and ``ssd_chunked`` at the zamba2 smoke size and
+   ``ssm_chunk`` 16 on the card against the CPU, f32 within 1e-5 and bf16
+   within 1e-2 of max;
 5. run the 2-layer smoke variants on the card and on the CPU (the plain
    versions, which the CPU tests hold against the JAX package), through
    the trainer for 2 steps (``--opt csgd_asss``, ``nonadaptive``,
@@ -219,9 +244,11 @@ Phases, each fatal on failure (no phase catches and continues):
    --clients-per-round 3``, and on
    ``--transport perleaf --max-gamma 0.1``), through
    CSGD-ASSS for 3 and through serving
-   (qwen1.5-4b, rwkv6-1.6b and granite-moe-1b-a400m, ctx 96, 4 tokens),
-   and compare: equal
-   greedy tokens and logits within 1e-4 of max|logits| for serving;
+   (qwen1.5-4b, rwkv6-1.6b, granite-moe-1b-a400m and zamba2-7b, ctx 96,
+   4 tokens), and compare: equal
+   greedy tokens and logits within 1e-4 of max|logits| for serving; and
+   the zamba2 smoke (5 layers) through the trainer for 2 steps, equal
+   bytes and losses within rel 1e-5;
 6. print the kernels as one JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -230,6 +257,7 @@ when the repository's ``src/repro_torch`` is not beside it.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import statistics
@@ -331,6 +359,10 @@ MOE_ARCH, MOE_STEPS = "granite-moe-1b-a400m", 3
 MOE_ARGS = ["--arch", MOE_ARCH, "--compress-method", "block_topk",
             "--seq-len", "256", "--global-batch", "8", "--log-every", "1"]
 QWEN3_MOE, QWEN3_MOE_LAYERS, QWEN3_MOE_CTX = "qwen3-moe-30b-a3b", 12, 2048
+#: phase 4n: the hybrid family, zamba2-7b served at full depth at ctx
+#: 2048 and trained at full width on 13 of its 81 layers
+ZAMBA, ZAMBA_CTX, ZAMBA_LAYERS, ZAMBA_STEPS = "zamba2-7b", 2048, 13, 3
+ZAMBA_ARGS = ["--arch", ZAMBA] + MOE_ARGS[2:]
 
 
 def fail(msg: str) -> None:
@@ -360,7 +392,10 @@ def device_ms(fn, reps: int = 20, evict: bool = False) -> float:
     ``reps`` calls: without the host's time before each launch, which
     ``time_ms`` keeps (and a host-bound decode pays).  With ``evict`` a
     256 MB write before each call leaves none of its inputs in the 50 MB
-    L2; the write's own kernels are not counted."""
+    L2; the write's own kernels are not counted.  Fails when the
+    profiler records no device time at all: late in a whole run of this
+    script it has recorded none of the port's own launches of a timed
+    call (phase 4n therefore times with CUDA events alone)."""
     def profile(calls) -> dict:
         """Device microseconds by the profiler's key over ``reps`` calls."""
         with torch.profiler.profile(
@@ -378,8 +413,11 @@ def device_ms(fn, reps: int = 20, evict: bool = False) -> float:
         skip = {k for k, us in profile(flush).items() if us > 0}
     fn()
     torch.cuda.synchronize()
-    return sum(us for k, us in profile(lambda: (flush(), fn())).items()
-               if k not in skip) / reps / 1e3
+    total = sum(us for k, us in profile(lambda: (flush(), fn())).items()
+                if k not in skip)
+    if total <= 0:
+        fail("the profiler recorded no device time for a timed call")
+    return total / reps / 1e3
 
 
 def host_ms(fn, reps: int = 1000) -> float:
@@ -408,7 +446,7 @@ PORTED = ("ef_stats_telemetry_kernel", "ef_block_stats_kernel",
           "block_stats_kernel", "ef_apply_kernel", "threshold_split_kernel",
           "pack_words_kernel", "unpack_words_kernel",
           "flash_attention_kernel", "flash_attention_sm90_kernel",
-          "rmsnorm_kernel", "wkv_forward_kernel")
+          "rmsnorm_kernel", "rmsnorm_stream_kernel", "wkv_forward_kernel")
 
 
 def kernel_group(name: str) -> str:
@@ -2732,6 +2770,50 @@ def bf16_ulp_err(got: torch.Tensor, want: torch.Tensor, atol: float) -> float:
                  .max())
 
 
+def flash_edge_cases(bshd, cases) -> list[float]:
+    """Flash attention's bf16 route at each (B, H, Sq, Sk, D) of
+    ``cases``, causal or not, with and without a window of 64, through
+    the strided (B, H, S, D) views ``bshd`` draws: each case's error in
+    bf16 ulps of the plain value beyond 1e-5; fails above 1."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    errs = []
+    for (b, h, sq, sk, d) in cases:
+        qs, ks, vs = bshd(b, h, sq, d), bshd(b, h, sk, d), bshd(b, h, sk, d)
+        for causal in (True, False):
+            for window in (None, 64):
+                e = bf16_ulp_err(
+                    flash_attention(qs, ks, vs, causal=causal,
+                                    window=window),
+                    ref.mha_reference(qs, ks, vs, causal=causal,
+                                      window=window), 1e-5)
+                errs.append(e)
+                if not e <= 1:
+                    fail(f"flash_attention bf16 {(b, h, sq, sk, d)} causal="
+                         f"{causal} window={window} is {e} bf16 ulp (beyond"
+                         " 1e-5) from the plain version (limit 1)")
+    return errs
+
+
+def flash_f32_cases(randn, cases) -> list[float]:
+    """Flash attention's f32 route at each ((B, H, Sq, Sk, D), causal,
+    window) of ``cases``: each case's largest error; fails above 3e-5."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    errs = []
+    for (b, h, sq, sk, d), causal, window in cases:
+        qs = randn(b, h, sq, d, scale=0.5)
+        ks, vs = randn(b, h, sk, d, scale=0.5), randn(b, h, sk, d)
+        e = float((flash_attention(qs, ks, vs, causal=causal, window=window)
+                   - ref.mha_reference(qs, ks, vs, causal=causal,
+                                       window=window)).abs().max())
+        errs.append(e)
+        if not e <= 3e-5:
+            fail(f"flash_attention f32 {(b, h, sq, sk, d)} causal={causal} "
+                 f"window={window} is {e} from the plain version (3e-5)")
+    return errs
+
+
 def check_serving_kernels(dev, report) -> None:
     """Phase 3 for the serving kernels: each against its plain version on
     the card at the shapes serving gives it, timed beside its bound and,
@@ -2771,23 +2853,9 @@ def check_serving_kernels(dev, report) -> None:
     def bshd(b, h, s, d):
         return randn(b, s, h, d, dtype=torch.bfloat16).transpose(1, 2)
 
-    edge_ulps = []
-    for (b, h, sq, sk, d) in ((1, 2, 1, 70, 64), (2, 3, 100, 100, 64),
-                              (1, 2, 37, 150, 128), (2, 2, 300, 300, 32),
-                              (1, 4, 77, 333, 128)):
-        qs, ks, vs = bshd(b, h, sq, d), bshd(b, h, sk, d), bshd(b, h, sk, d)
-        for causal in (True, False):
-            for window in (None, 64):
-                e = bf16_ulp_err(
-                    flash_attention(qs, ks, vs, causal=causal,
-                                    window=window),
-                    ref.mha_reference(qs, ks, vs, causal=causal,
-                                      window=window), 1e-5)
-                edge_ulps.append(e)
-                if not e <= 1:
-                    fail(f"flash_attention bf16 {(b, h, sq, sk, d)} causal="
-                         f"{causal} window={window} is {e} bf16 ulp (beyond"
-                         " 1e-5) from the plain version (limit 1)")
+    edge_ulps = flash_edge_cases(bshd, (
+        (1, 2, 1, 70, 64), (2, 3, 100, 100, 64), (1, 2, 37, 150, 128),
+        (2, 2, 300, 300, 32), (1, 4, 77, 333, 128)))
     B, H, S, D = 4, 20, 2048, 128
     q, k, v = bshd(B, H, S, D), bshd(B, H, S, D), bshd(B, H, S, D)
     got = flash_attention(q, k, v, causal=True)
@@ -2800,22 +2868,10 @@ def check_serving_kernels(dev, report) -> None:
     print(f"flash_attention bf16: {len(edge_ulps)} edge cases within "
           f"{max(edge_ulps):.3f} bf16 ulp, (4, 20, 2048, 128) causal "
           f"{ulps:.3f}", flush=True)
-    small_errs = []
-    for (b, h, sq, sk, d), causal, window in (
-            ((2, 3, 300, 300, 128), True, 64),
-            ((2, 3, 300, 300, 64), False, None),
-            ((1, 4, 77, 333, 128), True, None),
-            ((2, 2, 150, 150, 32), True, None),
-            ((2, 2, 1, 150, 64), False, 64)):
-        qs = randn(b, h, sq, d, scale=0.5)
-        ks, vs = randn(b, h, sk, d, scale=0.5), randn(b, h, sk, d)
-        e = float((flash_attention(qs, ks, vs, causal=causal, window=window)
-                   - ref.mha_reference(qs, ks, vs, causal=causal,
-                                       window=window)).abs().max())
-        small_errs.append(e)
-        if not e <= 3e-5:
-            fail(f"flash_attention f32 {(b, h, sq, sk, d)} causal={causal} "
-                 f"window={window} is {e} from the plain version (3e-5)")
+    small_errs = flash_f32_cases(randn, (
+        ((2, 3, 300, 300, 128), True, 64), ((2, 3, 300, 300, 64), False, None),
+        ((1, 4, 77, 333, 128), True, None), ((2, 2, 150, 150, 32), True, None),
+        ((2, 2, 1, 150, 64), False, 64)))
     pairs = B * H * S * (S + 1) // 2
     qf, kf, vf = q.float(), k.float(), v.float()
     f32_ms = time_ms(lambda: flash_attention(qf, kf, vf, causal=True), reps=5)
@@ -2982,10 +3038,10 @@ def run_serving(dev) -> tuple[dict, dict]:
 
 
 def serve_smoke(dev) -> None:
-    """Phase 5c: both smoke serve configs on the card (kernels) and on the
+    """Phase 5c: the smoke serve configs on the card (kernels) and on the
     CPU (plain versions): equal tokens, logits within 1e-4 of max."""
     from repro_torch.launch import serve
-    for arch, _, _, _ in SERVE_RUNS:
+    for arch in [a for a, _, _, _ in SERVE_RUNS] + [ZAMBA]:
         args = ["--arch", arch, "--smoke", "--batch", "2", "--ctx", "96",
                 "--gen", "4"]
         card, cpu = serve.main(args), serve.main(args + ["--device", "cpu"])
@@ -3165,7 +3221,6 @@ def moe_card_vs_cpu(dev) -> None:
     against the CPU in f32 and bf16 (routes exact), and 2 trainer steps
     of the granite smoke on both (bytes equal, losses rel 1e-5)."""
     from repro_torch.configs import get_smoke_config
-    from repro_torch.launch import train
     from repro_torch.models import moe
     cfg = get_smoke_config(MOE_ARCH)
     gen = torch.Generator().manual_seed(0)
@@ -3196,19 +3251,325 @@ def moe_card_vs_cpu(dev) -> None:
         print(f"moe_block {dtype} granite smoke card vs cpu: routes equal "
               f"(least top-k gap {gap:.3e}), y max diff {err:.3e} (limit "
               f"{lim:.3e}), aux {float(gaux)} vs {float(waux)}", flush=True)
-    small = ["--arch", MOE_ARCH, "--smoke", "--steps", "2", "--seq-len",
-             "33", "--global-batch", "4", "--compress-method", "block_topk",
+    smoke_trainer_card_vs_cpu(MOE_ARCH)
+
+
+def smoke_trainer_card_vs_cpu(arch: str) -> None:
+    """2 trainer steps of ``arch``'s smoke variant on the card and on the
+    CPU: equal bytes, losses within rel 1e-5."""
+    from repro_torch.launch import train
+    small = ["--arch", arch, "--smoke", "--steps", "2", "--seq-len", "33",
+             "--global-batch", "4", "--compress-method", "block_topk",
              "--log-every", "1"]
     on_card = train.main(small)
     on_cpu = train.main(small + ["--device", "cpu"])
     for a, b in zip(on_card, on_cpu):
         if abs(a["loss"] - b["loss"]) > 1e-5 * abs(b["loss"]) or \
                 a["wire_bytes"] != b["wire_bytes"]:
-            fail(f"{MOE_ARCH} smoke trainer on the card {a} disagrees "
-                 f"with the CPU {b}")
-    print(f"{MOE_ARCH} smoke trainer card vs cpu: losses "
+            fail(f"{arch} smoke trainer on the card {a} disagrees with the "
+                 f"CPU {b}")
+    print(f"{arch} smoke trainer card vs cpu: losses "
           f"{[x['loss'] for x in on_card]} vs {[x['loss'] for x in on_cpu]}"
           f", bytes {[x['wire_bytes'] for x in on_card]}", flush=True)
+
+
+def check_hybrid_kernels(dev) -> dict:
+    """Phase 4n: flash attention at zamba2-7b's head dim 112 (bf16 route
+    at the prefill shape and at edge cases through strided views, its
+    ptxas line; f32 route at small cases) and RMSNorm at d_model 3584
+    and d_in 7168 (the wide body), each against its plain version and
+    timed beside it and the library call."""
+    import torch.nn.functional as F_
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    entry = [e for e in ptxas_entries("flash_attention_sm90",
+                                      ["flash_attention_sm90_kernel"])
+             if e[0].endswith(" 112")]
+    if len(entry) != 1 or entry[0][2]:
+        fail(f"csrc/flash_attention_sm90.cu: the D 112 instance is missing "
+             f"or spills: {entry}")
+    smem = _build.load("flash_attention_sm90").flash_attention_sm90_smem_bytes
+    print(f"ptxas {entry[0][0]}: {entry[0][1]} registers, {smem(112)} bytes "
+          "of dynamic shared memory, no spills", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(13)
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(dtype)
+
+    def bshd(b, h, s, d):
+        return randn(b, s, h, d, dtype=torch.bfloat16).transpose(1, 2)
+
+    D = 112
+    edge = flash_edge_cases(bshd, [
+        (b, h, sq, sk, D) for b, h, sq, sk in (
+            (1, 2, 1, 70), (2, 3, 100, 100), (1, 2, 37, 150),
+            (2, 2, 300, 300), (1, 4, 77, 333), (1, 2, 129, 129))])
+    B, H, S = SERVE_BATCH, 32, ZAMBA_CTX
+    q, k, v = bshd(B, H, S, D), bshd(B, H, S, D), bshd(B, H, S, D)
+    got = flash_attention(q, k, v, causal=True)
+    want = ref.mha_reference(q, k, v, causal=True)
+    ulps = bf16_ulp_err(got, want, 1e-5)
+    err = float((got.float() - want.float()).abs().max())
+    if not ulps <= 1:
+        fail(f"flash_attention ({B}, {H}, {S}, {D}) bf16 is {ulps} bf16 ulp "
+             "(beyond 1e-5) from the plain version (limit 1)")
+    del got, want
+    ms = time_ms(lambda: flash_attention(q, k, v, causal=True))
+    plain = time_ms(lambda: ref.mha_reference(q, k, v, causal=True),
+                    reps=5, warmup=1)
+    lib = time_ms(lambda: F_.scaled_dot_product_attention(
+        q, k, v, is_causal=True))
+    pairs = B * H * S * (S + 1) // 2
+    ops_ms = 4 * D * pairs / BF16_OPS_PER_S * 1e3
+    byte_ms = 4 * B * H * S * D * 2 / HBM_BYTES_PER_S * 1e3
+    flash = dict(ulps=ulps, max_abs_err=err, ms=ms, plain_ms=plain,
+                 library_ms=lib, bound_ms=max(ops_ms, byte_ms),
+                 bound_by="operations" if ops_ms >= byte_ms else "bytes")
+    print(f"flash_attention bf16 D 112: {len(edge)} edge cases within "
+          f"{max(edge):.3f} bf16 ulp; ({B}, {H}, {S}, {D}) causal "
+          f"{ulps:.3f} ulp (max err {err:.3e}), {ms:.4f} ms, plain "
+          f"{plain:.4f} ms, library {lib:.4f} ms, bound "
+          f"{flash['bound_ms']:.4f} ms by {flash['bound_by']}", flush=True)
+    del q, k, v
+    small = flash_f32_cases(randn, (
+        ((2, 3, 300, 300, D), True, 64), ((2, 3, 300, 300, D), False, None),
+        ((1, 4, 77, 333, D), True, None), ((2, 2, 1, 150, D), False, 64)))
+    print(f"flash_attention f32 D 112: {len(small)} cases within "
+          f"{max(small):.2e} (atol 3e-5)", flush=True)
+
+    norms = {}
+    for rows, d in ((8192, 3584), (4, 3584), (8192, 7168), (4, 7168)):
+        x, w = randn(rows, d, dtype=torch.bfloat16), \
+            randn(d, dtype=torch.bfloat16)
+        u = bf16_ulps(rmsnorm(x, w, 1e-5), ref.rmsnorm_reference(x, w, 1e-5))
+        if u > 1:
+            fail(f"rmsnorm ({rows}, {d}) bf16 is {u} bf16 ulp from the plain "
+                 "version (limit 1)")
+        r = dict(ulps=u, ms=time_ms(lambda: rmsnorm(x, w, 1e-5)),
+                 plain_ms=time_ms(lambda: ref.rmsnorm_reference(x, w, 1e-5)),
+                 library_ms=time_ms(lambda: F_.rms_norm(x, (d,), w, 1e-5)),
+                 bound_ms=(2 * rows * d * 2 + d * 2) / HBM_BYTES_PER_S * 1e3)
+        norms[f"{rows}x{d}"] = r
+        print(f"rmsnorm ({rows}, {d}) bf16: {u} ulp; {r['ms']:.4f} ms, "
+              f"plain {r['plain_ms']:.4f} ms, F.rms_norm "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
+              "bytes", flush=True)
+    return dict(flash_d112=flash, rmsnorm=norms)
+
+
+def hybrid_serving(dev) -> dict:
+    """Phase 4n: zamba2-7b at full width and depth (81 Mamba2 layers and
+    13 invocations of the shared block) through the serving launcher's
+    load and generate, counts set to 0 just before; then one profiled
+    warm prefill and decode step, and the SSD scan alone at the
+    prefill's shape."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import ssm
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model, params, prompt = serve.load(ZAMBA, False, SERVE_BATCH, ZAMBA_CTX,
+                                       dev)
+    cfg = model.cfg
+    leaves = tree_leaves(params)
+    n_params = sum(p.numel() for p in leaves)
+    n_bytes = sum(p.numel() * p.element_size() for p in leaves)
+    init_peak = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    res = serve.generate(model, params, prompt, SERVE_GEN)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    groups, tail = divmod(cfg.n_layers, cfg.shared_attn_every)
+    per_forward = 2 * cfg.n_layers + 2 * groups + 1
+    want = dict(flash_attention=groups, rmsnorm=per_forward * SERVE_GEN)
+    print(f"serve [{ZAMBA}, {cfg.n_layers} layers: {groups} groups of "
+          f"{cfg.shared_attn_every} and {tail} tail, {n_params} parameters, "
+          f"{n_bytes} B]: launches {counts}; prefill {res['prefill_s']:.4f} "
+          f"s, decode {res['decode_ms_per_step']:.3f} ms/step "
+          f"({res['decode_tokens_per_s']:.1f} tokens/s); peak memory "
+          f"{peak / 2**30:.2f} GiB serving, {init_peak / 2**30:.2f} GiB at "
+          "init", flush=True)
+    for name, n in counts.items():
+        if n != want.get(name, 0):
+            fail(f"[serve {ZAMBA}] {name} launched {n} times, want "
+                 f"{want.get(name, 0)}")
+    if tuple(res["tokens"].shape) != (SERVE_BATCH, SERVE_GEN) \
+            or not torch.isfinite(res["logits"]).all():
+        fail(f"[serve {ZAMBA}] tokens {tuple(res['tokens'].shape)} or "
+             "non-finite logits")
+    out = dict(params=n_params, param_bytes=n_bytes,
+               prefill_s=res["prefill_s"],
+               decode_ms_per_step=res["decode_ms_per_step"],
+               peak_bytes=peak, init_peak_bytes=init_peak)
+    del res
+    traced = ("flash_attention_sm90_kernel", "rmsnorm_kernel",
+              "rmsnorm_stream_kernel")
+    with torch.inference_mode():
+        holder = {}
+        prof, wall = profiled(dev, lambda: holder.update(out=model.prefill(
+            params, {"tokens": prompt}, capacity=ZAMBA_CTX + SERVE_GEN)))
+        report_profile(f"{ZAMBA} prefill", prof, wall, traced)
+        logits, cache = holder.pop("out")
+        tok = logits[:, -1:, :cfg.vocab_size].argmax(-1)
+        model.decode_step(params, tok, cache, ZAMBA_CTX)      # warm
+        prof, wall = profiled(dev, lambda: model.decode_step(
+            params, tok, cache, ZAMBA_CTX + 1))
+        report_profile(f"{ZAMBA} decode", prof, wall, traced[1:])
+        del logits, cache, holder
+        # the SSD scan alone at the prefill's shape: its share of prefill
+        d_in, nh, n, hd = ssm._dims(cfg)
+        gen = torch.Generator(device=dev).manual_seed(17)
+        x = torch.randn((SERVE_BATCH, ZAMBA_CTX, nh, hd), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        dt = torch.rand((SERVE_BATCH, ZAMBA_CTX, nh), generator=gen,
+                        device=dev) * 0.1
+        A = -torch.linspace(1.0, 16.0, nh, device=dev)
+        bm, cm = (torch.randn((SERVE_BATCH, ZAMBA_CTX, n), generator=gen,
+                              device=dev).to(torch.bfloat16)
+                  for _ in range(2))
+        ssd = time_ms(lambda: ssm.ssd_chunked(x, dt, A, bm, cm,
+                                              cfg.ssm_chunk), reps=5)
+        del x, dt, bm, cm
+    out["ssd_ms_per_layer"] = ssd
+    print(f"ssd_chunked at ({SERVE_BATCH}, {ZAMBA_CTX}, {nh}, {hd}), state "
+          f"{n}, chunk {cfg.ssm_chunk}: {ssd:.4f} ms a layer, "
+          f"{ssd * cfg.n_layers:.2f} ms for {cfg.n_layers} layers "
+          f"({ssd * cfg.n_layers / 1e3 / out['prefill_s']:.3f} of the "
+          "prefill's seconds)", flush=True)
+    del model, params, prompt
+    torch.cuda.empty_cache()
+    return out
+
+
+def hybrid_trainer(dev) -> dict:
+    """Phase 4n: DCSGD-ASSS on zamba2-7b at full width and 13 of its 81
+    layers (2 groups of 6 and 1 tail layer); the launches of pack_words /
+    unpack_words from the bucket plan, worked out before the run."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.comm.bucket import build_bucket_plan
+    from repro_torch.configs import get_config
+    from repro_torch.core.compression import Compressor
+    from repro_torch.core.leafmath import plan_wire_bytes
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.utils import tree_flatten, tree_map_with_path
+    comp = Compressor(gamma=0.01, method="block_topk")
+    cfg = dataclasses.replace(get_config(ZAMBA), n_layers=ZAMBA_LAYERS)
+    with FakeTensorMode():
+        fake = lm.init_params(cfg)
+        shapes = [tuple(x.shape) for x in tree_leaves(fake)]
+        stacked = tree_flatten(lm.stacked_mask(fake))[0]
+    plan = build_bucket_plan(shapes, stacked, comp)
+    codec = sum((b.index_bits < 32) + (comp.value_bits < 32)
+                for b in plan.buckets)
+    per_step = dict(ef_stats_telemetry=1, ef_apply=1, pack_words=codec,
+                    unpack_words=codec)
+    # the metric is JAX's f32 sum over the leaves in tree order: it reads
+    # 84,897,664 where the exact count is 84,897,672
+    exact = step_wire_bytes(shapes, stacked, comp)
+    want_bytes = float(plan_wire_bytes(plan, comp)[0])
+    n_params = sum(int(np.prod(s)) for s in shapes)
+    print(f"trainer [{ZAMBA}, {ZAMBA_LAYERS} layers, {n_params} parameters]"
+          f" plan: {len(plan.leaves)} leaves, rows "
+          f"{sorted({ln.L for ln in plan.leaves})}, buckets "
+          f"{[(b.index_bits, len(b.leaf_ids)) for b in plan.buckets]}, "
+          f"{plan.total_words} payload words, {exact} B a step (the f32 "
+          f"metric {want_bytes}); launches a step {per_step}", flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    log, params, state = train.run(
+        ZAMBA_ARGS + ["--steps", str(ZAMBA_STEPS)], n_layers=ZAMBA_LAYERS)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"trainer [{ZAMBA}]: launches {counts}; loss "
+          f"{[x['loss'] for x in log]}; alpha {[x['alpha'] for x in log]};"
+          f" n_evals {[x['n_evals'] for x in log]}; step_s "
+          f"{[round(x['step_s'], 4) for x in log]}; wire bytes "
+          f"{[x['wire_bytes'] for x in log]}; peak memory "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    for name, n in counts.items():
+        if n != per_step.get(name, 0) * ZAMBA_STEPS:
+            fail(f"[{ZAMBA} trainer] {name} launched {n} times in "
+                 f"{ZAMBA_STEPS} steps, want "
+                 f"{per_step.get(name, 0) * ZAMBA_STEPS}")
+    if not all(np.isfinite(x["loss"]) for x in log):
+        fail(f"[{ZAMBA} trainer] non-finite loss")
+    if any(x["wire_bytes"] != want_bytes for x in log) \
+            or any(x["steps_skipped"] for x in log):
+        fail(f"[{ZAMBA} trainer] wire bytes {[x['wire_bytes'] for x in log]}"
+             f" != {want_bytes}, or a step was skipped")
+    f32_leaves = ("A_log", "D_skip", "dt_bias")
+    wrong = [p for p, ok in tree_leaves(tree_map_with_path(
+        lambda path, x: (path, x.dtype == (torch.float32 if path[-1] in
+                                           f32_leaves else torch.bfloat16)),
+        params)) if not ok]
+    memory = {m.dtype for m in tree_leaves(state.memory)}
+    if wrong or memory != {torch.float32}:
+        fail(f"[{ZAMBA} trainer] leaves of the wrong dtype {wrong} (want "
+             f"bf16, {f32_leaves} f32) or EF memory {memory} (want f32)")
+    del params, state
+    torch.cuda.empty_cache()
+    return dict(layers=ZAMBA_LAYERS, params=n_params,
+                steps_s=[x["step_s"] for x in log],
+                loss=[x["loss"] for x in log], peak_bytes=peak,
+                wire_bytes=want_bytes)
+
+
+def hybrid_card_vs_cpu(dev) -> None:
+    """Phase 4n: ``mamba2_block`` and ``ssd_chunked`` at the zamba2 smoke
+    size with ``ssm_chunk`` 16 (6 chunks of 96 positions) on the card
+    against the CPU: f32 within 1e-5 of max|y|, bf16 within 1e-2."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import ssm
+    from repro_torch.utils import tree_map
+    gen = torch.Generator().manual_seed(0)
+    L = 96
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+        name = str(dtype).removeprefix("torch.")
+        cfg = dataclasses.replace(get_smoke_config(ZAMBA), ssm_chunk=16,
+                                  param_dtype=name, compute_dtype=name,
+                                  use_pallas=True)
+        p = ssm.init_mamba2(torch.Generator().manual_seed(1), cfg, dtype)
+        p["conv_b"] = 0.1 * torch.randn(p["conv_b"].shape, generator=gen) \
+            .to(dtype)
+        p["dt_bias"] = 0.1 * torch.randn(p["dt_bias"].shape, generator=gen)
+        x = torch.randn((2, L, cfg.d_model), generator=gen).to(dtype)
+        want, wst = ssm.mamba2_block(p, x, cfg, return_state=True)
+        got, gst = ssm.mamba2_block(tree_map(lambda t: t.to(dev), p),
+                                    x.to(dev), cfg, return_state=True)
+        errs = []
+        for g, w in ((got, want), (gst.conv, wst.conv), (gst.ssm, wst.ssm)):
+            e = float((g.float().cpu() - w.float()).abs().max())
+            lim = tol * float(w.float().abs().max())
+            errs.append(e)
+            if not e <= lim:
+                fail(f"mamba2_block {name} on the card is {e} from the CPU "
+                     f"(limit {lim})")
+        d_in, nh, n, hd = ssm._dims(cfg)
+        xs = torch.randn((2, L, nh, hd), generator=gen).to(dtype)
+        dt = torch.rand((2, L, nh), generator=gen) * 0.5
+        A = -torch.linspace(1.0, 16.0, nh)
+        bm, cm = (torch.randn((2, L, n), generator=gen).to(dtype)
+                  for _ in range(2))
+        wy, ws = ssm.ssd_chunked(xs, dt, A, bm, cm, cfg.ssm_chunk)
+        gy, gs = ssm.ssd_chunked(*(t.to(dev) for t in (xs, dt, A, bm, cm)),
+                                 cfg.ssm_chunk)
+        for g, w in ((gy, wy), (gs, ws)):
+            e = float((g.cpu() - w).abs().max())
+            lim = tol * float(w.abs().max())
+            errs.append(e)
+            if not e <= lim:
+                fail(f"ssd_chunked {name} on the card is {e} from the CPU "
+                     f"(limit {lim})")
+        print(f"mamba2_block / ssd_chunked {name} zamba2 smoke, chunk 16, "
+              f"card vs cpu: max diffs {[f'{e:.3e}' for e in errs]} "
+              f"(y, conv, state; ssd y, state; limit {tol} of each max)",
+              flush=True)
 
 
 def main() -> None:
@@ -3473,6 +3834,12 @@ def main() -> None:
     moe_summary = moe_trainer(dev)
     moe_card_vs_cpu(dev)
 
+    # ---- 4n. the hybrid family: flash at D 112, zamba2-7b ---------------
+    hybrid_summary = check_hybrid_kernels(dev)
+    hybrid_summary["serve"] = hybrid_serving(dev)
+    hybrid_summary["trainer"] = hybrid_trainer(dev)
+    hybrid_card_vs_cpu(dev)
+
     # ---- 5. small input: the card against the CPU's plain path ----------
     small = ["--smoke", "--steps", "2", "--seq-len", "33", "--global-batch",
              "4", "--compress-method", "block_topk", "--log-every", "1"]
@@ -3519,6 +3886,7 @@ def main() -> None:
           f"{[x['loss'] for x in on_card]} vs {[x['loss'] for x in on_cpu]},"
           f" effective bytes {[x['effective_wire_bytes'] for x in on_card]}",
           flush=True)
+    smoke_trainer_card_vs_cpu(ZAMBA)
     csgd_smoke(dev)
     serve_smoke(dev)
 
@@ -3550,6 +3918,7 @@ def main() -> None:
           + json.dumps(fault_summary), flush=True)
     print("cohort summary: " + json.dumps(cohort_summary), flush=True)
     print("moe summary: " + json.dumps(moe_summary), flush=True)
+    print("hybrid summary: " + json.dumps(hybrid_summary), flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

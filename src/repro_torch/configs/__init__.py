@@ -2,10 +2,11 @@
 from .base import ModelConfig, OptimizerConfig, RunConfig, ShapeConfig, \
     smoke_variant
 from . import (granite_moe_1b_a400m, llama3_405b, qwen1_5_32b, qwen1_5_4b,
-               qwen3_moe_30b_a3b, rwkv6_1_6b, yi_34b)
+               qwen3_moe_30b_a3b, rwkv6_1_6b, yi_34b, zamba2_7b)
 from .paper_models import LM_100M_CONFIG
 
 ARCH_CONFIGS = {
+    "zamba2-7b": zamba2_7b.CONFIG,
     "llama3-405b": llama3_405b.CONFIG,
     "qwen1.5-32b": qwen1_5_32b.CONFIG,
     "granite-moe-1b-a400m": granite_moe_1b_a400m.CONFIG,

@@ -1,7 +1,6 @@
 """Config system (twin of ``src/repro/configs/base.py``): the fields the
-training paths of the dense and MoE LMs (the federated cohort's
-included) and the serving paths of the dense and MoE LMs and RWKV-6
-read."""
+training and serving paths of the dense, MoE, SSM (Mamba2 and RWKV-6)
+and hybrid (Zamba2) LMs read, the federated cohort's included."""
 from __future__ import annotations
 
 import dataclasses
@@ -17,7 +16,7 @@ from repro_torch.core.gamma import GammaControllerConfig
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                   # dense | moe | ssm (RWKV-6 only, by name)
+    family: str                   # dense | moe | ssm | hybrid
     n_layers: int
     d_model: int
     n_heads: int
@@ -38,6 +37,14 @@ class ModelConfig:
     # JAX's expert-parallel shard_map needs a ``model`` mesh axis, which
     # comes with sharding.py: only the default is accepted
     moe_expert_parallel: bool = False
+    # --- SSM (Mamba2) ---
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_conv: int = 4
+    ssm_chunk: int = 256
+    # --- hybrid (zamba2) ---
+    shared_attn_every: int = 0    # >0: tied attn block every k ssm layers
     rwkv_lora_rank: int = 64
     sliding_window: int = 0       # 0 = full attention
     # the int8 KV cache and rematerialisation are not ported: only the
@@ -54,11 +61,10 @@ class ModelConfig:
     citation: str = ""
 
     def __post_init__(self):
-        if not (self.family in ("dense", "moe")
-                or (self.family == "ssm" and self.name.startswith("rwkv"))):
+        if self.family not in ("dense", "moe", "ssm", "hybrid"):
             raise ValueError(f"model family {self.family!r} of "
                              f"{self.name!r} is not ported (the port has "
-                             "'dense', 'moe' and the RWKV-6 'ssm' models)")
+                             "'dense', 'moe', 'ssm' and 'hybrid')")
         if self.moe_expert_parallel:
             raise ValueError(
                 "moe_expert_parallel=True: the expert-parallel shard_map "
@@ -440,8 +446,10 @@ def check_cohort(opt: OptimizerConfig, W: int) -> None:
 def smoke_variant(cfg: ModelConfig) -> ModelConfig:
     """Reduced same-family config for CPU tests: 2 layers, d_model 128,
     query chunks of 64, LoRA rank 8 for RWKV, 4 experts top-2 of width 64
-    at capacity factor 2 (E/k: C = T, drop-free) for MoE (JAX's
-    ``smoke_variant`` less the fields the port does not read)."""
+    at capacity factor 2 (E/k: C = T, drop-free) for MoE, SSM state 16
+    and SSM heads of 32 for Mamba2, 5 layers with the shared block every
+    2 for the hybrid (JAX's ``smoke_variant`` less the fields the port
+    does not read)."""
     kw = dict(n_layers=2, d_model=128, n_heads=4,
               n_kv_heads=min(cfg.n_kv_heads, 4) if cfg.n_kv_heads else 0,
               d_ff=256, vocab_size=512, head_dim=32, param_dtype="float32",
@@ -449,6 +457,10 @@ def smoke_variant(cfg: ModelConfig) -> ModelConfig:
     if cfg.family == "moe":
         kw.update(n_experts=4, experts_per_token=2, moe_d_ff=64,
                   capacity_factor=2.0)
+    if cfg.family in ("ssm", "hybrid"):
+        kw.update(ssm_state=16, ssm_head_dim=32)
+    if cfg.family == "hybrid":
+        kw.update(n_layers=5, shared_attn_every=2)
     if cfg.name.startswith("rwkv"):
         kw.update(rwkv_lora_rank=8)
     if cfg.sliding_window:

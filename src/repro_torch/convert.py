@@ -11,8 +11,9 @@ bf16 leaves: ``np.asarray`` of a JAX bf16 array has the ``ml_dtypes``
 bfloat16 dtype, which ``torch.from_numpy`` refuses; such a leaf is
 recognised by its dtype's name and carried over as its 16-bit pattern
 (``.view(np.uint16)``, then ``.view(torch.bfloat16)``), bits unchanged.
-The serving caches (``DecodeCache``, ``KVCache``, ``RWKVState``) become
-the port's named tuples of the same name and fields.  An MoE tree
+The serving caches (``DecodeCache``, ``KVCache``, ``RWKVState``,
+``SSMState``) become the port's named tuples of the same name and fields
+(a hybrid's ``tail_ssm`` included).  An MoE tree
 carries over leaf by leaf like any other: its f32 router beside bf16 or
 f32 experts.
 """
@@ -46,15 +47,16 @@ def to_torch(tree, device="cpu"):
     return torch.from_numpy(np.array(arr, copy=True)).to(device)
 
 
-_CACHES = ("DecodeCache", "KVCache", "RWKVState")
+_CACHES = ("DecodeCache", "KVCache", "RWKVState", "SSMState")
 
 
 def _cache_twin(tree, device):
     """A JAX cache named tuple -> the port's twin, field by field (the
     port's KVCache has no int8 scales: the int8 cache is not ported)."""
-    from repro_torch.models import attention, lm, rwkv
+    from repro_torch.models import attention, lm, rwkv, ssm
     cls = {"DecodeCache": lm.DecodeCache, "KVCache": attention.KVCache,
-           "RWKVState": rwkv.RWKVState}[type(tree).__name__]
+           "RWKVState": rwkv.RWKVState,
+           "SSMState": ssm.SSMState}[type(tree).__name__]
     extra = [f for f in tree._fields if f not in cls._fields
              and not (isinstance(getattr(tree, f), tuple)
                       and not getattr(tree, f))]

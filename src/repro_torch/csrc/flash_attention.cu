@@ -212,6 +212,9 @@ int launch_d(int d, const void* q, const void* k, const void* v, void* o,
     case 64:
       return launch<T, 64>(q, k, v, o, st, batch, n_heads, sq, sk, scale,
                            causal, window, stream);
+    case 112:
+      return launch<T, 112>(q, k, v, o, st, batch, n_heads, sq, sk, scale,
+                            causal, window, stream);
     case 128:
       return launch<T, 128>(q, k, v, o, st, batch, n_heads, sq, sk, scale,
                             causal, window, stream);
@@ -226,7 +229,7 @@ extern "C" {
 
 // q, o: (B, H, Sq, D); k, v: (B, H, Sk, D); strides: 12 element strides,
 // (b, h, s) of q, k, v and o in turn (the last axis contiguous).  D is
-// 32, 64 or 128; window 0 means no window.  All four are f32.
+// 32, 64, 112 or 128; window 0 means no window.  All four are f32.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, const long long* strides, int batch,
                            int n_heads, int sq, int sk, int d, float scale,

@@ -42,7 +42,14 @@
 //     model's transposed (B, S, H, D) views as they are), so a box never
 //     runs past Sk into the next head: TMA zero-fills the ragged edge.
 //     A box is one 128-byte swizzle row wide (64 values; D 128 takes two
-//     boxes a tile) or, at D 32, one 64-byte row.  A batch or head axis
+//     boxes a tile) or, at D 32, one 64-byte row.  D 112 (zamba2-7b's
+//     heads) takes the D 128 layout: the maps declare the real 112
+//     columns, so TMA zero-fills columns 112-127 of the second box of
+//     every Q, K and V tile.  S = Q K^T then runs over 7 k16 steps
+//     (the padded columns would add zeros), O += P V at n128 (1.14x
+//     the tensor work of a true n112, whose MN-major V operand would
+//     end inside a 128-byte swizzle atom), and the zero columns 112-127
+//     of O are never stored.  A batch or head axis
 //     of size 1 or stride 0 (a broadcast view) is described with size 1
 //     and read at coordinate 0, so every view the wrapper accepts takes
 //     TMA; none takes another route.
@@ -91,9 +98,10 @@ template <int D>
 struct Layout {
   static constexpr int kCols = D < 64 ? D : 64;   // values a swizzle row
   static constexpr int kRowBytes = kCols * 2;     // 128 or 64
-  static constexpr int kBoxes = D / kCols;        // boxes across D
+  static constexpr int kBoxes = (D + kCols - 1) / kCols;   // boxes across D
+  static constexpr int kPadD = kBoxes * kCols;    // D, or 128 at D 112
   static constexpr int kBoxBytes = 64 * kRowBytes;   // 64 rows of a box
-  static constexpr int kTile = 64 * D * 2;        // 64 rows of D values
+  static constexpr int kTile = 64 * kPadD * 2;    // 64 rows of kPadD values
   // wgmma descriptor layout type: 1 = 128-byte swizzle, 2 = 64-byte
   static constexpr int kSwizzle = kRowBytes == 128 ? 1 : 2;
   // shared memory: Q (two warpgroups' tiles), then K and V per stage,
@@ -282,12 +290,13 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
+// O += P V at n = PD, the padded head dimension (Layout::kPadD)
+template <int PD>
+__device__ __forceinline__ void wgmma_pv(float (&o)[PD / 2],
                                          const uint32_t (&a)[4],
                                          uint64_t db) {
-  if constexpr (D == 128) wgmma_rs_n128(o, a, db);
-  else if constexpr (D == 64) wgmma_rs_n64(o, a, db);
+  if constexpr (PD == 128) wgmma_rs_n128(o, a, db);
+  else if constexpr (PD == 64) wgmma_rs_n64(o, a, db);
   else wgmma_rs_n32(o, a, db);
 }
 
@@ -379,9 +388,10 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   const int col = 2 * (lane & 3);                  // within 8 columns
   const uint32_t q_tile = base + L::kQ + wg * L::kTile;
 
-  float acc[D / 2], s[32];
+  constexpr int kAcc = L::kPadD / 2;              // O's f32 accumulators
+  float acc[kAcc], s[32];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < 32; ++i) s[i] = 0.f;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
@@ -395,7 +405,8 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                       !(window > 0 && kv0 + kBK - 1 <= wg_first - window);
     if (live) {                      // uniform across the warpgroup
       const uint32_t kd = k_tile(stage), vd = kd + L::kTile;
-      // S = Q K^T over D in steps of 16
+      // S = Q K^T over D in steps of 16 (the zero-filled columns past D
+      // are not read)
       fence_regs(s);
       wgmma_fence();
 #pragma unroll
@@ -458,7 +469,7 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       l0 = l0 * a0 + ps0;            // this thread's columns; the quad's
       l1 = l1 * a1 + ps1;            // partial sums are added at the end
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc[i] *= (i & 2) ? a1 : a0;
+      for (int i = 0; i < kAcc; ++i) acc[i] *= (i & 2) ? a1 : a0;
 
       // O += [P_hi | P_lo] [V; V], 16 keys a step
       fence_regs(acc);
@@ -473,8 +484,8 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                                 p_hi[4 * t + 2], p_hi[4 * t + 3]};
         const uint32_t al[4] = {p_lo[4 * t], p_lo[4 * t + 1],
                                 p_lo[4 * t + 2], p_lo[4 * t + 3]};
-        wgmma_pv<D>(acc, ah, dv);
-        wgmma_pv<D>(acc, al, dv);
+        wgmma_pv<L::kPadD>(acc, ah, dv);
+        wgmma_pv<L::kPadD>(acc, al, dv);
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -491,7 +502,7 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
   __nv_bfloat16* ob = o + b * os.b + h * os.h + col;
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
+  for (int j = 0; j < D / 8; ++j) {      // the columns past D stay unstored
     if (qrow0 < sq)
       *reinterpret_cast<__nv_bfloat162*>(ob + qrow0 * os.s + 8 * j) =
           __floats2bfloat162_rn(acc[4 * j] / d0, acc[4 * j + 1] / d0);
@@ -592,8 +603,8 @@ extern "C" {
 
 // bf16 q, o: (B, H, Sq, D); k, v: (B, H, Sk, D); strides: 12 element
 // strides, (b, h, s) of q, k, v and o in turn (the last axis contiguous,
-// every stride a multiple of 8, every base 16-byte aligned).  D is 32, 64
-// or 128; window 0 means no window.
+// every stride a multiple of 8, every base 16-byte aligned).  D is 32, 64,
+// 112 or 128; window 0 means no window.
 int flash_attention_sm90_launch(const void* q, const void* k, const void* v,
                                 void* o, const long long* strides, int batch,
                                 int n_heads, int sq, int sk, int d,
@@ -608,6 +619,9 @@ int flash_attention_sm90_launch(const void* q, const void* k, const void* v,
     case 64:
       return launch<64>(q, k, v, o, strides, batch, n_heads, sq, sk, scale,
                         causal, window, s);
+    case 112:
+      return launch<112>(q, k, v, o, strides, batch, n_heads, sq, sk, scale,
+                         causal, window, s);
     case 128:
       return launch<128>(q, k, v, o, strides, batch, n_heads, sq, sk, scale,
                          causal, window, s);
@@ -619,7 +633,7 @@ int flash_attention_sm90_launch(const void* q, const void* k, const void* v,
 // The dynamic shared memory one block takes at head dimension d.
 int flash_attention_sm90_smem_bytes(int d) {
   return d == 32 ? Layout<32>::kSmem : d == 64 ? Layout<64>::kSmem
-                                                : Layout<128>::kSmem;
+         : d == 112 ? Layout<112>::kSmem : Layout<128>::kSmem;
 }
 
 }  // extern "C"

@@ -11,11 +11,13 @@ before them).  Both count in ``flash_attention.launches``; a failure to
 build or launch either raises, with no fallback.  The kernels read q, k
 and v through their strides, so the transposed (B, S, H, D) views the
 model hands over are taken as they are, without a copy; only the last
-axis must be contiguous.  The output is allocated in the (B, Sq, H, D)
-layout and returned as its (B, H, Sq, D) view, so the model's transpose
-back is free too.  The wrapper checks its tensors, launches on the
-current stream without synchronising and raises on a launch error.  The
-plain version is
+axis must be contiguous.  Head dim 112 (zamba2-7b) is an instance of
+both kernels; the bf16 one reads it through tensor maps that zero-fill
+its tiles to 128 columns, with no padding copy here.  The output is
+allocated in the (B, Sq, H, D) layout and returned as its (B, H, Sq, D)
+view, so the model's transpose back is free too.  The wrapper checks
+its tensors, launches on the current stream without synchronising and
+raises on a launch error.  The plain version is
 :func:`repro_torch.kernels.ref.mha_reference`.
 """
 from __future__ import annotations
@@ -26,7 +28,7 @@ import torch
 
 from . import _build
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 112, 128)
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -49,9 +51,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     window: int | None = None) -> torch.Tensor:
     """q: (B, H, Sq, D); k, v: (B, H, Sk, D) with Sq <= Sk, D in
-    (32, 64, 128), f32 or bf16 on one card (GQA heads broadcast by the
-    caller); logits scaled by 1/sqrt(D).  Returns (B, H, Sq, D) in q's
-    type."""
+    (32, 64, 112, 128), f32 or bf16 on one card (GQA heads broadcast by
+    the caller); logits scaled by 1/sqrt(D).  Returns (B, H, Sq, D) in
+    q's type."""
     _check("q", q, None)
     _check("k", k, q)
     _check("v", v, q)

@@ -6,13 +6,13 @@
         --full --batch 4 --ctx 2048 --gen 16
 
 runs qwen1.5-4b at full width on the GPU (also ``--arch rwkv6-1.6b``,
-``granite-moe-1b-a400m`` or ``qwen3-moe-30b-a3b``); ``--smoke --device
-cpu`` runs the 2-layer variant on the CPU with the kernels' plain
-versions.  The config is built with ``use_pallas=True``: on the card
-that takes the flash-attention, RMSNorm and WKV kernels; on the CPU it
-resolves to their plain versions, which compute what the JAX package's
-``use_pallas=False`` path computes (the JAX launcher never sets the
-flag).  Without CUDA and without ``--device cpu`` it raises: it never
+``granite-moe-1b-a400m``, ``qwen3-moe-30b-a3b`` or ``zamba2-7b``);
+``--smoke --device cpu`` runs the reduced variant on the CPU with the
+kernels' plain versions.  The config is built with ``use_pallas=True``:
+on the card that takes the flash-attention, RMSNorm and WKV kernels; on
+the CPU it resolves to their plain versions, which compute what the JAX
+package's ``use_pallas=False`` path computes (the JAX launcher never
+sets the flag).  Without CUDA and without ``--device cpu`` it raises: it never
 falls back.
 
 Weights are random, from seed 0.  Smoke sizes are drawn on the CPU, so
@@ -34,7 +34,7 @@ from repro_torch.launch.train import resolve_device
 from repro_torch.models import build_model
 
 ARCHS = ("qwen1.5-4b", "rwkv6-1.6b", "granite-moe-1b-a400m",
-         "qwen3-moe-30b-a3b")
+         "qwen3-moe-30b-a3b", "zamba2-7b")
 
 
 def parse_args(argv=None):

@@ -8,9 +8,10 @@ transports, its fault flags and its federated cohort's flags, plus
         --compress-method block_topk --steps 4
 
 runs DCSGD-ASSS on paper-lm-100m on the GPU (``--arch
-granite-moe-1b-a400m``: the MoE model, bf16 parameters with JAX's f32
-update); ``--smoke --device cpu`` runs the 2-layer variant on the CPU
-with the kernels' plain versions.
+granite-moe-1b-a400m``: the MoE model, ``--arch zamba2-7b``: the hybrid
+Mamba2 model, both with bf16 parameters and JAX's f32 update);
+``--smoke --device cpu`` runs the reduced variant on the CPU with the
+kernels' plain versions.
 Several GPUs: ``torchrun --nproc-per-node N -m repro_torch.launch.train
 ...`` (one process per GPU; each takes its rows of the global batch).
 Without CUDA and without ``--device cpu`` it raises: it never falls
@@ -88,6 +89,7 @@ after step s as s and so replays batch s on resume.)
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import logging
 import os
@@ -136,7 +138,8 @@ def resolve_device(name: str) -> torch.device:
 def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="paper-lm-100m",
-                    choices=["paper-lm-100m", "granite-moe-1b-a400m"])
+                    choices=["paper-lm-100m", "granite-moe-1b-a400m",
+                             "zamba2-7b"])
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced 2-layer variant of --arch")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -369,13 +372,16 @@ def main(argv=None) -> list[dict]:
     return run(argv)[0]
 
 
-def run(argv=None):
+def run(argv=None, n_layers: int | None = None):
     """Run the CLI; returns ``(log, params, state)``: the logged metrics
     as :func:`main` returns them, and this worker's final parameters and
-    ``TrainState``."""
+    ``TrainState``.  ``n_layers`` cuts the depth of ``--arch`` (the
+    widths stay the config's), as ``serve.load`` does."""
     args = parse_args(argv)
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     run_cfg = RunConfig(
         model=cfg, shape=ShapeConfig(args.seq_len, args.global_batch),
         microbatches=args.microbatches,

@@ -1,17 +1,24 @@
-"""Decoder-only LMs (twin of the ``dense`` and ``moe`` families and the
-RWKV-6 branch of the ``ssm`` family of ``src/repro/models/lm.py``).  An
-MoE block is the dense block with ``models/moe.py``'s layer in place of
-the MLP.
+"""Decoder-only LMs (twin of the ``dense``, ``moe``, ``ssm`` (Mamba2 and
+RWKV-6) and ``hybrid`` (Zamba2) families of ``src/repro/models/lm.py``).
+An MoE block is the dense block with ``models/moe.py``'s layer in place
+of the MLP.  A hybrid model runs ``shared_attn_every`` Mamba2 layers,
+then the ONE shared attention + MLP block, per group, and its tail
+layers after the last group.
 
 Layer parameters are stacked on a leading layer axis, as the JAX package's
 ``scan`` layout has them, so the per-layer compression rows and the wire
-payload are the same; the forward walks the layers in a Python loop.
+payload are the same; the forward walks the layers in a Python loop.  The
+hybrid's ``blocks`` are stacked (groups, every, ...) and its ``tail``
+(tail, ...), as JAX's are, so one compression row holds a whole group;
+``shared`` is unstacked.
 
 Three entry points per model: ``loss_fn`` (train), ``prefill`` (batched
 context ingestion returning caches) and ``decode_step`` (one token
 against the caches).  Caches are stacked on the layer axis like the
-params.  ``decode_step`` writes the new token's KV entries and the new
-RWKV states into the cache it is given, in place, and returns it.
+params (the hybrid's KV cache one slot a group, one per invocation of
+the shared block).  ``decode_step`` writes the new token's KV entries,
+the new RWKV states and the new Mamba2 conv windows and SSM states into
+the cache it is given, in place, and returns it.
 
 Every RMSNorm gets ``cfg.use_pallas``, so serving reaches the RMSNorm
 kernel; the JAX package leaves the flag at its default (False) in every
@@ -27,6 +34,7 @@ from repro_torch.utils import tree_map, tree_map_with_path
 from . import attention as attn
 from . import moe as moe_mod
 from . import rwkv as rwkv_mod
+from . import ssm as ssm_mod
 from .layers import (embed, init_embed, init_lm_head, init_mlp,
                      init_rms_norm, lm_head, mlp, rms_norm, softmax_xent)
 
@@ -38,7 +46,9 @@ def _is_rwkv(cfg) -> bool:
 class DecodeCache(NamedTuple):
     """Stacked caches; the field a family does not use is ()."""
     kv: Any = ()          # attn.KVCache of (L, B, S_max, H_kv, hd) tensors
-    ssm: Any = ()         # rwkv.RWKVState of (L, ...) tensors
+    ssm: Any = ()         # rwkv.RWKVState / ssm.SSMState of (L, ...) or,
+    #                       hybrid, (groups, every, ...) tensors
+    tail_ssm: Any = ()    # hybrid: ssm.SSMState of the (tail, ...) layers
 
 
 def init_params(cfg, seed: int = 0, device="cpu", draw_device="cpu"):
@@ -62,6 +72,20 @@ def init_params(cfg, seed: int = 0, device="cpu", draw_device="cpu"):
             "norm2": init_rms_norm(cfg.d_model, dtype, dev, lead=L),
             "rwkv": rwkv_mod.init_rwkv6(gen, cfg, dtype, lead=L),
         }
+    elif cfg.family == "ssm":
+        params["blocks"] = _init_mamba_block(gen, cfg, dtype, L)
+    elif cfg.family == "hybrid":
+        groups, tail = _hybrid_depth(cfg)
+        params["blocks"] = _init_mamba_block(
+            gen, cfg, dtype, (groups, cfg.shared_attn_every))
+        if tail:
+            params["tail"] = _init_mamba_block(gen, cfg, dtype, (tail,))
+        params["shared"] = {
+            "attn_norm": init_rms_norm(cfg.d_model, dtype, dev),
+            "attn": attn.init_attn(gen, cfg, dtype),
+            "mlp_norm": init_rms_norm(cfg.d_model, dtype, dev),
+            "mlp": init_mlp(gen, cfg, dtype),
+        }
     else:
         params["blocks"] = {
             "attn_norm": init_rms_norm(cfg.d_model, dtype, dev, lead=L),
@@ -76,11 +100,23 @@ def init_params(cfg, seed: int = 0, device="cpu", draw_device="cpu"):
     return tree_map(lambda x: x.to(device), params)
 
 
+def _hybrid_depth(cfg) -> tuple[int, int]:
+    """(groups, tail layers) of a hybrid model."""
+    return divmod(cfg.n_layers, cfg.shared_attn_every)
+
+
+def _init_mamba_block(gen, cfg, dtype, lead):
+    return {"norm": init_rms_norm(cfg.d_model, dtype, gen.device, lead=lead),
+            "mamba": ssm_mod.init_mamba2(gen, cfg, dtype, lead=lead)}
+
+
 def stacked_mask(params):
     """True for leaves with a leading layer axis (per-layer compression):
-    every leaf under ``blocks``, the MoE's ``(L, E, D, F)`` experts and
-    ``(L, D, E)`` router included."""
-    return tree_map_with_path(lambda path, _: path[0] == "blocks", params)
+    every leaf under ``blocks`` (the MoE's ``(L, E, D, F)`` experts and
+    ``(L, D, E)`` router included; a hybrid's ``(groups, every, ...)``
+    leaves, one row a group) and under a hybrid's ``tail``."""
+    return tree_map_with_path(lambda path, _: path[0] in ("blocks", "tail"),
+                              params)
 
 
 def _layer(blocks, i):
@@ -122,6 +158,20 @@ def _dense_block_decode(p, x, kv, cur_len, cfg):
     return x + mlp(p["mlp"], hn)
 
 
+def _mamba_block(p, x, cfg, state=None, return_state=False):
+    h, st = ssm_mod.mamba2_block(
+        p["mamba"], rms_norm(p["norm"], x, cfg.norm_eps, cfg.use_pallas),
+        cfg, state=state, return_state=return_state)
+    return x + h, st
+
+
+def _mamba_block_decode(p, x, state, cfg):
+    h, st = ssm_mod.mamba2_decode(
+        p["mamba"], rms_norm(p["norm"], x, cfg.norm_eps, cfg.use_pallas),
+        state, cfg)
+    return x + h, st
+
+
 def _rwkv_block(p, x, cfg, state: rwkv_mod.RWKVState):
     h, state = rwkv_mod.time_mix(
         p["rwkv"], rms_norm(p["norm1"], x, cfg.norm_eps, cfg.use_pallas),
@@ -131,6 +181,33 @@ def _rwkv_block(p, x, cfg, state: rwkv_mod.RWKVState):
         p["rwkv"], rms_norm(p["norm2"], x, cfg.norm_eps, cfg.use_pallas),
         state)
     return x + h, state
+
+
+def _layers(params, cfg):
+    """``(kind, layer params, cache field, index)`` in forward order: kind
+    "dense" (a dense or MoE layer, or the hybrid's shared block after
+    group g; its slot of ``cache.kv``), "rwkv" or "mamba" (its state in
+    ``cache.ssm`` at an int or a hybrid's (group, layer), or a hybrid
+    tail layer's in ``cache.tail_ssm``)."""
+    if cfg.family == "hybrid":
+        groups, tail = _hybrid_depth(cfg)
+        for g in range(groups):
+            for e in range(cfg.shared_attn_every):
+                yield "mamba", _layer(params["blocks"], (g, e)), "ssm", (g, e)
+            yield "dense", params["shared"], "kv", g
+        for t in range(tail):
+            yield "mamba", _layer(params["tail"], t), "tail_ssm", t
+        return
+    kind, field = ("rwkv", "ssm") if _is_rwkv(cfg) else \
+        ("mamba", "ssm") if cfg.family == "ssm" else ("dense", "kv")
+    for i in range(cfg.n_layers):
+        yield kind, _layer(params["blocks"], i), field, i
+
+
+def _put(stacked, i, new) -> None:
+    """Write a layer's new state tuple into the stacked one, in place."""
+    for s, n in zip(stacked, new):
+        s[i] = n
 
 
 # ---------------------------------------------------------------------------
@@ -145,11 +222,12 @@ def loss_fn(params, batch: dict, cfg) -> torch.Tensor:
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     x = embed(params["embed"], inputs, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.n_layers):
-        lp = _layer(params["blocks"], i)
-        if _is_rwkv(cfg):
+    for kind, lp, _, _ in _layers(params, cfg):
+        if kind == "rwkv":
             x, _ = _rwkv_block(lp, x, cfg, rwkv_mod.init_rwkv_state(
                 cfg, x.shape[0], x.device))
+        elif kind == "mamba":
+            x, _ = _mamba_block(lp, x, cfg)
         else:
             x, _, a = _dense_block(lp, x, cfg)
             if a is not None:
@@ -164,17 +242,33 @@ def loss_fn(params, batch: dict, cfg) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg, B: int, capacity: int, device="cpu") -> DecodeCache:
-    """Zero caches with sequence capacity ``capacity`` (the KV cache in
-    the compute dtype)."""
+    """Zero caches with sequence capacity ``capacity`` (the KV cache and
+    the Mamba2 conv windows in the compute dtype, the SSM states f32)."""
     if _is_rwkv(cfg):
         st = rwkv_mod.init_rwkv_state(cfg, B, device)
         return DecodeCache(ssm=rwkv_mod.RWKVState(*(
             x[None].repeat(cfg.n_layers, *([1] * x.dim())) for x in st)))
     dtype = getattr(torch, cfg.compute_dtype)
-    shape = (cfg.n_layers, B, capacity, cfg.n_kv_heads, cfg.hd)
-    return DecodeCache(kv=attn.KVCache(
-        k=torch.zeros(shape, dtype=dtype, device=device),
-        v=torch.zeros(shape, dtype=dtype, device=device)))
+
+    def ssm_stack(*lead):
+        st = ssm_mod.init_ssm_state(cfg, B, dtype, device)
+        return ssm_mod.SSMState(*(torch.zeros(lead + tuple(x.shape),
+                                              dtype=x.dtype, device=device)
+                                  for x in st))
+
+    def kv_stack(n):
+        shape = (n, B, capacity, cfg.n_kv_heads, cfg.hd)
+        return attn.KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                            v=torch.zeros(shape, dtype=dtype, device=device))
+
+    if cfg.family == "ssm":
+        return DecodeCache(ssm=ssm_stack(cfg.n_layers))
+    if cfg.family == "hybrid":
+        groups, tail = _hybrid_depth(cfg)
+        return DecodeCache(kv=kv_stack(groups),
+                           ssm=ssm_stack(groups, cfg.shared_attn_every),
+                           tail_ssm=ssm_stack(tail) if tail else ())
+    return DecodeCache(kv=kv_stack(cfg.n_layers))
 
 
 def prefill(params, batch: dict, cfg, capacity: int | None = None):
@@ -185,13 +279,14 @@ def prefill(params, batch: dict, cfg, capacity: int | None = None):
     B, S = tokens.shape
     x = embed(params["embed"], tokens, cfg)
     cache = init_cache(cfg, B, capacity or S, device=x.device)
-    for i in range(cfg.n_layers):
-        lp = _layer(params["blocks"], i)
-        if _is_rwkv(cfg):
+    for kind, lp, field, i in _layers(params, cfg):
+        if kind == "rwkv":
             x, st = _rwkv_block(lp, x, cfg, rwkv_mod.init_rwkv_state(
                 cfg, B, x.device))
-            for stacked, new in zip(cache.ssm, st):
-                stacked[i] = new
+            _put(cache.ssm, i, st)
+        elif kind == "mamba":
+            x, st = _mamba_block(lp, x, cfg, return_state=True)
+            _put(getattr(cache, field), i, st)
         else:
             x, kv, _ = _dense_block(lp, x, cfg)
             cache.kv.k[i, :, :S] = kv.k
@@ -207,13 +302,16 @@ def decode_step(params, token: torch.Tensor, cache: DecodeCache,
     length (the new token is written at cache index cur_len).  Updates
     ``cache`` in place; returns (logits (B, 1, padded vocab) f32, cache)."""
     x = embed(params["embed"], token, cfg)
-    for i in range(cfg.n_layers):
-        lp = _layer(params["blocks"], i)
-        if _is_rwkv(cfg):
+    for kind, lp, field, i in _layers(params, cfg):
+        if kind == "rwkv":
             x, st = _rwkv_block(lp, x, cfg, rwkv_mod.RWKVState(
                 *(s[i] for s in cache.ssm)))
-            for stacked, new in zip(cache.ssm, st):
-                stacked[i] = new
+            _put(cache.ssm, i, st)
+        elif kind == "mamba":
+            stacked = getattr(cache, field)
+            x, st = _mamba_block_decode(lp, x, ssm_mod.SSMState(
+                *(s[i] for s in stacked)), cfg)
+            _put(stacked, i, st)
         else:
             x = _dense_block_decode(lp, x, attn.KVCache(
                 cache.kv.k[i], cache.kv.v[i]), cur_len, cfg)

@@ -378,7 +378,7 @@ def _check_rmsnorm(cuda, shape, xdt, wdt):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(8, 128), (200, 256), (21, 512),
-                                   (4, 1024), (4, 2560)])
+                                   (4, 1024), (4, 2560), (4, 3584)])
 @pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("wdt", [torch.float32, torch.bfloat16])
 def test_rmsnorm_kernel_matches_plain_on_card(cuda, shape, xdt, wdt):
@@ -408,7 +408,9 @@ def _qkv(seed, B, H, Sq, Sk, D, dtype, cuda):
 @pytest.mark.parametrize("B,H,Sq,Sk,D", [(1, 2, 128, 128, 32),
                                          (2, 3, 100, 100, 64),
                                          (1, 2, 37, 150, 128),
-                                         (2, 2, 1, 70, 64)])
+                                         (2, 2, 1, 70, 64),
+                                         (2, 2, 100, 100, 112),
+                                         (1, 2, 37, 150, 112)])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("window", [None, 64])
 def test_flash_attention_kernel_matches_plain_on_card(cuda, B, H, Sq, Sk, D,
@@ -420,7 +422,7 @@ def test_flash_attention_kernel_matches_plain_on_card(cuda, B, H, Sq, Sk, D,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", [32, 64, 112, 128])
 def test_flash_attention_kernel_bf16_strided_on_card(cuda, D):
     """bf16 through the transposed (B, S, H, D) views the model passes."""
     B, S, H = 2, 200, 3
@@ -448,13 +450,18 @@ def _bshd_views(seed, B, H, Sq, Sk, D, cuda):
                                          (2, 3, 100, 100, 64),
                                          (1, 2, 37, 150, 128),
                                          (2, 2, 300, 300, 32),
-                                         (1, 4, 77, 333, 128)])
+                                         (1, 4, 77, 333, 128),
+                                         (1, 2, 1, 70, 112),
+                                         (2, 3, 100, 100, 112),
+                                         (1, 4, 77, 333, 112)])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("window", [None, 64])
 def test_flash_attention_tensor_core_route_matches_plain_on_card(
         cuda, B, H, Sq, Sk, D, causal, window):
     """The bf16 route (wgmma, TMA) at shapes that cross every tile edge:
-    Sq and Sk off the 128-query and 64-key tiles, Sq < Sk, one query."""
+    Sq and Sk off the 128-query and 64-key tiles, Sq < Sk, one query;
+    and at zamba2-7b's head dim 112, whose tiles TMA zero-fills to 128
+    columns."""
     q, k, v = _bshd_views(Sq * 7 + Sk, B, H, Sq, Sk, D, cuda)
     got = flash_attention(q, k, v, causal=causal, window=window)
     want = ref.mha_reference(q, k, v, causal=causal, window=window)
@@ -515,13 +522,14 @@ def test_flash_attention_route_follows_dtype_on_card(cuda, dtype, kernel):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [2056, 5120])
+@pytest.mark.parametrize("d", [2056, 5120, 7168])
 @pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("wdt", [torch.float32, torch.bfloat16])
 def test_rmsnorm_wide_rows_match_plain_on_card(cuda, d, xdt, wdt):
     """D = 2056 (a multiple of 8, not of 256: lanes hold unequal chunk
-    counts) in registers, and D = 5120, past the register path's 4096,
-    through the streaming kernel."""
+    counts) in registers, and D = 5120 and 7168 (zamba2-7b's gated norm
+    over d_in), past the register path's 4096, through the streaming
+    kernel."""
     _check_rmsnorm(cuda, (37, d), xdt, wdt)
 
 

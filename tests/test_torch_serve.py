@@ -1,9 +1,14 @@
 """Serving in the port (prefill, then greedy decode) against the JAX
-package, on the CPU, for the smoke variants of qwen1.5-4b, rwkv6-1.6b and
-the two MoE configs (granite-moe-1b-a400m, qwen3-moe-30b-a3b), and for
-grouped-query attention: qwen1.5-4b's and granite's smoke variants at 2
-and 1 kv heads of their 4 query heads (the smoke variants themselves
-are MHA).
+package, on the CPU, for the smoke variants of qwen1.5-4b, rwkv6-1.6b,
+the two MoE configs (granite-moe-1b-a400m, qwen3-moe-30b-a3b) and the
+hybrid zamba2-7b (5 layers: 2 groups of 2 Mamba2 layers, each followed
+by the shared attention block, and 1 tail layer); for grouped-query
+attention: qwen1.5-4b's and granite's smoke variants at 2 and 1 kv heads
+of their 4 query heads (the smoke variants themselves are MHA); for a
+pure Mamba2 model (zamba2's smoke widths as ``family="ssm"``, 2
+layers); and for zamba2's smoke at ``ssm_chunk`` 16 (the prefill's SSD
+scan over 6 chunks) and at ``sliding_window`` 16 (windowed prefill and
+decode of the shared block).
 
 The same numpy weights (the JAX initialisers' draw, with the leaves JAX
 initialises to constants — QKV biases, LoRA B, norm weights, decay and
@@ -43,22 +48,26 @@ from repro_torch.models import attention, build_model, rwkv
 torch.set_num_threads(2)
 
 ARCHS = ("qwen1.5-4b", "rwkv6-1.6b", "granite-moe-1b-a400m",
-         "qwen3-moe-30b-a3b")
-#: (arch, kv heads or None for the smoke variant's own): every arch, then
-#: grouped-query attention at 2 and 1 kv heads
-SERVED = [(a, None) for a in ARCHS] + [
-    (a, n) for a in ("qwen1.5-4b", "granite-moe-1b-a400m") for n in (2, 1)]
+         "qwen3-moe-30b-a3b", "zamba2-7b")
+#: a pure Mamba2 model: zamba2-7b's smoke widths as the ``ssm`` family
+MAMBA2 = dict(family="ssm", name="mamba2-x", n_layers=2, shared_attn_every=0)
+#: (test id, arch, fields replaced in both smoke configs): every arch,
+#: grouped-query attention at 2 and 1 kv heads, the pure Mamba2 model,
+#: the hybrid at chunk 16 and windowed
+SERVED = [(a, a, {}) for a in ARCHS] + [
+    (f"{a}-kv{n}", a, dict(n_kv_heads=n))
+    for a in ("qwen1.5-4b", "granite-moe-1b-a400m") for n in (2, 1)] + [
+    ("mamba2-x", "zamba2-7b", MAMBA2),
+    ("zamba2-7b-chunk16", "zamba2-7b", dict(ssm_chunk=16)),
+    ("zamba2-7b-window16", "zamba2-7b", dict(sliding_window=16))]
 B, N_DECODE = 2, 4
 
 
-def _configs(arch, n_kv=None):
-    """(JAX's, the port's) smoke config of ``arch``, at ``n_kv`` kv
-    heads if given."""
-    jcfg, cfg = jax_smoke_config(arch), get_smoke_config(arch)
-    if n_kv is not None:
-        jcfg = dataclasses.replace(jcfg, n_kv_heads=n_kv)
-        cfg = dataclasses.replace(cfg, n_kv_heads=n_kv)
-    return jcfg, cfg
+def _configs(arch, **kw):
+    """(JAX's, the port's) smoke config of ``arch`` with ``kw`` replaced
+    in both."""
+    return (dataclasses.replace(jax_smoke_config(arch), **kw),
+            dataclasses.replace(get_smoke_config(arch), **kw))
 
 
 def _perturbed(tree, seed):
@@ -154,18 +163,17 @@ def test_attention_blocks_match_jax(S):
 # the slice: prefill + decode of both smoke models
 # --------------------------------------------------------------------------
 
-@pytest.fixture(scope="module", params=SERVED,
-                ids=[a if n is None else f"{a}-kv{n}" for a, n in SERVED])
+@pytest.fixture(scope="module", params=SERVED, ids=[i for i, _, _ in SERVED])
 def served(request):
     """JAX's prefill + N_DECODE greedy steps of one smoke model, with the
     weights, prompt and the JAX results (numpy)."""
-    arch, n_kv = request.param
-    jcfg, cfg = _configs(arch, n_kv)
+    _, arch, kw = request.param
+    jcfg, cfg = _configs(arch, **kw)
     jm = jax_build_model(jcfg)
     params = _perturbed(jm.init(jax.random.PRNGKey(0)), 3)
     jp = jax.tree.map(jnp.asarray, params)
-    # attention: a context past attn_chunk
-    ctx = 40 if cfg.family == "ssm" else 96
+    # attention: a context past attn_chunk (and 6 SSD chunks of 16)
+    ctx = 40 if cfg.name.startswith("rwkv") else 96
     cap = ctx + N_DECODE + 1
     prompt = np.random.default_rng(4).integers(
         0, jcfg.vocab_size, (B, ctx)).astype(np.int32)
@@ -209,9 +217,12 @@ def _port_run(served, use_pallas: bool):
 
 
 def _cache_leaves(cache):
-    if cache.kv != ():
-        return [cache.kv.k, cache.kv.v]
-    return list(cache.ssm)
+    """The KV cache's k and v, then the states' leaves (a hybrid's tail
+    last), of a JAX or a port cache."""
+    out = [cache.kv.k, cache.kv.v] if cache.kv != () else []
+    for st in (cache.ssm, cache.tail_ssm):
+        out += list(st)
+    return out
 
 
 def test_prefill_and_decode_match_jax(served):
@@ -222,8 +233,8 @@ def test_prefill_and_decode_match_jax(served):
     for got, want in zip(toks, served["tokens"]):
         np.testing.assert_array_equal(got.numpy(), want)
     for got, want in zip(caches, served["caches"]):
-        jl = (list(want.ssm) if served["cfg"].family == "ssm"
-              else [want.kv.k, want.kv.v])
+        jl = _cache_leaves(want)
+        assert len(jl) == len(_cache_leaves(got))
         for g, w in zip(_cache_leaves(got), jl):
             assert tuple(g.shape) == w.shape
             _rel_close(g, w, 1e-5)
@@ -244,7 +255,8 @@ def test_use_pallas_on_cpu_is_bit_identical(served):
 def test_loss_matches_jax(arch):
     """``Model.loss`` of every smoke model (the dense one with its QKV
     bias, RWKV-6 with fresh states per layer, the MoE ones as ce + the
-    layers' aux) against JAX's, outside any mesh: rel 1e-5."""
+    layers' aux, the hybrid's groups, shared block and tail) against
+    JAX's, outside any mesh: rel 1e-5."""
     jcfg = jax_smoke_config(arch)
     jm = jax_build_model(jcfg)
     params = _perturbed(jm.init(jax.random.PRNGKey(6)), 7)
@@ -295,8 +307,8 @@ def test_serve_without_cuda_raises(monkeypatch):
                     "--ctx", "8", "--gen", "2"])
 
 
-@pytest.mark.parametrize("kw", [dict(family="hybrid"),
-                                dict(family="ssm", name="mamba2-x"),
+@pytest.mark.parametrize("kw", [dict(family="encdec"),
+                                dict(family="vlm"),
                                 dict(kv_cache_dtype="int8"),
                                 dict(remat=False),
                                 dict(family="moe", moe_expert_parallel=True)])
