@@ -48,7 +48,9 @@ Phases, each fatal on failure (no phase catches and continues):
    within 1e-5, its ptxas spills none; WKV at (4, 1024, 32, 64) and at
    S = 1 within 2e-5, timed at both, its ptxas spills none),
    beside the library calls ``F.scaled_dot_product_attention`` and
-   ``F.rms_norm`` (timed only; the port never calls them);
+   ``F.rms_norm`` (timed only; the port never calls them); and flash
+   attention without causality at the encoder-decoder's shapes (phase
+   4o lists them);
 4. run the DCSGD-ASSS trainer (``repro_torch.launch.train``) on
    paper-lm-100m at full width — 12 layers, d_model 768, vocab 16384,
    seq 256, global batch 8, ``--compress-method block_topk`` — for 4
@@ -234,6 +236,31 @@ Phases, each fatal on failure (no phase catches and continues):
    ``mamba2_block`` and ``ssd_chunked`` at the zamba2 smoke size and
    ``ssm_chunk`` 16 on the card against the CPU, f32 within 1e-5 and bf16
    within 1e-2 of max;
+4o. the encoder-decoder family (its kernel checks run in phase 3):
+   flash attention without causality at
+   seamless-m4t-large-v2's shapes, D 64, bf16 through strided views
+   against its plain version (1 bf16 ulp beyond 1e-5): the encoder (4,
+   16, 32, 64), the cross attention at prefill, 2048 queries against 32
+   frames (Sq > Sk: a negative query offset), and at decode, one query
+   against 32, each timed beside the plain version,
+   ``F.scaled_dot_product_attention`` and its bound; 10 bf16 and 5 f32
+   edge cases with Sq >= Sk, with and without a window of 64; both D 64
+   instances' ptxas lines without spills; seamless-m4t-large-v2 at full
+   width and depth (12 encoder and 12 decoder layers, 1.28 B parameters)
+   through ``serve.load`` and ``serve.generate``, batch 4, ctx 2048, 32
+   source frames, 16 tokens: exactly 12 + 2 x 12 + 12 x 15 = 216
+   flash-attention and 62 + 37 x 15 = 617 RMSNorm launches and no other
+   kernel, finite logits, prefill seconds, decode ms a step and peak
+   memory, one profiled warm prefill and decode step (the decode step's
+   cross attention through the flash kernel); the trainer at full width
+   and depth (seq 256, global batch 8, ``block_topk``, gamma 0.01) for 3
+   steps: one ``ef_stats_telemetry`` and one ``ef_apply`` a step and the
+   bucket plan's ``pack_words`` / ``unpack_words`` (every leaf one row:
+   JAX's stacked_mask marks none), no other kernel, finite losses, the
+   plan's bytes every step, bf16 parameters and f32 EF memory, peak
+   memory; the seamless smoke served on the card and on the CPU (equal
+   tokens, logits within 1e-4 of max, 12 flash launches through the f32
+   route) and trained 2 steps on both (equal bytes, losses rel 1e-5);
 5. run the 2-layer smoke variants on the card and on the CPU (the plain
    versions, which the CPU tests hold against the JAX package), through
    the trainer for 2 steps (``--opt csgd_asss``, ``nonadaptive``,
@@ -363,6 +390,10 @@ QWEN3_MOE, QWEN3_MOE_LAYERS, QWEN3_MOE_CTX = "qwen3-moe-30b-a3b", 12, 2048
 #: 2048 and trained at full width on 13 of its 81 layers
 ZAMBA, ZAMBA_CTX, ZAMBA_LAYERS, ZAMBA_STEPS = "zamba2-7b", 2048, 13, 3
 ZAMBA_ARGS = ["--arch", ZAMBA] + MOE_ARGS[2:]
+#: phase 4o: the encoder-decoder family, seamless-m4t-large-v2 served and
+#: trained at full width and depth (12 + 12 layers), ctx 2048
+SEAMLESS, SEAMLESS_CTX, SEAMLESS_STEPS = "seamless-m4t-large-v2", 2048, 3
+SEAMLESS_ARGS = ["--arch", SEAMLESS] + MOE_ARGS[2:]
 
 
 def fail(msg: str) -> None:
@@ -2984,13 +3015,12 @@ def check_serving_kernels(dev, report) -> None:
 def profile_serving(dev, arch, ctx, kernels_of_path) -> None:
     """One profiled prefill and one profiled decode step at full width."""
     from repro_torch.launch import serve
-    model, params, prompt = serve.load(arch, False, SERVE_BATCH, ctx, dev)
+    model, params, batch = serve.load(arch, False, SERVE_BATCH, ctx, dev)
     with torch.inference_mode():
-        model.prefill(params, {"tokens": prompt},
-                      capacity=ctx + SERVE_GEN)       # warm
+        model.prefill(params, batch, capacity=ctx + SERVE_GEN)    # warm
         holder = {}
         prof, wall = profiled(dev, lambda: holder.update(out=model.prefill(
-            params, {"tokens": prompt}, capacity=ctx + SERVE_GEN)))
+            params, batch, capacity=ctx + SERVE_GEN)))
         report_profile(f"{arch} prefill", prof, wall, kernels_of_path)
         logits, cache = holder.pop("out")
         tok = logits[:, -1:, :model.cfg.vocab_size].argmax(-1)
@@ -3000,7 +3030,7 @@ def profile_serving(dev, arch, ctx, kernels_of_path) -> None:
         report_profile(f"{arch} decode", prof, wall,
                        [k for k in kernels_of_path
                         if not k.startswith("flash_attention")])
-    del model, params, prompt, logits, cache
+    del model, params, batch, logits, cache
     torch.cuda.empty_cache()
 
 
@@ -3116,12 +3146,12 @@ def moe_serving(dev, granite_logits: torch.Tensor) -> None:
     del res
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
-    model, params, prompt = serve.load(QWEN3_MOE, False, SERVE_BATCH,
-                                       QWEN3_MOE_CTX, dev,
-                                       n_layers=QWEN3_MOE_LAYERS)
+    model, params, batch = serve.load(QWEN3_MOE, False, SERVE_BATCH,
+                                      QWEN3_MOE_CTX, dev,
+                                      n_layers=QWEN3_MOE_LAYERS)
     n_params = sum(p.numel() for p in tree_leaves(params))
     ops.reset_launch_counts()
-    res = serve.generate(model, params, prompt, SERVE_GEN)
+    res = serve.generate(model, params, batch, SERVE_GEN)
     counts = ops.launch_counts()
     want = dict(flash_attention=QWEN3_MOE_LAYERS,
                 rmsnorm=(2 * QWEN3_MOE_LAYERS + 1) * SERVE_GEN)
@@ -3140,7 +3170,7 @@ def moe_serving(dev, granite_logits: torch.Tensor) -> None:
             or not torch.isfinite(res["logits"]).all():
         fail(f"[serve {QWEN3_MOE}] tokens {tuple(res['tokens'].shape)} or "
              "non-finite logits")
-    del model, params, prompt, res
+    del model, params, batch, res
     torch.cuda.empty_cache()
 
 
@@ -3370,8 +3400,8 @@ def hybrid_serving(dev) -> dict:
     from repro_torch.models import ssm
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
-    model, params, prompt = serve.load(ZAMBA, False, SERVE_BATCH, ZAMBA_CTX,
-                                       dev)
+    model, params, batch = serve.load(ZAMBA, False, SERVE_BATCH, ZAMBA_CTX,
+                                      dev)
     cfg = model.cfg
     leaves = tree_leaves(params)
     n_params = sum(p.numel() for p in leaves)
@@ -3379,7 +3409,7 @@ def hybrid_serving(dev) -> dict:
     init_peak = torch.cuda.max_memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launch_counts()
-    res = serve.generate(model, params, prompt, SERVE_GEN)
+    res = serve.generate(model, params, batch, SERVE_GEN)
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated(dev)
     groups, tail = divmod(cfg.n_layers, cfg.shared_attn_every)
@@ -3410,7 +3440,7 @@ def hybrid_serving(dev) -> dict:
     with torch.inference_mode():
         holder = {}
         prof, wall = profiled(dev, lambda: holder.update(out=model.prefill(
-            params, {"tokens": prompt}, capacity=ZAMBA_CTX + SERVE_GEN)))
+            params, batch, capacity=ZAMBA_CTX + SERVE_GEN)))
         report_profile(f"{ZAMBA} prefill", prof, wall, traced)
         logits, cache = holder.pop("out")
         tok = logits[:, -1:, :cfg.vocab_size].argmax(-1)
@@ -3439,7 +3469,7 @@ def hybrid_serving(dev) -> dict:
           f"{ssd * cfg.n_layers:.2f} ms for {cfg.n_layers} layers "
           f"({ssd * cfg.n_layers / 1e3 / out['prefill_s']:.3f} of the "
           "prefill's seconds)", flush=True)
-    del model, params, prompt
+    del model, params, batch
     torch.cuda.empty_cache()
     return out
 
@@ -3570,6 +3600,276 @@ def hybrid_card_vs_cpu(dev) -> None:
               f"card vs cpu: max diffs {[f'{e:.3e}' for e in errs]} "
               f"(y, conv, state; ssd y, state; limit {tol} of each max)",
               flush=True)
+
+
+def check_encdec_flash(dev) -> dict:
+    """Phase 3 for phase 4o's path: flash attention without causality
+    at seamless-m4t's shapes, D 64, through the strided (B, S, H, D)
+    views the model hands over: the encoder's self attention (4, 16, 32,
+    64), the cross attention at prefill (4, 16) x 2048 queries against
+    32 frames (Sq > Sk, a negative query offset) and at decode (one
+    query against the 32 frames), each on the bf16 route against its
+    plain version (1 bf16 ulp beyond 1e-5), timed beside the plain
+    version, ``F.scaled_dot_product_attention`` and its bound; edge
+    cases with Sq > Sk, with and without a window of 64; the f32 route
+    at small Sq > Sk cases (atol 3e-5); both D 64 instances' ptxas lines
+    without spills."""
+    import torch.nn.functional as F_
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.serve import SRC_FRAMES
+    for name, kernel in (("flash_attention_sm90",
+                          "flash_attention_sm90_kernel"),
+                         ("flash_attention", "flash_attention_kernel")):
+        entry = [e for e in ptxas_entries(name, [kernel])
+                 if e[0].endswith(" 64")]
+        if len(entry) != 1 or entry[0][2]:
+            fail(f"csrc/{name}.cu: the D 64 instance is missing or spills: "
+                 f"{entry}")
+        print(f"ptxas {entry[0][0]} ({name}.cu): {entry[0][1]} registers, "
+              "no spills", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(19)
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(dtype)
+
+    def bshd(b, h, s, d):
+        return randn(b, s, h, d, dtype=torch.bfloat16).transpose(1, 2)
+
+    edge = []
+    for b, h, sq, sk, d in ((2, 3, 300, 70, 64), (1, 2, 129, 1, 64),
+                            (2, 2, 200, 65, 128), (1, 4, 77, 64, 64),
+                            (2, 3, 1, 32, 64)):
+        q, k, v = bshd(b, h, sq, d), bshd(b, h, sk, d), bshd(b, h, sk, d)
+        for window in (None, 64):
+            e = bf16_ulp_err(
+                flash_attention(q, k, v, causal=False, window=window),
+                ref.mha_reference(q, k, v, causal=False, window=window),
+                1e-5)
+            edge.append(e)
+            if not e <= 1:
+                fail(f"flash_attention bf16 {(b, h, sq, sk, d)} non-causal "
+                     f"window={window} is {e} bf16 ulp (beyond 1e-5) from "
+                     "the plain version (limit 1)")
+    small = flash_f32_cases(randn, (
+        ((2, 3, 300, 70, 64), False, None), ((2, 3, 300, 70, 64), False, 64),
+        ((1, 2, 129, 1, 64), False, None), ((2, 2, 200, 65, 128), False, 64),
+        ((2, 2, 2048, 32, 64), False, None)))
+    print(f"flash_attention non-causal Sq >= Sk: bf16 {len(edge)} cases "
+          f"within {max(edge):.3f} bf16 ulp, f32 {len(small)} cases within "
+          f"{max(small):.2e} (atol 3e-5)", flush=True)
+    B, H, D, F = SERVE_BATCH, 16, 64, SRC_FRAMES
+    out = {}
+    for label, sq, sk in (("encoder", F, F), ("cross prefill", SEAMLESS_CTX,
+                                              F), ("cross decode", 1, F)):
+        q, k, v = bshd(B, H, sq, D), bshd(B, H, sk, D), bshd(B, H, sk, D)
+        got = flash_attention(q, k, v, causal=False)
+        want = ref.mha_reference(q, k, v, causal=False)
+        ulps = bf16_ulp_err(got, want, 1e-5)
+        err = float((got.float() - want.float()).abs().max())
+        if not ulps <= 1:
+            fail(f"flash_attention {label} ({B}, {H}, {sq}, {sk}, {D}) bf16 "
+                 f"is {ulps} bf16 ulp (beyond 1e-5) from the plain version "
+                 "(limit 1)")
+        del got, want
+        ms = time_ms(lambda: flash_attention(q, k, v, causal=False))
+        plain = time_ms(lambda: ref.mha_reference(q, k, v, causal=False))
+        lib = time_ms(lambda: F_.scaled_dot_product_attention(q, k, v))
+        # no causality: every query-key pair, 2 products of D each
+        ops_ms = 4 * B * H * sq * sk * D / BF16_OPS_PER_S * 1e3
+        byte_ms = B * H * (2 * sq + 2 * sk) * D * 2 / HBM_BYTES_PER_S * 1e3
+        out[label] = dict(shape=[B, H, sq, sk, D], ulps=ulps,
+                          max_abs_err=err, ms=ms, plain_ms=plain,
+                          library_ms=lib, bound_ms=max(ops_ms, byte_ms),
+                          bound_by="operations" if ops_ms >= byte_ms
+                          else "bytes")
+        print(f"flash_attention {label} ({B}, {H}, {sq}, {sk}, {D}) bf16 "
+              f"non-causal: {ulps:.3f} ulp (max err {err:.3e}); {ms:.4f} ms,"
+              f" plain {plain:.4f} ms, library {lib:.4f} ms, bound "
+              f"{out[label]['bound_ms']:.5f} ms by {out[label]['bound_by']}",
+              flush=True)
+        del q, k, v
+    torch.cuda.empty_cache()
+    return out
+
+
+def encdec_launches(cfg, gen: int) -> dict:
+    """The kernel launches of an encoder-decoder's prefill and ``gen -
+    1`` decode steps on the card.  Flash: at prefill each encoder
+    layer's self attention and each decoder layer's self and cross
+    attention; a decode step each decoder layer's cross attention (its
+    self attention against the cache is plain einsums).  RMSNorm: 2 an
+    encoder layer, ``enc_norm``, 3 a decoder layer and the final norm at
+    prefill; 3 a decoder layer and the final norm a step."""
+    E, L, steps = cfg.n_enc_layers, cfg.n_dec_layers, gen - 1
+    return dict(flash_attention=E + 2 * L + L * steps,
+                rmsnorm=2 * E + 1 + 3 * L + 1 + (3 * L + 1) * steps)
+
+
+def encdec_serving(dev) -> dict:
+    """Phase 4o: seamless-m4t-large-v2 at full width and depth (12
+    encoder and 12 decoder layers) through the serving launcher's load and
+    generate, batch 4, ctx 2048, 32 source frames, 16 tokens, the counts
+    set to 0 just before: the encoder's, the decoder's and the cross
+    attention's flash launches at prefill and the cross attention's at
+    every decode step, exactly as worked out from the config; then one
+    profiled warm prefill and decode step."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model, params, batch = serve.load(SEAMLESS, False, SERVE_BATCH,
+                                      SEAMLESS_CTX, dev)
+    cfg = model.cfg
+    leaves = tree_leaves(params)
+    n_params = sum(p.numel() for p in leaves)
+    n_bytes = sum(p.numel() * p.element_size() for p in leaves)
+    init_peak = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    E, L = cfg.n_enc_layers, cfg.n_dec_layers
+    want = encdec_launches(cfg, SERVE_GEN)
+    ops.reset_launch_counts()
+    res = serve.generate(model, params, batch, SERVE_GEN)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"serve [{SEAMLESS}, {E} + {L} layers, {n_params} parameters, "
+          f"{n_bytes} B]: launches {counts} (want {want}); prefill "
+          f"{res['prefill_s']:.4f} s, decode {res['decode_ms_per_step']:.3f}"
+          f" ms/step ({res['decode_tokens_per_s']:.1f} tokens/s); peak "
+          f"memory {peak / 2**30:.2f} GiB serving, {init_peak / 2**30:.2f} "
+          "GiB at init", flush=True)
+    for name, n in counts.items():
+        if n != want.get(name, 0):
+            fail(f"[serve {SEAMLESS}] {name} launched {n} times, want "
+                 f"{want.get(name, 0)}")
+    if tuple(res["tokens"].shape) != (SERVE_BATCH, SERVE_GEN) \
+            or not torch.isfinite(res["logits"]).all():
+        fail(f"[serve {SEAMLESS}] tokens {tuple(res['tokens'].shape)} or "
+             "non-finite logits")
+    out = dict(params=n_params, param_bytes=n_bytes, launches=counts,
+               prefill_s=res["prefill_s"],
+               decode_ms_per_step=res["decode_ms_per_step"],
+               peak_bytes=peak, init_peak_bytes=init_peak)
+    del res
+    traced = ("flash_attention_sm90_kernel", "rmsnorm_kernel")
+    with torch.inference_mode():
+        model.prefill(params, batch, capacity=SEAMLESS_CTX + SERVE_GEN)
+        holder = {}
+        prof, wall = profiled(dev, lambda: holder.update(out=model.prefill(
+            params, batch, capacity=SEAMLESS_CTX + SERVE_GEN)))
+        report_profile(f"{SEAMLESS} prefill", prof, wall, traced)
+        logits, cache = holder.pop("out")
+        tok = logits[:, -1:, :cfg.vocab_size].argmax(-1)
+        model.decode_step(params, tok, cache, SEAMLESS_CTX)      # warm
+        prof, wall = profiled(dev, lambda: model.decode_step(
+            params, tok, cache, SEAMLESS_CTX + 1))
+        report_profile(f"{SEAMLESS} decode", prof, wall, traced)
+        del logits, cache, holder
+    del model, params, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def encdec_trainer(dev) -> dict:
+    """Phase 4o: DCSGD-ASSS on seamless-m4t-large-v2 at full width and
+    depth (seq 256, global batch 8, each batch's 256 source frames from
+    ``batch_with_aux``); the launches of pack_words / unpack_words from
+    the bucket plan, worked out before the run."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.comm.bucket import build_bucket_plan
+    from repro_torch.configs import get_config
+    from repro_torch.core.compression import Compressor
+    from repro_torch.core.leafmath import plan_wire_bytes
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.utils import tree_flatten
+    comp = Compressor(gamma=0.01, method="block_topk")
+    model = build_model(get_config(SEAMLESS))
+    with FakeTensorMode():
+        fake = model.init(0)
+        shapes = [tuple(x.shape) for x in tree_leaves(fake)]
+        stacked = tree_flatten(model.stacked_mask(fake))[0]
+    plan = build_bucket_plan(shapes, stacked, comp)
+    codec = sum((b.index_bits < 32) + (comp.value_bits < 32)
+                for b in plan.buckets)
+    per_step = dict(ef_stats_telemetry=1, ef_apply=1, pack_words=codec,
+                    unpack_words=codec)
+    # the metric is JAX's f32 sum over the leaves in tree order
+    exact = step_wire_bytes(shapes, stacked, comp)
+    want_bytes = float(plan_wire_bytes(plan, comp)[0])
+    n_params = sum(int(np.prod(s)) for s in shapes)
+    print(f"trainer [{SEAMLESS}, {n_params} parameters] plan: "
+          f"{len(plan.leaves)} leaves, rows "
+          f"{sorted({ln.L for ln in plan.leaves})} (no leaf stacked), "
+          f"buckets {[(b.index_bits, len(b.leaf_ids)) for b in plan.buckets]}"
+          f", {plan.total_words} payload words, {exact} B a step (the f32 "
+          f"metric {want_bytes}); launches a step {per_step}", flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    log, params, state = train.run(SEAMLESS_ARGS
+                                   + ["--steps", str(SEAMLESS_STEPS)])
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"trainer [{SEAMLESS}]: launches {counts}; loss "
+          f"{[x['loss'] for x in log]}; alpha {[x['alpha'] for x in log]};"
+          f" n_evals {[x['n_evals'] for x in log]}; step_s "
+          f"{[round(x['step_s'], 4) for x in log]}; wire bytes "
+          f"{[x['wire_bytes'] for x in log]}; peak memory "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    for name, n in counts.items():
+        if n != per_step.get(name, 0) * SEAMLESS_STEPS:
+            fail(f"[{SEAMLESS} trainer] {name} launched {n} times in "
+                 f"{SEAMLESS_STEPS} steps, want "
+                 f"{per_step.get(name, 0) * SEAMLESS_STEPS}")
+    if not all(np.isfinite(x["loss"]) for x in log):
+        fail(f"[{SEAMLESS} trainer] non-finite loss")
+    if any(x["wire_bytes"] != want_bytes for x in log) \
+            or any(x["steps_skipped"] for x in log):
+        fail(f"[{SEAMLESS} trainer] wire bytes "
+             f"{[x['wire_bytes'] for x in log]} != {want_bytes}, or a step "
+             "was skipped")
+    dtypes = {p.dtype for p in tree_leaves(params)}
+    memory = {m.dtype for m in tree_leaves(state.memory)}
+    if dtypes != {torch.bfloat16} or memory != {torch.float32}:
+        fail(f"[{SEAMLESS} trainer] parameter dtypes {dtypes}, EF memory "
+             f"{memory}: want bf16 and f32")
+    del params, state
+    torch.cuda.empty_cache()
+    return dict(params=n_params, steps_s=[x["step_s"] for x in log],
+                loss=[x["loss"] for x in log], peak_bytes=peak,
+                wire_bytes=want_bytes, exact_wire_bytes=exact)
+
+
+def encdec_card_vs_cpu() -> None:
+    """Phase 4o: the seamless smoke (f32: the CUDA-core flash route, the
+    cross attention at 96 queries against 32 frames) served on the card
+    and on the CPU (equal tokens, logits within 1e-4 of max), and 2
+    trainer steps of it on both (equal bytes, losses within rel 1e-5)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    args = ["--arch", SEAMLESS, "--smoke", "--batch", "2", "--ctx", "96",
+            "--gen", "4"]
+    ops.reset_launch_counts()
+    card = serve.main(args)
+    launched = ops.launch_counts()
+    cpu = serve.main(args + ["--device", "cpu"])
+    err = float((card["logits"] - cpu["logits"]).abs().max())
+    tol = 1e-4 * float(cpu["logits"].abs().max())
+    want = encdec_launches(get_smoke_config(SEAMLESS), 4)
+    if not torch.equal(card["tokens"], cpu["tokens"]) or not err <= tol \
+            or any(launched[k] != n for k, n in want.items()):
+        fail(f"serve smoke {SEAMLESS} on the card (tokens "
+             f"{card['tokens'].tolist()}, launches {launched}) disagrees "
+             f"with the CPU ({cpu['tokens'].tolist()}): logits {err} > "
+             f"{tol}")
+    print(f"serve smoke {SEAMLESS} card vs cpu: tokens "
+          f"{card['tokens'].tolist()} equal, logits max diff {err:.3e} "
+          f"(limit {tol:.3e}); launches {launched}", flush=True)
+    smoke_trainer_card_vs_cpu(SEAMLESS)
 
 
 def main() -> None:
@@ -3727,6 +4027,8 @@ def main() -> None:
                  if int(np.prod(sh)) >= comp.min_compress_size]
     check_dense_selection(dev, gen, csgd_rows, k_b, paper_ks, report)
     check_serving_kernels(dev, report)
+    # flash without causality at seamless-m4t's shapes (reported in 4o)
+    encdec_flash = check_encdec_flash(dev)
     for name, r in report.items():
         byte_ms = r["bytes"] / HBM_BYTES_PER_S * 1e3
         ops_ms = r["ops"] / r.get("ops_per_s", F32_OPS_PER_S) * 1e3
@@ -3840,6 +4142,12 @@ def main() -> None:
     hybrid_summary["trainer"] = hybrid_trainer(dev)
     hybrid_card_vs_cpu(dev)
 
+    # ---- 4o. the encoder-decoder family: non-causal flash, seamless ------
+    encdec_summary = dict(flash=encdec_flash)
+    encdec_summary["serve"] = encdec_serving(dev)
+    encdec_summary["trainer"] = encdec_trainer(dev)
+    encdec_card_vs_cpu()
+
     # ---- 5. small input: the card against the CPU's plain path ----------
     small = ["--smoke", "--steps", "2", "--seq-len", "33", "--global-batch",
              "4", "--compress-method", "block_topk", "--log-every", "1"]
@@ -3919,6 +4227,7 @@ def main() -> None:
     print("cohort summary: " + json.dumps(cohort_summary), flush=True)
     print("moe summary: " + json.dumps(moe_summary), flush=True)
     print("hybrid summary: " + json.dumps(hybrid_summary), flush=True)
+    print("encdec summary: " + json.dumps(encdec_summary), flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """Config system (twin of ``src/repro/configs/base.py``): the fields the
 training and serving paths of the dense, MoE, SSM (Mamba2 and RWKV-6)
-and hybrid (Zamba2) LMs read, the federated cohort's included."""
+and hybrid (Zamba2) LMs and of the encoder-decoder (seamless-m4t) read,
+the federated cohort's included."""
 from __future__ import annotations
 
 import dataclasses
@@ -16,7 +17,7 @@ from repro_torch.core.gamma import GammaControllerConfig
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                   # dense | moe | ssm | hybrid
+    family: str                   # dense | moe | ssm | hybrid | encdec
     n_layers: int
     d_model: int
     n_heads: int
@@ -45,6 +46,9 @@ class ModelConfig:
     ssm_chunk: int = 256
     # --- hybrid (zamba2) ---
     shared_attn_every: int = 0    # >0: tied attn block every k ssm layers
+    # --- enc-dec ---
+    n_enc_layers: int = 0
+    n_dec_layers: int = 0
     rwkv_lora_rank: int = 64
     sliding_window: int = 0       # 0 = full attention
     # the int8 KV cache and rematerialisation are not ported: only the
@@ -61,10 +65,11 @@ class ModelConfig:
     citation: str = ""
 
     def __post_init__(self):
-        if self.family not in ("dense", "moe", "ssm", "hybrid"):
+        if self.family not in ("dense", "moe", "ssm", "hybrid", "encdec"):
             raise ValueError(f"model family {self.family!r} of "
                              f"{self.name!r} is not ported (the port has "
-                             "'dense', 'moe', 'ssm' and 'hybrid')")
+                             "'dense', 'moe', 'ssm', 'hybrid' and "
+                             "'encdec')")
         if self.moe_expert_parallel:
             raise ValueError(
                 "moe_expert_parallel=True: the expert-parallel shard_map "
@@ -448,7 +453,8 @@ def smoke_variant(cfg: ModelConfig) -> ModelConfig:
     query chunks of 64, LoRA rank 8 for RWKV, 4 experts top-2 of width 64
     at capacity factor 2 (E/k: C = T, drop-free) for MoE, SSM state 16
     and SSM heads of 32 for Mamba2, 5 layers with the shared block every
-    2 for the hybrid (JAX's ``smoke_variant`` less the fields the port
+    2 for the hybrid, 2 encoder and 2 decoder layers for the
+    encoder-decoder (JAX's ``smoke_variant`` less the fields the port
     does not read)."""
     kw = dict(n_layers=2, d_model=128, n_heads=4,
               n_kv_heads=min(cfg.n_kv_heads, 4) if cfg.n_kv_heads else 0,
@@ -461,6 +467,8 @@ def smoke_variant(cfg: ModelConfig) -> ModelConfig:
         kw.update(ssm_state=16, ssm_head_dim=32)
     if cfg.family == "hybrid":
         kw.update(n_layers=5, shared_attn_every=2)
+    if cfg.family == "encdec":
+        kw.update(n_enc_layers=2, n_dec_layers=2)
     if cfg.name.startswith("rwkv"):
         kw.update(rwkv_lora_rank=8)
     if cfg.sliding_window:

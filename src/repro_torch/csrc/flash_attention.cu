@@ -10,7 +10,12 @@
 // TPU kernel's: kpos < Sk, causal kpos <= qpos, window kpos > qpos -
 // window, masked logits set to NEG_INF = -1e30; KV tiles wholly outside
 // the causal/window band of a query tile are skipped by the loop bounds.
-// q * scale is formed in f32 before the product, as on the TPU.  bf16
+// Without causality Sq may exceed Sk (an encoder-decoder's cross
+// attention), so q_offset and the query positions may be negative: the
+// window's first tile clamps at 0 and the masks compare signed positions,
+// and every row keeps key Sk - 1, so none is empty.  (Causal Sq > Sk is
+// refused by the wrapper.)  q * scale is formed in f32 before the
+// product, as on the TPU.  bf16
 // inputs take flash_attention_sm90.cu (tensor cores); f32 stays here,
 // because no tensor-core format holds f32 operands exactly, and the f32
 // smoke serving runs compare the card's greedy tokens with the CPU's.

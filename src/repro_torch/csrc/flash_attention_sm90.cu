@@ -9,7 +9,15 @@
 // an f32 accumulator, o = acc / max(l, 1e-30).  Masks: kpos < Sk, causal
 // kpos <= qpos, window kpos > qpos - window; masked logits are -1e30.
 // KV tiles wholly outside a query tile's causal/window band are skipped
-// by the loop bounds.  f32 inputs stay on flash_attention.cu: no
+// by the loop bounds.  Without causality Sq may exceed Sk (an
+// encoder-decoder's cross attention: 2048 decoder positions against 32
+// encoder frames), so q_offset, q_start and the query positions may be
+// negative: the window's first tile clamps at 0, and the tile bounds,
+// the live test and the row masks compare signed positions, so they
+// hold as they are; every row keeps key Sk - 1, so none is empty.
+// (Causal Sq > Sk is refused by the wrapper.)  TMA zero-fills the K and
+// V rows of a tile past Sk (32 keys fill half of one 64-key tile), and
+// the mask drops them.  f32 inputs stay on flash_attention.cu: no
 // tensor-core format holds f32 operands exactly.
 //
 // Bound: at qwen1.5-4b prefill, (4, 20, 2048, 128) bf16 causal, the

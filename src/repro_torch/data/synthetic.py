@@ -1,7 +1,8 @@
 """Deterministic synthetic data (twin of ``src/repro/data/synthetic.py``).
 
 * ``TokenPipeline`` — LM token streams: Zipfian unigrams with an order-2
-  Markov mixing, deterministic per (seed, step, shard); with
+  Markov mixing, deterministic per (seed, step, shard), and an
+  encoder-decoder's source frames beside them (``batch_with_aux``); with
   ``dirichlet_alpha`` > 0 each shard's unigrams are tilted by a
   Dirichlet(alpha) reweighting keyed on (seed, shard) only — the
   federated cohort's non-IID clients (DESIGN.md §13);
@@ -76,6 +77,20 @@ class TokenPipeline:
                                   (base[:, t - 1] + base[:, t - 2]) % V,
                                   base[:, t])
         return {"tokens": torch.from_numpy(base.astype(np.int32))}
+
+    def batch_with_aux(self, step: int, cfg) -> dict:
+        """:meth:`batch` plus the stubbed modality input of an
+        encoder-decoder config: ``src_embed`` (local_batch, seq_len,
+        d_model) f32 standard normals from the ``(seed + 7, step, shard)``
+        stream, JAX's draw bit for bit (the port has no vlm family)."""
+        b = self.batch(step)
+        if cfg.family == "encdec":
+            rng = np.random.default_rng(
+                np.random.SeedSequence([self.seed + 7, step, self.shard]))
+            b["src_embed"] = torch.from_numpy(rng.standard_normal(
+                (self.local_batch, self.seq_len, cfg.d_model),
+                dtype=np.float32))
+        return b
 
 
 def interpolated_regression(n: int, d: int, *, feature_std: float = 1.0,

@@ -2,7 +2,13 @@
 
 Twin of ``src/repro/kernels/flash_attention.py``: online-softmax attention
 over KV tiles, causal and/or sliding window, queries at the trailing
-positions (offset Sk - Sq), f32 accumulation, output in q's type.  The
+positions (offset Sk - Sq), f32 accumulation, output in q's type.
+Without causality Sq may exceed Sk (an encoder-decoder's cross attention:
+the decoder's positions against the encoder's frames): the offset is
+then negative, which masks nothing without a window and leaves every
+row key Sk - 1 with one, so no row is empty.  Causal attention keeps
+Sq <= Sk: with Sq > Sk its first Sq - Sk rows would see no key at all
+(the plain version averages them uniformly, the kernels give 0).  The
 route is chosen by dtype, explicitly: bf16 takes the tensor-core kernel
 (``csrc/flash_attention_sm90.cu``: wgmma products, TMA loads, the scale
 applied to the f32 logits), f32 the CUDA-core kernel
@@ -50,20 +56,22 @@ def _check(name: str, t: torch.Tensor, like: torch.Tensor | None) -> None:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     window: int | None = None) -> torch.Tensor:
-    """q: (B, H, Sq, D); k, v: (B, H, Sk, D) with Sq <= Sk, D in
-    (32, 64, 112, 128), f32 or bf16 on one card (GQA heads broadcast by
-    the caller); logits scaled by 1/sqrt(D).  Returns (B, H, Sq, D) in
-    q's type."""
+    """q: (B, H, Sq, D); k, v: (B, H, Sk, D) with Sq <= Sk when
+    ``causal`` (any Sq >= 1 otherwise), D in (32, 64, 112, 128), f32 or
+    bf16 on one card (GQA heads broadcast by the caller); logits scaled
+    by 1/sqrt(D).  Returns (B, H, Sq, D) in q's type."""
     _check("q", q, None)
     _check("k", k, q)
     _check("v", v, q)
     B, H, Sq, D = q.shape
     Sk = k.shape[2]
     if tuple(k.shape) != (B, H, Sk, D) or tuple(v.shape) != (B, H, Sk, D) \
-            or D not in HEAD_DIMS or not 1 <= Sq <= Sk:
+            or D not in HEAD_DIMS or Sq < 1 or Sk < 1 \
+            or (causal and Sq > Sk):
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
-                         f"{tuple(k.shape)}, v {tuple(v.shape)}: want "
-                         f"Sq <= Sk and D in {HEAD_DIMS}")
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}, causal "
+                         f"{causal}: want Sq, Sk >= 1, Sq <= Sk when causal"
+                         f" and D in {HEAD_DIMS}")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window {window} < 1")
     _build.check_no_grad("flash_attention", q, k, v)

@@ -6,7 +6,8 @@
         --full --batch 4 --ctx 2048 --gen 16
 
 runs qwen1.5-4b at full width on the GPU (also ``--arch rwkv6-1.6b``,
-``granite-moe-1b-a400m``, ``qwen3-moe-30b-a3b`` or ``zamba2-7b``);
+``granite-moe-1b-a400m``, ``qwen3-moe-30b-a3b``, ``zamba2-7b`` or the
+encoder-decoder ``seamless-m4t-large-v2``);
 ``--smoke --device cpu`` runs the reduced variant on the CPU with the
 kernels' plain versions.  The config is built with ``use_pallas=True``:
 on the card that takes the flash-attention, RMSNorm and WKV kernels; on
@@ -19,7 +20,10 @@ Weights are random, from seed 0.  Smoke sizes are drawn on the CPU, so
 the seed gives the same weights on every device; ``--full`` draws them
 with the card's generator, since drawing 3.9 B values on the host would
 take longer than serving them.  The prompt is drawn from seed 7 on the
-CPU.  Everything runs under ``torch.inference_mode()``.
+CPU; an encoder-decoder's source, 32 frames of d_model standard normals
+(the stubbed audio frontend's output, JAX's serve's 32 frames), from the
+same generator after it.  Everything runs under
+``torch.inference_mode()``.
 """
 from __future__ import annotations
 
@@ -30,11 +34,13 @@ import time
 import torch
 
 from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.launch.train import resolve_device
+from repro_torch.launch.train import cut_depth, resolve_device
 from repro_torch.models import build_model
 
 ARCHS = ("qwen1.5-4b", "rwkv6-1.6b", "granite-moe-1b-a400m",
-         "qwen3-moe-30b-a3b", "zamba2-7b")
+         "qwen3-moe-30b-a3b", "zamba2-7b", "seamless-m4t-large-v2")
+#: encoder frames of an encoder-decoder's source (JAX's serve)
+SRC_FRAMES = 32
 
 
 def parse_args(argv=None):
@@ -53,17 +59,24 @@ def parse_args(argv=None):
 
 def load(arch: str, smoke: bool, batch: int, ctx: int, device,
          n_layers: int | None = None):
-    """(model, params, prompt (batch, ctx) on ``device``) for serving;
-    ``n_layers`` cuts the depth (the widths stay the config's)."""
+    """(model, params, the prefill batch on ``device``) for serving: the
+    batch holds the prompt ``tokens`` (batch, ctx) and, for an
+    encoder-decoder, ``src_embed`` (batch, SRC_FRAMES, d_model) f32.
+    ``n_layers`` cuts the depth (the widths stay the config's; an
+    encoder-decoder refuses it)."""
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     if n_layers is not None:
-        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        cfg = cut_depth(cfg, n_layers)
     model = build_model(dataclasses.replace(cfg, use_pallas=True))
     draw = "cpu" if smoke else device
     params = model.init(0, device=device, draw_device=draw)
     gen = torch.Generator().manual_seed(7)
-    prompt = torch.randint(0, cfg.vocab_size, (batch, ctx), generator=gen)
-    return model, params, prompt.to(device)
+    out = {"tokens": torch.randint(0, cfg.vocab_size, (batch, ctx),
+                                   generator=gen)}
+    if cfg.family == "encdec":
+        out["src_embed"] = torch.randn((batch, SRC_FRAMES, cfg.d_model),
+                                       generator=gen)
+    return model, params, {k: v.to(device) for k, v in out.items()}
 
 
 def sync(device) -> None:
@@ -71,20 +84,20 @@ def sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def generate(model, params, prompt: torch.Tensor, gen: int) -> dict:
-    """Prefill the prompt into caches of capacity ctx + gen, then ``gen -
-    1`` greedy decode steps.  Returns the tokens (batch, gen), the logits
-    of each step (gen, batch, vocab) f32 (the prefill's last position
-    first), prefill seconds and decode ms per step (host clock, each
-    ending in a device synchronise)."""
-    B, ctx = prompt.shape
-    dev = prompt.device
+def generate(model, params, batch: dict, gen: int) -> dict:
+    """Prefill ``batch`` (the prompt ``tokens`` (B, ctx), and an
+    encoder-decoder's ``src_embed``) into caches of capacity ctx + gen,
+    then ``gen - 1`` greedy decode steps.  Returns the tokens (batch,
+    gen), the logits of each step (gen, batch, vocab) f32 (the prefill's
+    last position first), prefill seconds and decode ms per step (host
+    clock, each ending in a device synchronise)."""
+    B, ctx = batch["tokens"].shape
+    dev = batch["tokens"].device
     vocab = model.cfg.vocab_size
     with torch.inference_mode():
         sync(dev)
         t0 = time.perf_counter()
-        logits, cache = model.prefill(params, {"tokens": prompt},
-                                      capacity=ctx + gen)
+        logits, cache = model.prefill(params, batch, capacity=ctx + gen)
         tok = logits[:, -1:, :vocab].argmax(-1)
         sync(dev)
         prefill_s = time.perf_counter() - t0
@@ -111,9 +124,9 @@ def main(argv=None) -> dict:
     dev = resolve_device(args.device)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    model, params, prompt = load(args.arch, args.smoke, args.batch,
-                                 args.ctx, dev)
-    res = generate(model, params, prompt, args.gen)
+    model, params, batch = load(args.arch, args.smoke, args.batch,
+                                args.ctx, dev)
+    res = generate(model, params, batch, args.gen)
     del params
     res.update(arch=args.arch, smoke=args.smoke, batch=args.batch,
                ctx=args.ctx, gen=args.gen, device=str(dev),

@@ -9,7 +9,9 @@ transports, its fault flags and its federated cohort's flags, plus
 
 runs DCSGD-ASSS on paper-lm-100m on the GPU (``--arch
 granite-moe-1b-a400m``: the MoE model, ``--arch zamba2-7b``: the hybrid
-Mamba2 model, both with bf16 parameters and JAX's f32 update);
+Mamba2 model, ``--arch seamless-m4t-large-v2``: the encoder-decoder,
+whose batches carry ``src_embed`` frames beside the tokens, all with
+bf16 parameters and JAX's f32 update);
 ``--smoke --device cpu`` runs the reduced variant on the CPU with the
 kernels' plain versions.
 Several GPUs: ``torchrun --nproc-per-node N -m repro_torch.launch.train
@@ -115,9 +117,19 @@ from repro_torch.core.health import check_divergence
 from repro_torch.data.synthetic import TokenPipeline
 from repro_torch.fed.sampling import participation_mask
 from repro_torch.launch.train_step import init_train_state, train_step
-from repro_torch.models import lm
+from repro_torch.models import build_model
 
 logger = logging.getLogger(__name__)
+
+
+def cut_depth(cfg, n_layers: int):
+    """``cfg`` at ``n_layers`` layers, its widths unchanged; raises for an
+    encoder-decoder (``n_layers`` is not its depth)."""
+    if cfg.family == "encdec":
+        raise ValueError(f"n_layers={n_layers}: {cfg.name} is an "
+                         "encoder-decoder, whose depth is n_enc_layers and "
+                         "n_dec_layers; cutting n_layers would cut nothing")
+    return dataclasses.replace(cfg, n_layers=n_layers)
 
 
 def resolve_device(name: str) -> torch.device:
@@ -139,7 +151,7 @@ def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="paper-lm-100m",
                     choices=["paper-lm-100m", "granite-moe-1b-a400m",
-                             "zamba2-7b"])
+                             "zamba2-7b", "seamless-m4t-large-v2"])
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced 2-layer variant of --arch")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -376,12 +388,14 @@ def run(argv=None, n_layers: int | None = None):
     """Run the CLI; returns ``(log, params, state)``: the logged metrics
     as :func:`main` returns them, and this worker's final parameters and
     ``TrainState``.  ``n_layers`` cuts the depth of ``--arch`` (the
-    widths stay the config's), as ``serve.load`` does."""
+    widths stay the config's), as ``serve.load`` does; an
+    encoder-decoder, whose depth is its ``n_enc_layers`` and
+    ``n_dec_layers``, refuses it."""
     args = parse_args(argv)
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if n_layers is not None:
-        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        cfg = cut_depth(cfg, n_layers)
     run_cfg = RunConfig(
         model=cfg, shape=ShapeConfig(args.seq_len, args.global_batch),
         microbatches=args.microbatches,
@@ -439,7 +453,7 @@ def run(argv=None, n_layers: int | None = None):
         if not fed.enabled and B % W:
             raise SystemExit(f"--global-batch {B} does not split over {W} "
                              "workers")
-        params = lm.init_params(cfg, seed=0, device=device)
+        params = build_model(cfg).init(0, device=device)
         state = init_train_state(params, run_cfg, W)
         start = 0
         if args.resume and args.ckpt_dir:
@@ -510,20 +524,22 @@ def run(argv=None, n_layers: int | None = None):
 
 
 def batch_source(run_cfg, W: int, rank: int, device):
-    """``step -> batch`` of this rank: its rows of the global batch; in a
-    cohort its C = n_clients / W clients' rows, ``tokens`` (C, rows,
-    seq) from clients ``rank*C ... rank*C + C - 1`` (client c is shard c
-    of the ``(fed.seed, step, shard)`` stream, Dirichlet-tilted), and
-    the round's whole (n_clients,) participation mask, built on the host
-    as JAX's trainer builds it."""
+    """``step -> batch`` of this rank: its rows of the global batch (every
+    key: ``tokens`` and, for an encoder-decoder, ``src_embed``, JAX's
+    ``batch_with_aux``); in a cohort its C = n_clients / W clients'
+    rows, each key stacked to (C, rows, ...) from clients ``rank*C ...
+    rank*C + C - 1`` (client c is shard c of the ``(fed.seed, step,
+    shard)`` stream, Dirichlet-tilted), and the round's whole
+    (n_clients,) participation mask, built on the host as JAX's trainer
+    builds it."""
     cfg, B = run_cfg.model, run_cfg.shape.global_batch
     fed = run_cfg.optimizer.federated
     if not fed.enabled:
         pipe = TokenPipeline(vocab_size=cfg.vocab_size,
                              seq_len=run_cfg.shape.seq_len, global_batch=B)
         rows = slice(rank * B // W, (rank + 1) * B // W)
-        return lambda step: {k: v[rows].to(device)
-                             for k, v in pipe.batch(step).items()}
+        return lambda step: {k: v[rows].to(device) for k, v in
+                             pipe.batch_with_aux(step, cfg).items()}
     C = fed.n_clients // W
     pipes = [TokenPipeline(
         vocab_size=cfg.vocab_size, seq_len=run_cfg.shape.seq_len,
@@ -532,8 +548,9 @@ def batch_source(run_cfg, W: int, rank: int, device):
         for c in range(rank * C, rank * C + C)]
 
     def make(step):
-        return {"tokens": torch.stack([p.batch(step)["tokens"]
-                                       for p in pipes]).to(device),
+        rows = [p.batch_with_aux(step, cfg) for p in pipes]
+        return {**{k: torch.stack([r[k] for r in rows]).to(device)
+                   for k in rows[0]},
                 "participation": participation_mask(
                     fed.n_clients, step, seed=fed.seed, mode=fed.sampling,
                     clients_per_round=fed.clients_per_round,

@@ -80,7 +80,8 @@ support-weighted, inside ``faults.active_faults`` when a campaign is
 set.  ``TrainState.fed`` carries the clients' EF memory, gamma, rounds
 and alpha (``TrainState.memory`` is None, as JAX keeps ``memory=()``);
 non-participants still compute and ship, and the mask discards them.
-The batch holds ``tokens`` (C, rows, seq) and ``participation``, the
+The batch holds ``tokens`` (C, rows, seq) (an encoder-decoder's
+``src_embed`` (C, rows, seq, d_model) beside it) and ``participation``, the
 (n_clients,) host mask of ``fed.sampling.participation_mask``.  The
 metrics are participation-weighted means (a true division by the
 participant count, as jitted JAX's), plus ``participants``;
@@ -125,7 +126,7 @@ from repro_torch.core.health import HealthState, advance_health, all_finite
 from repro_torch.core.telemetry import CompressionTelemetry, SearchTelemetry
 from repro_torch.fed.clients import ClientState, cohort_compress_aggregate, \
     init_client_state, local_participation
-from repro_torch.models import lm
+from repro_torch.models import build_model
 from repro_torch.utils import tree_flatten, tree_map, value_and_grad
 
 f32 = np.float32
@@ -179,9 +180,11 @@ def init_train_state(params, run_cfg, n_workers: int = 1) -> TrainState:
                                 opt.federated.n_clients // n_workers)
     downlink = overlap = gossip = None
     leaves = tree_flatten(params)[0]
-    # the geometry the exchange uses: leaf shapes and lm.stacked_mask
+    # the geometry the exchange uses: leaf shapes and the model's
+    # stacked_mask
     shapes = [p.shape for p in leaves]
-    stacked = tree_flatten(lm.stacked_mask(params))[0]
+    stacked = tree_flatten(
+        build_model(run_cfg.model).stacked_mask(params))[0]
     if opt.kind in COMPRESSING and opt.downlink == "compressed":
         downlink = init_downlink_state(
             shapes, stacked, opt.compressor,
@@ -218,13 +221,13 @@ def microbatch_mean(total: torch.Tensor, micro: int) -> torch.Tensor:
     return total.mul_(float(f32(1.0) / f32(micro)))
 
 
-def _accumulated_grads(params, batch: dict, cfg, micro: int):
+def _accumulated_grads(params, batch: dict, model, micro: int):
     """``(loss, grads, probe, f0)`` over ``micro`` row groups of the
     local batch: loss and grads summed in f32 from zero in microbatch
     order, then their mean; ``probe`` is the first microbatch and ``f0``
     its loss, where the Armijo search runs."""
     if micro == 1:
-        loss, grads = value_and_grad(lambda p: lm.loss_fn(p, batch, cfg),
+        loss, grads = value_and_grad(lambda p: model.loss(p, batch),
                                      params)
         return loss, grads, batch, loss
     n = next(iter(batch.values())).shape[0]
@@ -235,7 +238,7 @@ def _accumulated_grads(params, batch: dict, cfg, micro: int):
     loss_sum, grads, probe, f0 = None, None, None, None
     for i in range(micro):
         mb = {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
-        lo, g = value_and_grad(lambda p: lm.loss_fn(p, mb, cfg), params)
+        lo, g = value_and_grad(lambda p: model.loss(p, mb), params)
         if i == 0:
             probe, f0 = mb, lo
             loss_sum = torch.zeros((), dtype=torch.float32,
@@ -265,15 +268,15 @@ def train_step(params, state: TrainState, batch: dict, run_cfg, group=None):
     if opt.local_steps > 1 and opt.kind in LOCAL_STEP_KINDS:
         return _local_steps_step(params, state, batch, run_cfg, group,
                                  started)
-    cfg = run_cfg.model
+    model = build_model(run_cfg.model)
     # the spans split a step's host time for a profiler (chip_smoke.py)
     with record_function("train_step.grad"):
         loss, grads, probe, f0 = _accumulated_grads(
-            params, batch, cfg, run_cfg.microbatches)
+            params, batch, model, run_cfg.microbatches)
         gsq = tree_sqnorm(grads)
     if opt.kind in SEARCHING:
         with record_function("train_step.armijo"):
-            res = armijo_search(lambda p: lm.loss_fn(p, probe, cfg), params,
+            res = armijo_search(lambda p: model.loss(p, probe), params,
                                 grads, next_alpha_max(state.alpha_prev,
                                                       opt.armijo),
                                 opt.armijo, f0=f0, grad_sqnorm=gsq)
@@ -313,7 +316,7 @@ def train_step(params, state: TrainState, batch: dict, run_cfg, group=None):
             name, t_ctx = _transport(state, opt, started, group)
             out = worker_compress_aggregate(
                 send, state.memory, eta, opt.compressor, group,
-                stacked_mask=lm.stacked_mask(params), gamma_t=gamma_t,
+                stacked_mask=model.stacked_mask(params), gamma_t=gamma_t,
                 transport=name, transport_ctx=t_ctx, downlink_ctx=ctx)
             del send
             updates, new_mem, wire, eff, tel = out[:5]
@@ -389,7 +392,7 @@ def _local_steps_step(params, state: TrainState, batch: dict, run_cfg,
     ``alpha_prev = amax / omega`` and ``evals / H`` are products with a
     reciprocal, the running mean is ``local_evals_ema``."""
     opt = run_cfg.optimizer
-    cfg = run_cfg.model
+    model = build_model(run_cfg.model)
     H = opt.local_steps
     n = next(iter(batch.values())).shape[0]
     if n % H:
@@ -402,8 +405,8 @@ def _local_steps_step(params, state: TrainState, batch: dict, run_cfg,
     for i in range(H):
         mb = {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
         with record_function("train_step.local_step"):
-            lo, g = value_and_grad(lambda p: lm.loss_fn(p, mb, cfg), p_loc)
-            res = armijo_search(lambda p: lm.loss_fn(p, mb, cfg), p_loc, g,
+            lo, g = value_and_grad(lambda p: model.loss(p, mb), p_loc)
+            res = armijo_search(lambda p: model.loss(p, mb), p_loc, g,
                                 amax, opt.armijo, f0=lo,
                                 grad_sqnorm=tree_sqnorm(g))
             eta = float(f32(opt.armijo.a_scale) * res.alpha)
@@ -429,7 +432,7 @@ def _local_steps_step(params, state: TrainState, batch: dict, run_cfg,
         name, t_ctx = _transport(state, opt, started, group)
         out = worker_compress_aggregate(
             delta, state.memory, f32(1.0), opt.compressor, group,
-            stacked_mask=lm.stacked_mask(params), gamma_t=gamma_t,
+            stacked_mask=model.stacked_mask(params), gamma_t=gamma_t,
             transport=name, transport_ctx=t_ctx)
         del delta
         updates, new_mem, wire, eff, tel = out[:5]
@@ -522,15 +525,21 @@ def _finish_round(params, state: TrainState, run_cfg, group, *, loss, gsq,
         gossip=state.gossip if new_gs is None else new_gs), metrics
 
 
+def _client_rows(batch: dict, c: int) -> dict:
+    """Client c's rows of a cohort batch: every key but the mask."""
+    return {k: v[c] for k, v in batch.items() if k != "participation"}
+
+
 def _cohort_step(params, state: TrainState, batch: dict, run_cfg,
                  group=None):
     """The twin of JAX's ``_federated_worker``: one cohort round of this
     worker's C clients (module docstring).  ``batch``: ``tokens`` (C,
-    rows, seq), client c's rows at ``tokens[c]``, and ``participation``,
+    rows, seq) and, for an encoder-decoder, ``src_embed`` (C, rows, seq,
+    d_model), client c's rows at index c of each, and ``participation``,
     the (n_clients,) mask.  ``group``: the data-parallel group (None:
     the default group)."""
     opt = run_cfg.optimizer
-    cfg = run_cfg.model
+    model = build_model(run_cfg.model)
     fed, arm = opt.federated, opt.armijo
     fst = state.fed
     C = fst.gamma.shape[0]
@@ -547,8 +556,8 @@ def _cohort_step(params, state: TrainState, batch: dict, run_cfg,
     losses, gsqs, grads_c = [], [], None
     with record_function("train_step.grad"):
         for c in range(C):
-            mb = {"tokens": tokens[c]}
-            lo, g = value_and_grad(lambda p: lm.loss_fn(p, mb, cfg), params)
+            mb = _client_rows(batch, c)
+            lo, g = value_and_grad(lambda p: model.loss(p, mb), params)
             if grads_c is None:
                 grads_c = tree_map(lambda x: torch.empty(
                     (C,) + tuple(x.shape), dtype=x.dtype,
@@ -576,9 +585,9 @@ def _cohort_step(params, state: TrainState, batch: dict, run_cfg,
         alpha_c, evals_c = [], []
         with record_function("train_step.armijo"):
             for c in range(C):
-                mb = {"tokens": tokens[c]}
+                mb = _client_rows(batch, c)
                 res = armijo_search(
-                    lambda p: lm.loss_fn(p, mb, cfg), params,
+                    lambda p: model.loss(p, mb), params,
                     tree_map(lambda x: x[c], grads_c),
                     next_alpha_max(f32(fst.alpha[c]), arm), arm,
                     f0=losses[c], grad_sqnorm=gsqs[c])
@@ -597,7 +606,7 @@ def _cohort_step(params, state: TrainState, batch: dict, run_cfg,
         with scope:
             updates, new_mem, wire, eff, quar = cohort_compress_aggregate(
                 grads_c, fst.memory, eta_c, opt.compressor, group, mask,
-                gamma_used, stacked_mask=lm.stacked_mask(params),
+                gamma_used, stacked_mask=model.stacked_mask(params),
                 aggregation=fed.aggregation, return_quarantined=True)
         del grads_c
 

@@ -49,6 +49,9 @@ class DecodeCache(NamedTuple):
     ssm: Any = ()         # rwkv.RWKVState / ssm.SSMState of (L, ...) or,
     #                       hybrid, (groups, every, ...) tensors
     tail_ssm: Any = ()    # hybrid: ssm.SSMState of the (tail, ...) layers
+    cross_kv: Any = ()    # encdec: attn.KVCache of the decoder layers' cross
+    #                       K/V over the encoder output, (L, B, S_enc, H_kv,
+    #                       hd)
 
 
 def init_params(cfg, seed: int = 0, device="cpu", draw_device="cpu"):
@@ -150,7 +153,7 @@ def _dense_block(p, x, cfg):
 def _dense_block_decode(p, x, kv, cur_len, cfg):
     h, _ = attn.decode_attention_block(
         p["attn"], rms_norm(p["attn_norm"], x, cfg.norm_eps, cfg.use_pallas),
-        kv, cur_len, cfg)
+        kv, cur_len, cfg, window=cfg.sliding_window or None)
     x = x + h
     hn = rms_norm(p["mlp_norm"], x, cfg.norm_eps, cfg.use_pallas)
     if cfg.family == "moe":

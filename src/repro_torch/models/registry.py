@@ -1,16 +1,16 @@
 """Model registry (twin of ``src/repro/models/registry.py``): one uniform
-API over the port's decoder-only families.
+API over the port's decoder-only and encoder-decoder families.
 
 ``build_model(cfg)`` returns a ``Model`` with ``init / loss / prefill /
-decode_step / init_cache / stacked_mask``; the serving launcher and the
-tests go through this object.
+decode_step / init_cache / stacked_mask``; the serving launcher, the
+trainer and the tests go through this object.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable
 
-from . import lm
+from . import encdec, lm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -25,6 +25,21 @@ class Model:
 
 
 def build_model(cfg) -> Model:
+    if cfg.family == "encdec":
+        return Model(
+            cfg=cfg,
+            init=lambda seed=0, **kw: encdec.init_params(cfg, seed, **kw),
+            loss=lambda p, b: encdec.loss_fn(p, b, cfg),
+            prefill=lambda p, b, **kw: encdec.prefill(p, b, cfg, **kw),
+            decode_step=lambda p, t, c, n, **kw: encdec.decode_step(
+                p, t, c, n, cfg, **kw),
+            init_cache=lambda B, capacity, s_enc=None, device="cpu":
+                encdec.init_cache(cfg, B, capacity, s_enc or capacity,
+                                  device),
+            # JAX's registry gives the encoder-decoder lm.stacked_mask,
+            # which marks none of its leaves
+            stacked_mask=lm.stacked_mask,
+        )
     return Model(
         cfg=cfg,
         init=lambda seed=0, **kw: lm.init_params(cfg, seed, **kw),

@@ -501,6 +501,50 @@ def test_flash_attention_tensor_core_route_takes_broadcast_heads(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B,H,Sq,Sk,D", [(4, 16, 2048, 32, 64),
+                                         (2, 3, 300, 70, 64),
+                                         (2, 3, 300, 70, 128),
+                                         (1, 2, 200, 65, 128),
+                                         (1, 2, 129, 1, 64),
+                                         (4, 16, 1, 32, 64),
+                                         (2, 2, 1, 32, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 64])
+def test_flash_attention_non_causal_beyond_sk_on_card(cuda, B, H, Sq, Sk, D,
+                                                      dtype, window):
+    """Without causality Sq may exceed Sk (the encoder-decoder's cross
+    attention at prefill: seamless-m4t's 2048 decoder positions against
+    32 encoder frames), a negative query offset, on both routes; and one
+    query against 32 keys (the cross attention at decode).  The window
+    stays JAX's one-sided ``kpos > qpos - w``."""
+    if dtype == torch.bfloat16:
+        q, k, v = _bshd_views(Sq * 3 + Sk + D, B, H, Sq, Sk, D, cuda)
+    else:
+        q, k, v = _qkv(Sq * 3 + Sk + D, B, H, Sq, Sk, D, dtype, cuda)
+    got = flash_attention(q, k, v, causal=False, window=window)
+    want = ref.mha_reference(q, k, v, causal=False, window=window)
+    assert got.dtype == dtype and got.shape == want.shape
+    if dtype == torch.bfloat16:
+        assert _bf16_ulp_err(got, want, 1e-5) <= 1
+    else:
+        torch.testing.assert_close(got, want, rtol=0, atol=3e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_refuses_causal_beyond_sk_on_card(cuda, dtype):
+    """Causal with Sq > Sk stays refused: its first Sq - Sk rows see no
+    key (the plain version averages them, the kernels would give 0)."""
+    q, k, v = _qkv(4, 1, 2, 70, 32, 64, dtype, cuda)
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="Sq <= Sk when causal"):
+        flash_attention(q, k, v, causal=True)
+    assert flash_attention.launches == before
+    flash_attention(q, k, v, causal=False)
+    assert flash_attention.launches == before + 1
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype,kernel", [
     (torch.float32, "flash_attention_kernel"),
     (torch.bfloat16, "flash_attention_sm90_kernel")])

@@ -113,6 +113,7 @@ class Case:
     local_steps: int = 1
     topology: str = "ring"        # read under transport="gossip"
     arch: str = ARCH              # the smoke variant of this config
+    micro: int = 1                # microbatches of a one-step round
 
     def comp_kw(self):
         return dict(gamma=self.gamma, method="block_topk",
@@ -132,7 +133,7 @@ class Case:
         return RunConfig(
             model=get_smoke_config(self.arch),
             shape=ShapeConfig(SEQ, BATCH),
-            microbatches=self.local_steps,
+            microbatches=max(self.local_steps, self.micro),
             optimizer=OptimizerConfig(
                 overlap=OverlapConfig(**self.overlap()),
                 gossip=GossipConfig(topology=self.topology),
@@ -293,11 +294,32 @@ def jax_step(case: Case):
             return local_round(params, mem, vel, dl_mem, ctx, batch, ov)
         (alpha_prev, ema, gamma_prev, t, tel_prev, health, dl_gamma_prev,
          cum_eff) = ctx
-        loss, grads = jax.value_and_grad(local_loss)(params, batch)
+        # worker_fn:664-682: the microbatch sum, every key of the batch
+        # split, and the search on the first microbatch
+        if case.micro > 1:
+            M = case.micro
+            mbs = jax.tree.map(
+                lambda x: x.reshape(M, x.shape[0] // M, *x.shape[1:]), batch)
+            probe = jax.tree.map(lambda x: x[0], mbs)
+
+            def acc(carry, mb):
+                lo, g = jax.value_and_grad(local_loss)(params, mb)
+                cl, cg = carry
+                return (cl + lo, jax.tree.map(jnp.add, cg, g)), None
+
+            zero_g = jax.tree.map(
+                lambda p: jnp.zeros(p.shape, jnp.float32), params)
+            (loss_sum, grads), _ = jax.lax.scan(
+                acc, (jnp.float32(0.0), zero_g), mbs)
+            loss = loss_sum / M
+            grads = jax.tree.map(lambda g: g / M, grads)
+        else:
+            probe = batch
+            loss, grads = jax.value_and_grad(local_loss)(params, batch)
         gsq = jsqnorm(grads)
         # worker_fn:685-719
         if case.kind == "csgd_asss":
-            res = jarmijo(lambda p: local_loss(p, batch), params, grads,
+            res = jarmijo(lambda p: local_loss(p, probe), params, grads,
                           jnext_alpha_max(alpha_prev, arm), arm,
                           grad_sqnorm=gsq)
             new_alpha = res.alpha
@@ -495,7 +517,7 @@ def run_both(case: Case, steps: int = STEPS):
                          global_batch=BATCH)
     log = []
     for t in range(steps):
-        batch = pipe.batch(t)
+        batch = pipe.batch_with_aux(t, run.model)
         tparams = to_torch(jax.tree.map(np.asarray, params))
         state = dataclasses.replace(
             state, memory=to_torch(jax.tree.map(np.asarray, mem)))
@@ -509,7 +531,7 @@ def run_both(case: Case, steps: int = STEPS):
             state = dataclasses.replace(state, overlap=to_port_overlap(ov))
         (params, mem, vel, dl_mem, ctx, jm, _, ov) = jstep(
             params, mem, vel, dl_mem, ctx,
-            {"tokens": jnp.asarray(batch["tokens"])}, ov)
+            {k: jnp.asarray(v.numpy()) for k, v in batch.items()}, ov)
         params, mem, vel, dl_mem, ov, ctx = _copy((params, mem, vel, dl_mem,
                                                    ov, ctx))
         tparams, state, m = train_step(tparams, state, batch, run)
@@ -798,6 +820,7 @@ class FedCase:
     value_bits: int = 32
     eta: float = 0.1
     faults: tuple = ()
+    arch: str = ARCH              # the smoke variant of this config
 
     def comp_kw(self):
         return dict(gamma=self.gamma, method="block_topk",
@@ -817,7 +840,8 @@ class FedCase:
         from repro_torch.comm.faults import FaultConfig
         from repro_torch.configs.base import FederatedConfig
         return RunConfig(
-            model=get_smoke_config(ARCH), shape=ShapeConfig(SEQ, FED_BATCH),
+            model=get_smoke_config(self.arch),
+            shape=ShapeConfig(SEQ, FED_BATCH),
             optimizer=OptimizerConfig(
                 kind=self.kind, eta=self.eta,
                 compressor=Compressor(**self.comp_kw()),
@@ -833,14 +857,29 @@ class FedCase:
             clients_per_round=self.clients_per_round, rate=self.rate,
             straggler_rate=self.straggler)
 
+    def _pipes(self):
+        return [TokenPipeline(
+            vocab_size=jax_smoke_config(self.arch).vocab_size, seq_len=SEQ,
+            global_batch=FED_BATCH, n_shards=self.n_clients, shard=c,
+            dirichlet_alpha=self.dirichlet_alpha)
+            for c in range(self.n_clients)]
+
     def tokens(self, t):
         """(n_clients, rows, SEQ) int32: client c is shard c of the
         (seed 0, step, shard) stream, Dirichlet-tilted, as the CLI's."""
-        return np.stack([TokenPipeline(
-            vocab_size=jax_smoke_config(ARCH).vocab_size, seq_len=SEQ,
-            global_batch=FED_BATCH, n_shards=self.n_clients, shard=c,
-            dirichlet_alpha=self.dirichlet_alpha).batch(t)["tokens"].numpy()
-            for c in range(self.n_clients)])
+        return np.stack([p.batch(t)["tokens"].numpy()
+                         for p in self._pipes()])
+
+    def aux(self, t) -> dict:
+        """The batch's other keys, stacked per client as the CLI stacks
+        them: an encoder-decoder's ``src_embed`` (n_clients, rows, SEQ,
+        d_model) f32; {} for the other families."""
+        cfg = get_smoke_config(self.arch)
+        if cfg.family != "encdec":
+            return {}
+        return {"src_embed": np.stack(
+            [p.batch_with_aux(t, cfg)["src_embed"].numpy()
+             for p in self._pipes()])}
 
 
 def _jax_cohort_round(case: FedCase):
@@ -852,7 +891,7 @@ def _jax_cohort_round(case: FedCase):
     from repro.comm.faults import FaultConfig as JFaultConfig
     from repro.comm.faults import active_faults as jactive_faults
     from repro.fed.clients import cohort_compress_aggregate as jcohort
-    model, _ = jax_model()
+    model, _ = jax_model(case.arch)
     comp = JCompressor(**case.comp_kw())
     arm = JArmijo()
     ctrl = JGammaCfg(schedule=case.schedule, ramp_steps=2)
@@ -861,10 +900,10 @@ def _jax_cohort_round(case: FedCase):
     def local_loss(params, batch):
         return model.loss(params, batch)[0]
 
-    def step(params, fst, ctx, tokens, mask):
+    def step(params, fst, ctx, tokens, mask, aux):
         memory, gamma, rounds, alpha = fst
         t, health, cum_eff = ctx
-        cbatch = {"tokens": tokens}
+        cbatch = {"tokens": tokens, **aux}
         pl = mask
         n_part = jnp.maximum(jnp.sum(mask), 1.0)
 
@@ -935,13 +974,13 @@ def jax_cohort_rounds(cases: tuple):
     ONE jitted program over all of them (one compile), each case from
     JAX's initial weights and the zero client state: {case: [(inputs,
     outputs) per round]} as NumPy, the inputs the round's (params, fst,
-    ctx, tokens, mask)."""
-    model, params = jax_model()
+    ctx, tokens, mask, aux)."""
     fns = [_jax_cohort_round(case) for case in cases]
     # keyed by position: a pytree's dict keys must sort
     fn = jax.jit(lambda ins: {i: f(*ins[i]) for i, f in enumerate(fns)})
     carry = {}
     for case in cases:
+        params = jax_model(case.arch)[1]
         comp = JCompressor(**case.comp_kw())
         n = case.n_clients
         fst = (jax.tree.map(lambda p: jnp.zeros((n,) + p.shape, p.dtype),
@@ -956,7 +995,9 @@ def jax_cohort_rounds(cases: tuple):
     rounds = {case: [] for case in cases}
     for t in range(STEPS):
         ins = [carry[case] + (jnp.asarray(case.tokens(t)),
-                              jnp.asarray(case.mask(t))) for case in cases]
+                              jnp.asarray(case.mask(t)),
+                              jax.tree.map(jnp.asarray, case.aux(t)))
+               for case in cases]
         outs = fn(dict(enumerate(ins)))
         for i, case in enumerate(cases):
             rounds[case].append((_np(ins[i]), _np(outs[i])))
@@ -964,15 +1005,17 @@ def jax_cohort_rounds(cases: tuple):
     return rounds
 
 
-def armijo_sides(params, grads, tokens, alpha, run):
-    """Both sides of the Armijo condition at ``alpha`` on the port:
-    (f(x - alpha g), f(x) - sigma alpha ||g||^2), for a message."""
+def armijo_sides(params, grads, mb, alpha, run):
+    """Both sides of the Armijo condition at ``alpha`` on the port, for
+    the client batch ``mb``: (f(x - alpha g), f(x) - sigma alpha
+    ||g||^2), for a message."""
     from repro_torch.core.armijo import tree_sqnorm
+    from repro_torch.models import build_model as tbuild_model
     from repro_torch.utils import tree_map as ttree_map
-    mb = {"tokens": tokens}
-    f0 = lm.loss_fn(params, mb, run.model)
+    loss = tbuild_model(run.model).loss
+    f0 = loss(params, mb)
     cand = ttree_map(lambda p, g: p - float(alpha) * g, params, grads)
-    return (float(lm.loss_fn(cand, mb, run.model)),
+    return (float(loss(cand, mb)),
             float(f32(float(f0)) - f32(0.1) * f32(alpha)
                   * f32(float(tree_sqnorm(grads)))))
 
@@ -989,7 +1032,7 @@ def run_fed_both(case: FedCase, cases: tuple):
     log = []
     state = None
     for t, (ins, outs) in enumerate(jax_cohort_rounds(cases)[case]):
-        params, fst, ctx, tokens, mask = ins
+        params, fst, ctx, tokens, mask, aux = ins
         new_params, new_fst, new_ctx, jm = outs
         tparams = to_torch(params)
         if state is None:
@@ -999,9 +1042,10 @@ def run_fed_both(case: FedCase, cases: tuple):
             memory=to_torch(fst[0]), gamma=torch.from_numpy(fst[1]),
             rounds=torch.from_numpy(fst[2]),
             alpha=torch.from_numpy(fst[3])))
+        batch = {"tokens": torch.from_numpy(tokens),
+                 **{k: torch.from_numpy(v) for k, v in aux.items()}}
         tp, state, m = train_step(
-            tparams, state, {"tokens": torch.from_numpy(tokens),
-                             "participation": mask}, run)
+            tparams, state, {**batch, "participation": mask}, run)
         log.append(m)
         where = f"{case} round {t}"
         np.testing.assert_allclose(m["loss"], float(jm["loss"]),
@@ -1013,9 +1057,10 @@ def run_fed_both(case: FedCase, cases: tuple):
         for c in range(case.n_clients):
             a, b = float(state.fed.alpha[c]), float(new_fst[3][c])
             if abs(a - b) > 1e-5 * abs(b):
-                mb = torch.from_numpy(tokens[c])
-                _, g = value_and_grad(lambda p: lm.loss_fn(
-                    p, {"tokens": mb}, run.model), tparams)
+                from repro_torch.models import build_model as tbuild_model
+                mb = {k: v[c] for k, v in batch.items()}
+                _, g = value_and_grad(lambda p: tbuild_model(
+                    run.model).loss(p, mb), tparams)
                 raise AssertionError(
                     f"{where} client {c}: alpha {a} vs JAX {b}; "
                     f"Armijo sides (f_try, rhs) at the port's alpha "
