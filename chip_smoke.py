@@ -261,6 +261,35 @@ Phases, each fatal on failure (no phase catches and continues):
    memory; the seamless smoke served on the card and on the CPU (equal
    tokens, logits within 1e-4 of max, 12 flash launches through the f32
    route) and trained 2 steps on both (equal bytes, losses rel 1e-5);
+4p. the vlm family: flash attention's bf16 route at
+   llama-3.2-vision-11b's three shapes, (4, 32, Sq, Sk, 128) with the 8
+   kv heads broadcast by the model: the causal self attention at prefill
+   (2048 x 2048), the cross attention at prefill (2048 queries against
+   4096 patches, more keys than queries without causality) and at
+   decode (1 x 4096), each against its plain version (1 bf16 ulp beyond
+   1e-5) and timed beside it, ``F.scaled_dot_product_attention`` and its
+   bound, and RMSNorm at d 4096 at (8192, 4096) and (4, 4096) bf16 the
+   same way beside ``F.rms_norm``; llama-3.2-vision-11b at full width
+   and depth (40 dense layers in 8 groups, each followed by a gated
+   cross-attention block; 11.52 B parameters) through ``serve.load`` and
+   ``serve.generate``, batch 4, ctx 2048, 4096 patches, 16 tokens, its
+   gates (0 at init) set to [0.5, 1) from seed 11: exactly 40 + 8 + 8 x
+   15 = 168 flash-attention and 97 x 16 = 1552 RMSNorm launches and no
+   other kernel, finite logits, a second image moving the prefill's
+   logits by more than the same image does run to run and than 1 bf16
+   ulp of max, and not at all with the gates at 0, prefill seconds, decode ms a step
+   and peak memory, one profiled warm prefill and decode step and the
+   decode step's broadcast of the cross K/V (``_expand_kv``) timed
+   alone; the trainer at full width on one group (``train.run(...,
+   n_layers=5)``, the gates live; seq 256, global batch 8, 4096 patches
+   a row, ``block_topk``, gamma 0.01) for 3 steps: one
+   ``ef_stats_telemetry`` and one ``ef_apply`` a step and the bucket
+   plan's ``pack_words`` / ``unpack_words``, no other kernel, finite
+   losses, the plan's bytes every step, bf16 parameters with f32 gates,
+   f32 EF memory, peak memory; the vlm smoke, gates live, served on the
+   card and on the CPU (equal tokens, logits within 1e-4 of max, 12
+   flash launches through the f32 route) and trained 2 steps on both
+   (equal bytes, losses rel 1e-5);
 5. run the 2-layer smoke variants on the card and on the CPU (the plain
    versions, which the CPU tests hold against the JAX package), through
    the trainer for 2 steps (``--opt csgd_asss``, ``nonadaptive``,
@@ -284,6 +313,7 @@ when the repository's ``src/repro_torch`` is not beside it.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import re
@@ -394,6 +424,12 @@ ZAMBA_ARGS = ["--arch", ZAMBA] + MOE_ARGS[2:]
 #: trained at full width and depth (12 + 12 layers), ctx 2048
 SEAMLESS, SEAMLESS_CTX, SEAMLESS_STEPS = "seamless-m4t-large-v2", 2048, 3
 SEAMLESS_ARGS = ["--arch", SEAMLESS] + MOE_ARGS[2:]
+#: phase 4p: the vlm family, llama-3.2-vision-11b served at full width
+#: and depth at ctx 2048 and trained at full width on one group (5 of its
+#: 40 dense layers and 1 of its 8 cross blocks); the seed of its gates
+VLM, VLM_CTX, VLM_LAYERS, VLM_STEPS = "llama-3.2-vision-11b", 2048, 5, 3
+VLM_ARGS = ["--arch", VLM] + MOE_ARGS[2:]
+VLM_GATE_SEED = 11
 
 
 def fail(msg: str) -> None:
@@ -3872,6 +3908,383 @@ def encdec_card_vs_cpu() -> None:
     smoke_trainer_card_vs_cpu(SEAMLESS)
 
 
+def live_gates(params, seed: int = VLM_GATE_SEED) -> None:
+    """Set a vlm's cross-block gates, in place, to values in [0.5, 1)
+    drawn on the CPU from ``seed``.  They start at 0, as JAX's do, and
+    ``tanh(0) = 0`` leaves a fresh model's stream untouched by its
+    image."""
+    gen = torch.Generator().manual_seed(seed)
+    for k in ("gate_attn", "gate_mlp"):
+        g = params["cross"][k]
+        g.copy_(torch.rand(g.shape, generator=gen) * 0.5 + 0.5)
+
+
+@contextlib.contextmanager
+def trainer_live_gates():
+    """The trainer's model (``launch.train``'s ``build_model``) with a
+    vlm's init followed by :func:`live_gates`; other families as they
+    are."""
+    from repro_torch.launch import train
+    build = train.build_model
+
+    def with_gates(cfg):
+        model = build(cfg)
+        if cfg.family != "vlm":
+            return model
+
+        def init(seed=0, **kw):
+            params = model.init(seed, **kw)
+            live_gates(params)
+            return params
+        return dataclasses.replace(model, init=init)
+    train.build_model = with_gates
+    try:
+        yield
+    finally:
+        train.build_model = build
+
+
+def vlm_launches(cfg, gen: int) -> dict:
+    """The kernel launches of a vlm's prefill and ``gen - 1`` decode
+    steps on the card.  Flash: at prefill each dense layer's causal self
+    attention and each cross block's attention into the patches; a
+    decode step each cross block's (the self attention against the cache
+    is plain einsums).  RMSNorm: 2 a dense layer, 2 a cross block and
+    the final norm, at prefill and at every step."""
+    groups = cfg.n_layers // cfg.cross_attn_every
+    return dict(flash_attention=cfg.n_layers + groups + groups * (gen - 1),
+                rmsnorm=(2 * cfg.n_layers + 2 * groups + 1) * gen)
+
+
+def check_vlm_kernels(dev) -> dict:
+    """Phase 4p: flash attention's bf16 route at llama-3.2-vision-11b's
+    three shapes, (4, 32, Sq, Sk, 128) through the strided views the
+    model hands over, the 8 kv heads broadcast by the model's own
+    ``_expand_kv``: the causal self attention at prefill (2048 x 2048),
+    the cross attention at prefill (2048 queries against 4096 patches:
+    more keys than queries, no causality) and at decode (1 x 4096), each
+    against its plain version (1 bf16 ulp beyond 1e-5) and timed beside
+    it, ``F.scaled_dot_product_attention`` and its bound; RMSNorm at d
+    4096, the register body's upper edge, at the prefill's (8192, 4096)
+    and a decode step's (4, 4096) bf16 rows the same way beside
+    ``F.rms_norm``."""
+    import torch.nn.functional as F_
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.models.attention import _expand_kv
+    gen = torch.Generator(device=dev).manual_seed(23)
+    B, H, Hkv, D = SERVE_BATCH, 32, 8, 128
+    out = {}
+    for label, sq, sk, causal in (("self prefill", VLM_CTX, VLM_CTX, True),
+                                  ("cross prefill", VLM_CTX, 4096, False),
+                                  ("cross decode", 1, 4096, False)):
+        q, k, v = (torch.randn((B, s, h, D), generator=gen, device=dev)
+                   .to(torch.bfloat16) for s, h in ((sq, H), (sk, Hkv),
+                                                     (sk, Hkv)))
+        q = q.transpose(1, 2)
+        k, v = (_expand_kv(t, H).transpose(1, 2) for t in (k, v))
+        got = flash_attention(q, k, v, causal=causal)
+        want = ref.mha_reference(q, k, v, causal=causal)
+        ulps = bf16_ulp_err(got, want, 1e-5)
+        err = float((got.float() - want.float()).abs().max())
+        if not ulps <= 1:
+            fail(f"flash_attention {label} ({B}, {H}, {sq}, {sk}, {D}) bf16 "
+                 f"causal={causal} is {ulps} bf16 ulp (beyond 1e-5) from "
+                 "the plain version (limit 1)")
+        del got, want
+        ms = time_ms(lambda: flash_attention(q, k, v, causal=causal))
+        plain = time_ms(lambda: ref.mha_reference(q, k, v, causal=causal),
+                        reps=5, warmup=1)
+        lib = time_ms(lambda: F_.scaled_dot_product_attention(
+            q, k, v, is_causal=causal))
+        # 2 products of D a query-key pair; causal: half of them
+        ops_ms = (2 if causal else 4) * B * H * sq * sk * D \
+            / BF16_OPS_PER_S * 1e3
+        byte_ms = B * H * (2 * sq + 2 * sk) * D * 2 / HBM_BYTES_PER_S * 1e3
+        out[label] = dict(shape=[B, H, sq, sk, D], causal=causal, ulps=ulps,
+                          max_abs_err=err, ms=ms, plain_ms=plain,
+                          library_ms=lib, bound_ms=max(ops_ms, byte_ms),
+                          bound_by="operations" if ops_ms >= byte_ms
+                          else "bytes")
+        print(f"flash_attention vlm {label} ({B}, {H}, {sq}, {sk}, {D}) "
+              f"bf16 causal={causal}: {ulps:.3f} ulp (max err {err:.3e}); "
+              f"{ms:.4f} ms, plain {plain:.4f} ms, library {lib:.4f} ms, "
+              f"bound {out[label]['bound_ms']:.5f} ms by "
+              f"{out[label]['bound_by']}", flush=True)
+        del q, k, v
+        torch.cuda.empty_cache()
+    d = 4096
+    for rows in (SERVE_BATCH * VLM_CTX, SERVE_BATCH):
+        x = torch.randn((rows, d), generator=gen, device=dev).to(
+            torch.bfloat16)
+        w = torch.randn((d,), generator=gen, device=dev).to(torch.bfloat16)
+        got, want = rmsnorm(x, w, 1e-5), ref.rmsnorm_reference(x, w, 1e-5)
+        ulps = bf16_ulps(got, want)
+        if ulps > 1:
+            fail(f"rmsnorm ({rows}, {d}) bf16 is {ulps} bf16 ulp from the "
+                 "plain version (limit 1)")
+        byte_ms = (2 * rows * d * 2 + d * 2) / HBM_BYTES_PER_S * 1e3
+        ops_ms = rows * d * 4 / F32_OPS_PER_S * 1e3
+        r = dict(shape=[rows, d], ulps=ulps,
+                 max_abs_err=float((got.float() - want.float()).abs().max()),
+                 ms=time_ms(lambda: rmsnorm(x, w, 1e-5)),
+                 plain_ms=time_ms(lambda: ref.rmsnorm_reference(x, w, 1e-5)),
+                 library_ms=time_ms(lambda: F_.rms_norm(x, (d,), w, 1e-5)),
+                 bound_ms=max(byte_ms, ops_ms),
+                 bound_by="bytes" if byte_ms >= ops_ms else "operations")
+        out[f"rmsnorm {rows}"] = r
+        print(f"rmsnorm vlm ({rows}, {d}) bf16: {ulps} ulp; {r['ms']:.4f} "
+              f"ms, plain {r['plain_ms']:.4f} ms, library "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms by "
+              f"{r['bound_by']}", flush=True)
+        del x, w, got, want
+    return out
+
+
+def vlm_serving(dev) -> dict:
+    """Phase 4p: llama-3.2-vision-11b at full width and depth (40 dense
+    layers in 8 groups, each followed by a gated cross-attention block
+    into 4096 image patches) through the serving launcher's load and
+    generate, batch 4, ctx 2048, 16 tokens, the gates set live and the
+    counts set to 0 just before: exactly the launches worked out from
+    the config; a second image moves the logits with the gates live and
+    not with them at 0; then one profiled warm
+    prefill and decode step, and the decode step's GQA broadcast of the
+    cross K/V (``_expand_kv``, 4096 patches from 8 to 32 heads) timed
+    alone."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models.attention import _expand_kv
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model, params, batch = serve.load(VLM, False, SERVE_BATCH, VLM_CTX, dev)
+    live_gates(params)
+    cfg = model.cfg
+    groups = cfg.n_layers // cfg.cross_attn_every
+    leaves = tree_leaves(params)
+    n_params = sum(p.numel() for p in leaves)
+    n_bytes = sum(p.numel() * p.element_size() for p in leaves)
+    init_peak = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    want = vlm_launches(cfg, SERVE_GEN)
+    ops.reset_launch_counts()
+    res = serve.generate(model, params, batch, SERVE_GEN)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"serve [{VLM}, {cfg.n_layers} layers in {groups} groups, "
+          f"{cfg.n_patches} patches, {n_params} parameters, {n_bytes} B]: "
+          f"launches {counts} (want {want}); prefill "
+          f"{res['prefill_s']:.4f} s, decode {res['decode_ms_per_step']:.3f}"
+          f" ms/step ({res['decode_tokens_per_s']:.1f} tokens/s); peak "
+          f"memory {peak / 2**30:.2f} GiB serving, {init_peak / 2**30:.2f} "
+          "GiB at init", flush=True)
+    for name, n in counts.items():
+        if n != want.get(name, 0):
+            fail(f"[serve {VLM}] {name} launched {n} times, want "
+                 f"{want.get(name, 0)}")
+    if tuple(res["tokens"].shape) != (SERVE_BATCH, SERVE_GEN) \
+            or not torch.isfinite(res["logits"]).all():
+        fail(f"[serve {VLM}] tokens {tuple(res['tokens'].shape)} or "
+             "non-finite logits")
+    # the image reaches the logits through the gated cross blocks alone:
+    # with the gates at 0 a second image moves them no more than the same
+    # image does run to run; with the gates live it moves them by more
+    # than that and than one bf16 ulp of max
+    V = cfg.vocab_size
+    first = res["logits"][0]
+    ulp = 2.0 ** (float(torch.floor(torch.log2(first.abs().max()))) - 7)
+    other = {**batch, "image_embed": torch.randn(
+        batch["image_embed"].shape,
+        generator=torch.Generator().manual_seed(8)).to(dev)}
+
+    def last(b):
+        with torch.inference_mode():
+            return model.prefill(params, b)[0][:, -1, :V].float().cpu()
+    same = float((last(batch) - first).abs().max())
+    moved = last(other)
+    diff = float((moved - first).abs().max())
+    gates = {k: params["cross"][k].clone() for k in ("gate_attn",
+                                                     "gate_mlp")}
+    for g in gates:
+        params["cross"][g].zero_()
+    shut = last(batch)
+    shut_moved = float((last(other) - shut).abs().max())
+    dropped = float((shut - first).abs().max())
+    for g, v in gates.items():
+        params["cross"][g].copy_(v)
+    print(f"serve [{VLM}] image: the same image again moves the prefill's "
+          f"logits by {same:.6f}; a second image by {diff:.4f} "
+          f"({diff / ulp:.1f} bf16 ulps of max); with the gates at 0 the "
+          f"second image moves them by {shut_moved:.6f}, and the logits "
+          f"move by {dropped:.4f} from the live gates'", flush=True)
+    if not (diff > max(same, ulp) and shut_moved <= same
+            and dropped > max(same, ulp)) \
+            or not torch.isfinite(moved).all():
+        fail(f"[serve {VLM}] the image does not reach the logits through "
+             f"the cross blocks alone: a second image moves them by "
+             f"{diff} (gates live) and {shut_moved} (gates at 0), the same "
+             f"image by {same}, the gates' drop by {dropped} (1 bf16 ulp "
+             f"of max {ulp})")
+    out = dict(params=n_params, param_bytes=n_bytes, launches=counts,
+               prefill_s=res["prefill_s"],
+               decode_ms_per_step=res["decode_ms_per_step"],
+               peak_bytes=peak, init_peak_bytes=init_peak,
+               image_moves_logits=diff, same_image=same,
+               gates_shut_image_moves=shut_moved, gates_dropped=dropped)
+    del res, other, moved, shut
+    traced = ("flash_attention_sm90_kernel", "rmsnorm_kernel")
+    with torch.inference_mode():
+        holder = {}
+        prof, wall = profiled(dev, lambda: holder.update(out=model.prefill(
+            params, batch, capacity=VLM_CTX + SERVE_GEN)))
+        report_profile(f"{VLM} prefill", prof, wall, traced)
+        logits, cache = holder.pop("out")
+        tok = logits[:, -1:, :V].argmax(-1)
+        model.decode_step(params, tok, cache, VLM_CTX)      # warm
+        prof, wall = profiled(dev, lambda: model.decode_step(
+            params, tok, cache, VLM_CTX + 1))
+        report_profile(f"{VLM} decode", prof, wall, traced)
+        ck = cache.cross_kv.k[0]
+        expand = time_ms(lambda: _expand_kv(ck, cfg.n_heads))
+        del logits, cache, holder, ck
+    out["expand_kv_ms"] = expand
+    print(f"_expand_kv of one cross block's K at decode ({SERVE_BATCH}, "
+          f"{cfg.n_patches}, {cfg.n_kv_heads} -> {cfg.n_heads}, {cfg.hd}) "
+          f"bf16: {expand:.4f} ms; K and V of {groups} blocks "
+          f"{2 * groups * expand:.3f} ms a decode step", flush=True)
+    del model, params, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def vlm_trainer(dev) -> dict:
+    """Phase 4p: DCSGD-ASSS on llama-3.2-vision-11b at full width on one
+    group (``train.run(..., n_layers=5)``: 5 dense layers and 1 cross
+    block, the gates live; seq 256, global batch 8, each batch's 4096
+    patches from ``batch_with_aux``); the launches of pack_words /
+    unpack_words from the bucket plan, worked out before the run."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.comm.bucket import build_bucket_plan
+    from repro_torch.configs import get_config
+    from repro_torch.core.compression import Compressor
+    from repro_torch.core.leafmath import plan_wire_bytes
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.utils import tree_flatten, tree_map_with_path
+    comp = Compressor(gamma=0.01, method="block_topk")
+    cfg = train.cut_depth(get_config(VLM), VLM_LAYERS)
+    with FakeTensorMode():
+        fake = lm.init_params(cfg)
+        shapes = [tuple(x.shape) for x in tree_leaves(fake)]
+        stacked = tree_flatten(lm.stacked_mask(fake))[0]
+    plan = build_bucket_plan(shapes, stacked, comp)
+    codec = sum((b.index_bits < 32) + (comp.value_bits < 32)
+                for b in plan.buckets)
+    per_step = dict(ef_stats_telemetry=1, ef_apply=1, pack_words=codec,
+                    unpack_words=codec)
+    # the metric is JAX's f32 sum over the leaves in tree order
+    exact = step_wire_bytes(shapes, stacked, comp)
+    want_bytes = float(plan_wire_bytes(plan, comp)[0])
+    n_params = sum(int(np.prod(s)) for s in shapes)
+    print(f"trainer [{VLM}, {VLM_LAYERS} layers, {n_params} parameters] "
+          f"plan: {len(plan.leaves)} leaves, rows "
+          f"{sorted({ln.L for ln in plan.leaves})}, buckets "
+          f"{[(b.index_bits, len(b.leaf_ids)) for b in plan.buckets]}, "
+          f"{plan.total_words} payload words, {exact} B a step (the f32 "
+          f"metric {want_bytes}); launches a step {per_step}", flush=True)
+    # near this peak the allocator's fixed-size segments strand ~22 GiB
+    # reserved but free, and the third step runs out of memory; segments
+    # that grow in place strand none.  The setting holds for this run
+    # alone.
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    try:
+        with trainer_live_gates():
+            log, params, state = train.run(
+                VLM_ARGS + ["--steps", str(VLM_STEPS)], n_layers=VLM_LAYERS)
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        reserved = torch.cuda.max_memory_reserved(dev)
+    finally:
+        torch.cuda.empty_cache()
+        torch.cuda.memory._set_allocator_settings(
+            "expandable_segments:False")
+    gates = {k: params["cross"][k].tolist() for k in ("gate_attn",
+                                                      "gate_mlp")}
+    print(f"trainer [{VLM}]: launches {counts}; loss "
+          f"{[x['loss'] for x in log]}; alpha {[x['alpha'] for x in log]};"
+          f" n_evals {[x['n_evals'] for x in log]}; step_s "
+          f"{[round(x['step_s'], 4) for x in log]}; wire bytes "
+          f"{[x['wire_bytes'] for x in log]}; gates after {VLM_STEPS} "
+          f"steps {gates}; peak memory {peak / 2**30:.2f} GiB allocated, "
+          f"{reserved / 2**30:.2f} GiB reserved (expandable segments)",
+          flush=True)
+    for name, n in counts.items():
+        if n != per_step.get(name, 0) * VLM_STEPS:
+            fail(f"[{VLM} trainer] {name} launched {n} times in "
+                 f"{VLM_STEPS} steps, want "
+                 f"{per_step.get(name, 0) * VLM_STEPS}")
+    if not all(np.isfinite(x["loss"]) for x in log):
+        fail(f"[{VLM} trainer] non-finite loss")
+    if any(x["wire_bytes"] != want_bytes for x in log) \
+            or any(x["steps_skipped"] for x in log):
+        fail(f"[{VLM} trainer] wire bytes {[x['wire_bytes'] for x in log]} "
+             f"!= {want_bytes}, or a step was skipped")
+    wrong = [p for p, ok in tree_leaves(tree_map_with_path(
+        lambda path, x: (path, x.dtype == (
+            torch.float32 if path[-1].startswith("gate_")
+            else torch.bfloat16)), params)) if not ok]
+    memory = {m.dtype for m in tree_leaves(state.memory)}
+    if wrong or memory != {torch.float32}:
+        fail(f"[{VLM} trainer] leaves of the wrong dtype {wrong} (want "
+             f"bf16, the gates f32) or EF memory {memory} (want f32)")
+    del params, state
+    torch.cuda.empty_cache()
+    return dict(layers=VLM_LAYERS, params=n_params,
+                steps_s=[x["step_s"] for x in log],
+                loss=[x["loss"] for x in log], peak_bytes=peak,
+                reserved_bytes=reserved, wire_bytes=want_bytes,
+                exact_wire_bytes=exact)
+
+
+def vlm_card_vs_cpu() -> None:
+    """Phase 4p: the vlm smoke (f32: the CUDA-core flash route, the cross
+    attention at 96 queries against 16 patches), its gates live, served
+    through ``serve.load`` and ``serve.generate`` on the card and on the
+    CPU (equal tokens, logits within 1e-4 of max, the launches worked
+    out from the config), and 2 trainer steps of it on both (equal
+    bytes, losses within rel 1e-5)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        model, params, batch = serve.load(VLM, True, 2, 96, dev)
+        live_gates(params)
+        ops.reset_launch_counts()
+        runs[dev] = serve.generate(model, params, batch, 4)
+        runs[dev]["launches"] = ops.launch_counts()
+    card, cpu = runs["cuda"], runs["cpu"]
+    err = float((card["logits"] - cpu["logits"]).abs().max())
+    tol = 1e-4 * float(cpu["logits"].abs().max())
+    want = vlm_launches(model.cfg, 4)
+    if not torch.equal(card["tokens"], cpu["tokens"]) or not err <= tol \
+            or any(card["launches"][k] != want.get(k, 0)
+                   for k in card["launches"]):
+        fail(f"serve smoke {VLM} on the card (tokens "
+             f"{card['tokens'].tolist()}, launches {card['launches']}, want "
+             f"{want}) disagrees with the CPU ({cpu['tokens'].tolist()}): "
+             f"logits {err} > {tol}")
+    print(f"serve smoke {VLM} card vs cpu: tokens "
+          f"{card['tokens'].tolist()} equal, logits max diff {err:.3e} "
+          f"(limit {tol:.3e}); launches {card['launches']}", flush=True)
+    with trainer_live_gates():
+        smoke_trainer_card_vs_cpu(VLM)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script runs only on "
@@ -4148,6 +4561,19 @@ def main() -> None:
     encdec_summary["trainer"] = encdec_trainer(dev)
     encdec_card_vs_cpu()
 
+    # ---- 4p. the vlm family: gated cross attention, llama-3.2-vision ----
+    # its trainer peaks near the card's size: what the earlier phases
+    # still hold
+    torch.cuda.empty_cache()
+    print(f"device memory before phase 4p: "
+          f"{torch.cuda.memory_allocated(dev) / 2**30:.3f} GiB allocated, "
+          f"{torch.cuda.memory_reserved(dev) / 2**30:.3f} GiB reserved",
+          flush=True)
+    vlm_summary = dict(kernels=check_vlm_kernels(dev))
+    vlm_summary["serve"] = vlm_serving(dev)
+    vlm_summary["trainer"] = vlm_trainer(dev)
+    vlm_card_vs_cpu()
+
     # ---- 5. small input: the card against the CPU's plain path ----------
     small = ["--smoke", "--steps", "2", "--seq-len", "33", "--global-batch",
              "4", "--compress-method", "block_topk", "--log-every", "1"]
@@ -4228,6 +4654,7 @@ def main() -> None:
     print("moe summary: " + json.dumps(moe_summary), flush=True)
     print("hybrid summary: " + json.dumps(hybrid_summary), flush=True)
     print("encdec summary: " + json.dumps(encdec_summary), flush=True)
+    print("vlm summary: " + json.dumps(vlm_summary), flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

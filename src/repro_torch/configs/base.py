@@ -1,7 +1,7 @@
 """Config system (twin of ``src/repro/configs/base.py``): the fields the
-training and serving paths of the dense, MoE, SSM (Mamba2 and RWKV-6)
-and hybrid (Zamba2) LMs and of the encoder-decoder (seamless-m4t) read,
-the federated cohort's included."""
+training and serving paths of the dense, MoE, SSM (Mamba2 and RWKV-6),
+hybrid (Zamba2) and vlm (llama-3.2-vision) LMs and of the encoder-decoder
+(seamless-m4t) read, the federated cohort's included."""
 from __future__ import annotations
 
 import dataclasses
@@ -17,7 +17,7 @@ from repro_torch.core.gamma import GammaControllerConfig
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                   # dense | moe | ssm | hybrid | encdec
+    family: str                   # dense | moe | ssm | hybrid | encdec | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -49,6 +49,9 @@ class ModelConfig:
     # --- enc-dec ---
     n_enc_layers: int = 0
     n_dec_layers: int = 0
+    # --- VLM ---
+    cross_attn_every: int = 0     # >0: one cross-attn layer per k self layers
+    n_patches: int = 0
     rwkv_lora_rank: int = 64
     sliding_window: int = 0       # 0 = full attention
     # the int8 KV cache and rematerialisation are not ported: only the
@@ -65,11 +68,22 @@ class ModelConfig:
     citation: str = ""
 
     def __post_init__(self):
-        if self.family not in ("dense", "moe", "ssm", "hybrid", "encdec"):
+        if self.family not in ("dense", "moe", "ssm", "hybrid", "encdec",
+                               "vlm"):
             raise ValueError(f"model family {self.family!r} of "
                              f"{self.name!r} is not ported (the port has "
-                             "'dense', 'moe', 'ssm', 'hybrid' and "
-                             "'encdec')")
+                             "'dense', 'moe', 'ssm', 'hybrid', 'encdec' "
+                             "and 'vlm')")
+        if self.family == "vlm" and (
+                self.cross_attn_every < 1
+                or self.n_layers % self.cross_attn_every):
+            # JAX's reshape of the stacked layers to (groups, every, ...)
+            # fails there
+            raise ValueError(
+                f"vlm {self.name!r}: cross_attn_every="
+                f"{self.cross_attn_every} must be >= 1 and divide "
+                f"n_layers={self.n_layers} (the self layers stack as "
+                "(groups, cross_attn_every, ...))")
         if self.moe_expert_parallel:
             raise ValueError(
                 "moe_expert_parallel=True: the expert-parallel shard_map "
@@ -454,8 +468,9 @@ def smoke_variant(cfg: ModelConfig) -> ModelConfig:
     at capacity factor 2 (E/k: C = T, drop-free) for MoE, SSM state 16
     and SSM heads of 32 for Mamba2, 5 layers with the shared block every
     2 for the hybrid, 2 encoder and 2 decoder layers for the
-    encoder-decoder (JAX's ``smoke_variant`` less the fields the port
-    does not read)."""
+    encoder-decoder, 4 layers with a cross-attention block every 2 over
+    16 patches for the vlm (JAX's ``smoke_variant`` less the fields the
+    port does not read)."""
     kw = dict(n_layers=2, d_model=128, n_heads=4,
               n_kv_heads=min(cfg.n_kv_heads, 4) if cfg.n_kv_heads else 0,
               d_ff=256, vocab_size=512, head_dim=32, param_dtype="float32",
@@ -469,6 +484,8 @@ def smoke_variant(cfg: ModelConfig) -> ModelConfig:
         kw.update(n_layers=5, shared_attn_every=2)
     if cfg.family == "encdec":
         kw.update(n_enc_layers=2, n_dec_layers=2)
+    if cfg.family == "vlm":
+        kw.update(n_layers=4, cross_attn_every=2, n_patches=16)
     if cfg.name.startswith("rwkv"):
         kw.update(rwkv_lora_rank=8)
     if cfg.sliding_window:

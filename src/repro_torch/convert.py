@@ -13,8 +13,9 @@ recognised by its dtype's name and carried over as its 16-bit pattern
 (``.view(np.uint16)``, then ``.view(torch.bfloat16)``), bits unchanged.
 The serving caches (``DecodeCache``, ``KVCache``, ``RWKVState``,
 ``SSMState``) become the port's named tuples of the same name and fields
-(a hybrid's ``tail_ssm`` and an encoder-decoder's ``cross_kv``
-included).  An MoE tree
+(a hybrid's ``tail_ssm`` and an encoder-decoder's or a vlm's
+``cross_kv`` included).  A vlm's f32 gates carry over beside its bf16
+or f32 weights.  An MoE tree
 carries over leaf by leaf like any other: its f32 router beside bf16 or
 f32 experts.
 """

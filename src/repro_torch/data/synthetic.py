@@ -2,7 +2,8 @@
 
 * ``TokenPipeline`` — LM token streams: Zipfian unigrams with an order-2
   Markov mixing, deterministic per (seed, step, shard), and an
-  encoder-decoder's source frames beside them (``batch_with_aux``); with
+  encoder-decoder's source frames or a vlm's image patches beside them
+  (``batch_with_aux``); with
   ``dirichlet_alpha`` > 0 each shard's unigrams are tilted by a
   Dirichlet(alpha) reweighting keyed on (seed, shard) only — the
   federated cohort's non-IID clients (DESIGN.md §13);
@@ -79,14 +80,19 @@ class TokenPipeline:
         return {"tokens": torch.from_numpy(base.astype(np.int32))}
 
     def batch_with_aux(self, step: int, cfg) -> dict:
-        """:meth:`batch` plus the stubbed modality input of an
-        encoder-decoder config: ``src_embed`` (local_batch, seq_len,
-        d_model) f32 standard normals from the ``(seed + 7, step, shard)``
-        stream, JAX's draw bit for bit (the port has no vlm family)."""
+        """:meth:`batch` plus the stubbed modality input of a vlm or an
+        encoder-decoder config: ``image_embed`` (local_batch, n_patches,
+        d_model) or ``src_embed`` (local_batch, seq_len, d_model), f32
+        standard normals from the ``(seed + 7, step, shard)`` stream,
+        JAX's draw bit for bit."""
         b = self.batch(step)
+        rng = np.random.default_rng(
+            np.random.SeedSequence([self.seed + 7, step, self.shard]))
+        if cfg.family == "vlm":
+            b["image_embed"] = torch.from_numpy(rng.standard_normal(
+                (self.local_batch, cfg.n_patches, cfg.d_model),
+                dtype=np.float32))
         if cfg.family == "encdec":
-            rng = np.random.default_rng(
-                np.random.SeedSequence([self.seed + 7, step, self.shard]))
             b["src_embed"] = torch.from_numpy(rng.standard_normal(
                 (self.local_batch, self.seq_len, cfg.d_model),
                 dtype=np.float32))

@@ -6,8 +6,9 @@
         --full --batch 4 --ctx 2048 --gen 16
 
 runs qwen1.5-4b at full width on the GPU (also ``--arch rwkv6-1.6b``,
-``granite-moe-1b-a400m``, ``qwen3-moe-30b-a3b``, ``zamba2-7b`` or the
-encoder-decoder ``seamless-m4t-large-v2``);
+``granite-moe-1b-a400m``, ``qwen3-moe-30b-a3b``, ``zamba2-7b``, the
+encoder-decoder ``seamless-m4t-large-v2`` or the vlm
+``llama-3.2-vision-11b``);
 ``--smoke --device cpu`` runs the reduced variant on the CPU with the
 kernels' plain versions.  The config is built with ``use_pallas=True``:
 on the card that takes the flash-attention, RMSNorm and WKV kernels; on
@@ -21,8 +22,10 @@ the seed gives the same weights on every device; ``--full`` draws them
 with the card's generator, since drawing 3.9 B values on the host would
 take longer than serving them.  The prompt is drawn from seed 7 on the
 CPU; an encoder-decoder's source, 32 frames of d_model standard normals
-(the stubbed audio frontend's output, JAX's serve's 32 frames), from the
-same generator after it.  Everything runs under
+(the stubbed audio frontend's output, JAX's serve's 32 frames), or a
+vlm's image, ``n_patches`` patch embeddings of d_model standard normals
+(the stubbed vision encoder's output), from the same generator after
+it.  Everything runs under
 ``torch.inference_mode()``.
 """
 from __future__ import annotations
@@ -38,7 +41,8 @@ from repro_torch.launch.train import cut_depth, resolve_device
 from repro_torch.models import build_model
 
 ARCHS = ("qwen1.5-4b", "rwkv6-1.6b", "granite-moe-1b-a400m",
-         "qwen3-moe-30b-a3b", "zamba2-7b", "seamless-m4t-large-v2")
+         "qwen3-moe-30b-a3b", "zamba2-7b", "seamless-m4t-large-v2",
+         "llama-3.2-vision-11b")
 #: encoder frames of an encoder-decoder's source (JAX's serve)
 SRC_FRAMES = 32
 
@@ -61,9 +65,10 @@ def load(arch: str, smoke: bool, batch: int, ctx: int, device,
          n_layers: int | None = None):
     """(model, params, the prefill batch on ``device``) for serving: the
     batch holds the prompt ``tokens`` (batch, ctx) and, for an
-    encoder-decoder, ``src_embed`` (batch, SRC_FRAMES, d_model) f32.
-    ``n_layers`` cuts the depth (the widths stay the config's; an
-    encoder-decoder refuses it)."""
+    encoder-decoder, ``src_embed`` (batch, SRC_FRAMES, d_model) f32, for
+    a vlm ``image_embed`` (batch, n_patches, d_model) f32.  ``n_layers``
+    cuts the depth (the widths stay the config's; an encoder-decoder
+    refuses it, a vlm takes whole groups only)."""
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     if n_layers is not None:
         cfg = cut_depth(cfg, n_layers)
@@ -76,6 +81,9 @@ def load(arch: str, smoke: bool, batch: int, ctx: int, device,
     if cfg.family == "encdec":
         out["src_embed"] = torch.randn((batch, SRC_FRAMES, cfg.d_model),
                                        generator=gen)
+    if cfg.family == "vlm":
+        out["image_embed"] = torch.randn((batch, cfg.n_patches, cfg.d_model),
+                                         generator=gen)
     return model, params, {k: v.to(device) for k, v in out.items()}
 
 
@@ -86,11 +94,12 @@ def sync(device) -> None:
 
 def generate(model, params, batch: dict, gen: int) -> dict:
     """Prefill ``batch`` (the prompt ``tokens`` (B, ctx), and an
-    encoder-decoder's ``src_embed``) into caches of capacity ctx + gen,
-    then ``gen - 1`` greedy decode steps.  Returns the tokens (batch,
-    gen), the logits of each step (gen, batch, vocab) f32 (the prefill's
-    last position first), prefill seconds and decode ms per step (host
-    clock, each ending in a device synchronise)."""
+    encoder-decoder's ``src_embed`` or a vlm's ``image_embed``) into
+    caches of capacity ctx + gen, then ``gen - 1`` greedy decode steps.
+    Returns the tokens (batch, gen), the logits of each step (gen,
+    batch, vocab) f32 (the prefill's last position first), prefill
+    seconds and decode ms per step (host clock, each ending in a device
+    synchronise)."""
     B, ctx = batch["tokens"].shape
     dev = batch["tokens"].device
     vocab = model.cfg.vocab_size

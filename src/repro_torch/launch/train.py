@@ -10,8 +10,9 @@ transports, its fault flags and its federated cohort's flags, plus
 runs DCSGD-ASSS on paper-lm-100m on the GPU (``--arch
 granite-moe-1b-a400m``: the MoE model, ``--arch zamba2-7b``: the hybrid
 Mamba2 model, ``--arch seamless-m4t-large-v2``: the encoder-decoder,
-whose batches carry ``src_embed`` frames beside the tokens, all with
-bf16 parameters and JAX's f32 update);
+whose batches carry ``src_embed`` frames beside the tokens, ``--arch
+llama-3.2-vision-11b``: the vlm, whose batches carry ``image_embed``
+patches, all with bf16 parameters and JAX's f32 update);
 ``--smoke --device cpu`` runs the reduced variant on the CPU with the
 kernels' plain versions.
 Several GPUs: ``torchrun --nproc-per-node N -m repro_torch.launch.train
@@ -124,7 +125,9 @@ logger = logging.getLogger(__name__)
 
 def cut_depth(cfg, n_layers: int):
     """``cfg`` at ``n_layers`` layers, its widths unchanged; raises for an
-    encoder-decoder (``n_layers`` is not its depth)."""
+    encoder-decoder (``n_layers`` is not its depth) and, through the
+    config's own check, for a vlm depth that is not a whole number of
+    groups."""
     if cfg.family == "encdec":
         raise ValueError(f"n_layers={n_layers}: {cfg.name} is an "
                          "encoder-decoder, whose depth is n_enc_layers and "
@@ -151,7 +154,8 @@ def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="paper-lm-100m",
                     choices=["paper-lm-100m", "granite-moe-1b-a400m",
-                             "zamba2-7b", "seamless-m4t-large-v2"])
+                             "zamba2-7b", "seamless-m4t-large-v2",
+                             "llama-3.2-vision-11b"])
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced 2-layer variant of --arch")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -525,10 +529,10 @@ def run(argv=None, n_layers: int | None = None):
 
 def batch_source(run_cfg, W: int, rank: int, device):
     """``step -> batch`` of this rank: its rows of the global batch (every
-    key: ``tokens`` and, for an encoder-decoder, ``src_embed``, JAX's
-    ``batch_with_aux``); in a cohort its C = n_clients / W clients'
-    rows, each key stacked to (C, rows, ...) from clients ``rank*C ...
-    rank*C + C - 1`` (client c is shard c of the ``(fed.seed, step,
+    key: ``tokens`` and, for an encoder-decoder, ``src_embed``, for a
+    vlm ``image_embed``, JAX's ``batch_with_aux``); in a cohort its C =
+    n_clients / W clients' rows, each key stacked to (C, rows, ...)
+    from clients ``rank*C ... rank*C + C - 1`` (client c is shard c of the ``(fed.seed, step,
     shard)`` stream, Dirichlet-tilted), and the round's whole
     (n_clients,) participation mask, built on the host as JAX's trainer
     builds it."""

@@ -1,16 +1,24 @@
 """Decoder-only LMs (twin of the ``dense``, ``moe``, ``ssm`` (Mamba2 and
-RWKV-6) and ``hybrid`` (Zamba2) families of ``src/repro/models/lm.py``).
-An MoE block is the dense block with ``models/moe.py``'s layer in place
-of the MLP.  A hybrid model runs ``shared_attn_every`` Mamba2 layers,
-then the ONE shared attention + MLP block, per group, and its tail
-layers after the last group.
+RWKV-6), ``hybrid`` (Zamba2) and ``vlm`` (llama-3.2-vision) families of
+``src/repro/models/lm.py``).  An MoE block is the dense block with
+``models/moe.py``'s layer in place of the MLP.  A hybrid model runs
+``shared_attn_every`` Mamba2 layers, then the ONE shared attention + MLP
+block, per group, and its tail layers after the last group.  A vlm runs
+``cross_attn_every`` dense layers, then a gated cross-attention block
+into the image patches (``batch["image_embed"]``, the stubbed vision
+encoder's output), per group; each cross block's attention and MLP are
+scaled by ``tanh`` of an f32 scalar gate, initialised to 0 as in JAX.
 
 Layer parameters are stacked on a leading layer axis, as the JAX package's
 ``scan`` layout has them, so the per-layer compression rows and the wire
 payload are the same; the forward walks the layers in a Python loop.  The
 hybrid's ``blocks`` are stacked (groups, every, ...) and its ``tail``
 (tail, ...), as JAX's are, so one compression row holds a whole group;
-``shared`` is unstacked.
+``shared`` is unstacked.  A vlm's ``blocks`` are (groups, every, ...)
+and its ``cross`` (groups, ...), as JAX's are: one row a group; its
+gates are ``(groups,)`` f32 leaves, which the bucket plan takes, as
+JAX's does for any marked leaf of one axis, as one row of ``groups``
+elements.
 
 Three entry points per model: ``loss_fn`` (train), ``prefill`` (batched
 context ingestion returning caches) and ``decode_step`` (one token
@@ -51,7 +59,8 @@ class DecodeCache(NamedTuple):
     tail_ssm: Any = ()    # hybrid: ssm.SSMState of the (tail, ...) layers
     cross_kv: Any = ()    # encdec: attn.KVCache of the decoder layers' cross
     #                       K/V over the encoder output, (L, B, S_enc, H_kv,
-    #                       hd)
+    #                       hd); vlm: the cross blocks' K/V over the image
+    #                       patches, (groups, B, n_patches, H_kv, hd)
 
 
 def init_params(cfg, seed: int = 0, device="cpu", draw_device="cpu"):
@@ -89,23 +98,48 @@ def init_params(cfg, seed: int = 0, device="cpu", draw_device="cpu"):
             "mlp_norm": init_rms_norm(cfg.d_model, dtype, dev),
             "mlp": init_mlp(gen, cfg, dtype),
         }
+    elif cfg.family == "vlm":
+        groups, every = _vlm_depth(cfg)
+        params["blocks"] = _init_dense_block(gen, cfg, dtype, (groups, every))
+        params["cross"] = _init_cross_block(gen, cfg, dtype, (groups,))
     else:
-        params["blocks"] = {
-            "attn_norm": init_rms_norm(cfg.d_model, dtype, dev, lead=L),
-            "attn": attn.init_attn(gen, cfg, dtype, lead=L),
-            "mlp_norm": init_rms_norm(cfg.d_model, dtype, dev, lead=L),
-        }
-        if cfg.family == "moe":
-            params["blocks"]["moe"] = moe_mod.init_moe(gen, cfg, dtype,
-                                                       lead=L)
-        else:
-            params["blocks"]["mlp"] = init_mlp(gen, cfg, dtype, lead=L)
+        params["blocks"] = _init_dense_block(gen, cfg, dtype, L)
     return tree_map(lambda x: x.to(device), params)
 
 
 def _hybrid_depth(cfg) -> tuple[int, int]:
     """(groups, tail layers) of a hybrid model."""
     return divmod(cfg.n_layers, cfg.shared_attn_every)
+
+
+def _vlm_depth(cfg) -> tuple[int, int]:
+    """(groups, dense layers a group) of a vlm (the config checks that
+    ``cross_attn_every`` divides ``n_layers``)."""
+    return cfg.n_layers // cfg.cross_attn_every, cfg.cross_attn_every
+
+
+def _init_dense_block(gen, cfg, dtype, lead):
+    dev = gen.device
+    blk = {"attn_norm": init_rms_norm(cfg.d_model, dtype, dev, lead=lead),
+           "attn": attn.init_attn(gen, cfg, dtype, lead=lead),
+           "mlp_norm": init_rms_norm(cfg.d_model, dtype, dev, lead=lead)}
+    if cfg.family == "moe":
+        blk["moe"] = moe_mod.init_moe(gen, cfg, dtype, lead=lead)
+    else:
+        blk["mlp"] = init_mlp(gen, cfg, dtype, lead=lead)
+    return blk
+
+
+def _init_cross_block(gen, cfg, dtype, lead):
+    """A gated cross-attention block: the gates are f32 zeros whatever
+    the parameter dtype, as JAX's are."""
+    dev = gen.device
+    return {"norm": init_rms_norm(cfg.d_model, dtype, dev, lead=lead),
+            "cross": attn.init_cross_attn(gen, cfg, dtype, lead=lead),
+            "mlp_norm": init_rms_norm(cfg.d_model, dtype, dev, lead=lead),
+            "mlp": init_mlp(gen, cfg, dtype, lead=lead),
+            "gate_attn": torch.zeros(lead, dtype=torch.float32, device=dev),
+            "gate_mlp": torch.zeros(lead, dtype=torch.float32, device=dev)}
 
 
 def _init_mamba_block(gen, cfg, dtype, lead):
@@ -116,10 +150,13 @@ def _init_mamba_block(gen, cfg, dtype, lead):
 def stacked_mask(params):
     """True for leaves with a leading layer axis (per-layer compression):
     every leaf under ``blocks`` (the MoE's ``(L, E, D, F)`` experts and
-    ``(L, D, E)`` router included; a hybrid's ``(groups, every, ...)``
-    leaves, one row a group) and under a hybrid's ``tail``."""
-    return tree_map_with_path(lambda path, _: path[0] in ("blocks", "tail"),
-                              params)
+    ``(L, D, E)`` router included; a hybrid's or a vlm's ``(groups,
+    every, ...)`` leaves, one row a group), under a vlm's ``cross`` (its
+    ``(groups,)`` gates included, though a leaf of one axis is one row)
+    and under a hybrid's ``tail``.  An encoder-decoder has none of these
+    top keys."""
+    return tree_map_with_path(
+        lambda path, _: path[0] in ("blocks", "cross", "tail"), params)
 
 
 def _layer(blocks, i):
@@ -175,6 +212,20 @@ def _mamba_block_decode(p, x, state, cfg):
     return x + h, st
 
 
+def _cross_block(p, x, memory, cfg, kv=None):
+    """Gated cross attention into ``memory`` (or its projected K/V
+    ``kv``), then a gated SwiGLU MLP; each gate is ``tanh`` of the f32
+    scalar, cast to the stream's dtype before the product, as JAX orders
+    it.  Returns (x, the K/V over the memory)."""
+    h, kv = attn.cross_attention_block(
+        p["cross"], rms_norm(p["norm"], x, cfg.norm_eps, cfg.use_pallas),
+        memory, cfg, kv=kv)
+    x = x + torch.tanh(p["gate_attn"]).to(x.dtype) * h
+    h2 = mlp(p["mlp"], rms_norm(p["mlp_norm"], x, cfg.norm_eps,
+                                cfg.use_pallas))
+    return x + torch.tanh(p["gate_mlp"]).to(x.dtype) * h2, kv
+
+
 def _rwkv_block(p, x, cfg, state: rwkv_mod.RWKVState):
     h, state = rwkv_mod.time_mix(
         p["rwkv"], rms_norm(p["norm1"], x, cfg.norm_eps, cfg.use_pallas),
@@ -188,10 +239,18 @@ def _rwkv_block(p, x, cfg, state: rwkv_mod.RWKVState):
 
 def _layers(params, cfg):
     """``(kind, layer params, cache field, index)`` in forward order: kind
-    "dense" (a dense or MoE layer, or the hybrid's shared block after
-    group g; its slot of ``cache.kv``), "rwkv" or "mamba" (its state in
-    ``cache.ssm`` at an int or a hybrid's (group, layer), or a hybrid
-    tail layer's in ``cache.tail_ssm``)."""
+    "dense" (a dense or MoE layer, the hybrid's shared block after group
+    g, or a vlm's layer (g, e); its slot of ``cache.kv``), "rwkv" or
+    "mamba" (its state in ``cache.ssm`` at an int or a hybrid's (group,
+    layer), or a hybrid tail layer's in ``cache.tail_ssm``), "cross" (a
+    vlm's cross block after group g; its slot of ``cache.cross_kv``)."""
+    if cfg.family == "vlm":
+        groups, every = _vlm_depth(cfg)
+        for g in range(groups):
+            for e in range(every):
+                yield "dense", _layer(params["blocks"], (g, e)), "kv", (g, e)
+            yield "cross", _layer(params["cross"], g), "cross_kv", g
+        return
     if cfg.family == "hybrid":
         groups, tail = _hybrid_depth(cfg)
         for g in range(groups):
@@ -220,13 +279,17 @@ def _put(stacked, i, new) -> None:
 def loss_fn(params, batch: dict, cfg) -> torch.Tensor:
     """Next-token cross-entropy plus the MoE layers' aux losses, summed in
     layer order from an f32 zero (0 without MoE layers: the cross-entropy
-    alone, bit for bit).  batch["tokens"]: (B, S) integers."""
+    alone, bit for bit).  batch["tokens"]: (B, S) integers; a vlm's
+    ``image_embed`` (B, n_patches, d_model), cast to the compute dtype."""
     tokens = batch["tokens"]
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     x = embed(params["embed"], inputs, cfg)
+    memory = _image(batch, x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for kind, lp, _, _ in _layers(params, cfg):
-        if kind == "rwkv":
+        if kind == "cross":
+            x, _ = _cross_block(lp, x, memory, cfg)
+        elif kind == "rwkv":
             x, _ = _rwkv_block(lp, x, cfg, rwkv_mod.init_rwkv_state(
                 cfg, x.shape[0], x.device))
         elif kind == "mamba":
@@ -240,13 +303,21 @@ def loss_fn(params, batch: dict, cfg) -> torch.Tensor:
     return ce + aux
 
 
+def _image(batch: dict, x: torch.Tensor):
+    """A vlm batch's patch embeddings in the stream's dtype (else None)."""
+    image = batch.get("image_embed")
+    return None if image is None else image.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # caches, prefill, decode
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg, B: int, capacity: int, device="cpu") -> DecodeCache:
     """Zero caches with sequence capacity ``capacity`` (the KV cache and
-    the Mamba2 conv windows in the compute dtype, the SSM states f32)."""
+    the Mamba2 conv windows in the compute dtype, the SSM states f32; a
+    vlm's self K/V (groups, every, B, capacity, ...) and its cross K/V
+    (groups, B, n_patches, ...))."""
     if _is_rwkv(cfg):
         st = rwkv_mod.init_rwkv_state(cfg, B, device)
         return DecodeCache(ssm=rwkv_mod.RWKVState(*(
@@ -259,8 +330,8 @@ def init_cache(cfg, B: int, capacity: int, device="cpu") -> DecodeCache:
                                               dtype=x.dtype, device=device)
                                   for x in st))
 
-    def kv_stack(n):
-        shape = (n, B, capacity, cfg.n_kv_heads, cfg.hd)
+    def kv_stack(*lead, S=capacity):
+        shape = lead + (B, S, cfg.n_kv_heads, cfg.hd)
         return attn.KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                             v=torch.zeros(shape, dtype=dtype, device=device))
 
@@ -271,19 +342,29 @@ def init_cache(cfg, B: int, capacity: int, device="cpu") -> DecodeCache:
         return DecodeCache(kv=kv_stack(groups),
                            ssm=ssm_stack(groups, cfg.shared_attn_every),
                            tail_ssm=ssm_stack(tail) if tail else ())
+    if cfg.family == "vlm":
+        groups, every = _vlm_depth(cfg)
+        return DecodeCache(kv=kv_stack(groups, every),
+                           cross_kv=kv_stack(groups, S=cfg.n_patches))
     return DecodeCache(kv=kv_stack(cfg.n_layers))
 
 
 def prefill(params, batch: dict, cfg, capacity: int | None = None):
     """Ingest (B, S) context; return the last position's logits
     (B, 1, padded vocab) f32 and the caches, allocated at ``capacity``
-    (default S) along the sequence."""
+    (default S) along the sequence; a vlm's cross K/V over its
+    ``image_embed`` patches."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = embed(params["embed"], tokens, cfg)
+    memory = _image(batch, x)
     cache = init_cache(cfg, B, capacity or S, device=x.device)
     for kind, lp, field, i in _layers(params, cfg):
-        if kind == "rwkv":
+        if kind == "cross":
+            x, kv = _cross_block(lp, x, memory, cfg)
+            cache.cross_kv.k[i] = kv.k
+            cache.cross_kv.v[i] = kv.v
+        elif kind == "rwkv":
             x, st = _rwkv_block(lp, x, cfg, rwkv_mod.init_rwkv_state(
                 cfg, B, x.device))
             _put(cache.ssm, i, st)
@@ -292,8 +373,8 @@ def prefill(params, batch: dict, cfg, capacity: int | None = None):
             _put(getattr(cache, field), i, st)
         else:
             x, kv, _ = _dense_block(lp, x, cfg)
-            cache.kv.k[i, :, :S] = kv.k
-            cache.kv.v[i, :, :S] = kv.v
+            cache.kv.k[i][:, :S] = kv.k
+            cache.kv.v[i][:, :S] = kv.v
     x = rms_norm(params["final_norm"], x[:, -1:], cfg.norm_eps,
                  cfg.use_pallas)
     return lm_head(_head(params), x, cfg.vocab_size), cache
@@ -303,10 +384,14 @@ def decode_step(params, token: torch.Tensor, cache: DecodeCache,
                 cur_len: int, cfg):
     """One decode step.  token: (B, 1) integers; ``cur_len``: history
     length (the new token is written at cache index cur_len).  Updates
-    ``cache`` in place; returns (logits (B, 1, padded vocab) f32, cache)."""
+    ``cache`` in place; returns (logits (B, 1, padded vocab) f32, cache).
+    A vlm's cross blocks take the cached K/V of prefill and no memory."""
     x = embed(params["embed"], token, cfg)
     for kind, lp, field, i in _layers(params, cfg):
-        if kind == "rwkv":
+        if kind == "cross":
+            x, _ = _cross_block(lp, x, None, cfg, kv=attn.KVCache(
+                cache.cross_kv.k[i], cache.cross_kv.v[i]))
+        elif kind == "rwkv":
             x, st = _rwkv_block(lp, x, cfg, rwkv_mod.RWKVState(
                 *(s[i] for s in cache.ssm)))
             _put(cache.ssm, i, st)

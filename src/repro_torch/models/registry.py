@@ -1,5 +1,6 @@
 """Model registry (twin of ``src/repro/models/registry.py``): one uniform
-API over the port's decoder-only and encoder-decoder families.
+API over the port's decoder-only families (the vlm among them, in
+``lm.py``) and its encoder-decoder.
 
 ``build_model(cfg)`` returns a ``Model`` with ``init / loss / prefill /
 decode_step / init_cache / stacked_mask``; the serving launcher, the

@@ -531,6 +531,29 @@ def test_flash_attention_non_causal_beyond_sk_on_card(cuda, B, H, Sq, Sk, D,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("Sq", [2048, 1])
+def test_flash_attention_vlm_cross_shapes_on_card(cuda, Sq):
+    """llama-3.2-vision-11b's cross attention, bf16 without causality:
+    at prefill 2048 queries against 4096 image patches (more keys than
+    queries: a positive query offset that masks nothing), and at decode
+    one query against them, (4, 32, Sq, 4096, 128)."""
+    q, k, v = _bshd_views(Sq + 7, 4, 32, Sq, 4096, 128, cuda)
+    got = flash_attention(q, k, v, causal=False)
+    want = ref.mha_reference(q, k, v, causal=False)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert _bf16_ulp_err(got, want, 1e-5) <= 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(8192, 4096), (4, 4096)])
+@pytest.mark.parametrize("wdt", [torch.float32, torch.bfloat16])
+def test_rmsnorm_vlm_rows_on_card(cuda, shape, wdt):
+    """llama-3.2-vision-11b's prefill and decode rows, d 4096: the
+    register body's upper edge."""
+    _check_rmsnorm(cuda, shape, torch.bfloat16, wdt)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_refuses_causal_beyond_sk_on_card(cuda, dtype):
     """Causal with Sq > Sk stays refused: its first Sq - Sk rows see no

@@ -290,7 +290,8 @@ def test_bf16_params_convert_bit_for_bit():
 # the launcher and the config
 # --------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ARCHS + ("seamless-m4t-large-v2",))
+@pytest.mark.parametrize("arch", ARCHS + ("seamless-m4t-large-v2",
+                                         "llama-3.2-vision-11b"))
 def test_serve_cli_runs_on_cpu(arch):
     res = serve.main(["--device", "cpu", "--arch", arch, "--smoke",
                       "--batch", "2", "--ctx", "32", "--gen", "4"])
@@ -307,7 +308,8 @@ def test_serve_without_cuda_raises(monkeypatch):
                     "--ctx", "8", "--gen", "2"])
 
 
-@pytest.mark.parametrize("kw", [dict(family="vlm"),
+@pytest.mark.parametrize("kw", [dict(family="vlm", n_layers=3,
+                                     cross_attn_every=2),
                                 dict(kv_cache_dtype="int8"),
                                 dict(remat=False),
                                 dict(family="moe", moe_expert_parallel=True)])

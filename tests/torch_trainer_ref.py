@@ -153,8 +153,17 @@ def case_id(case: Case) -> str:
 
 @functools.lru_cache(maxsize=None)
 def jax_model(arch: str = ARCH):
+    """JAX's smoke model of ``arch`` and its initial weights; a vlm's
+    gates, 0 at init (which keeps its cross blocks out of the forward
+    and their gradient), drawn in [0.5, 1) from seed 11."""
     model = build_model(jax_smoke_config(arch))
-    return model, model.init(jax.random.PRNGKey(0))
+    params = model.init(jax.random.PRNGKey(0))
+    if "cross" in params:
+        rng = np.random.default_rng(11)
+        params["cross"] = {**params["cross"], **{
+            k: jnp.asarray(rng.uniform(0.5, 1.0, params["cross"][k].shape),
+                           jnp.float32) for k in ("gate_attn", "gate_mlp")}}
+    return model, params
 
 
 @functools.lru_cache(maxsize=None)
