@@ -290,6 +290,24 @@ Phases, each fatal on failure (no phase catches and continues):
    card and on the CPU (equal tokens, logits within 1e-4 of max, 12
    flash launches through the f32 route) and trained 2 steps on both
    (equal bytes, losses rel 1e-5);
+4q. the int8 KV cache and rematerialisation: qwen1.5-4b at full width
+   and depth through ``serve.load``'s model and weights, batch 4, ctx
+   2048, 16 tokens, served with the bf16 cache and with the model
+   rebuilt with ``kv_cache_dtype="int8"``, in turns bf16, int8, int8,
+   bf16, the counts set to 0 just before each run and read just after:
+   phase 4d's 40 flash-attention and 1296 RMSNorm launches each run and
+   no other kernel, finite logits, the prefill's cache 3,381,657,600 B
+   of bf16 against 1,690,828,800 B of int8 codes and 52,838,400 B of f32
+   scales, the int8 run's peak at least 1 GiB lower, prefill seconds
+   and decode ms a step of each, and the int8 logits' gap from the bf16
+   ones (of max) and how many greedy tokens agree; the memory one
+   gradient pass of granite (batch 8 x 256) adds above its weights with
+   and without ``remat``, lower with it; the granite trainer of phase 4m
+   for 3 steps from one seed with ``remat=True`` (its config) and
+   ``remat=False``: the same launches, the losses, parameters and EF
+   memory bit for bit (else held to the card's run-to-run difference of
+   a second plain run), both step peaks (set after the backward, by the
+   optimizer's f32 copies) and warm step times;
 5. run the 2-layer smoke variants on the card and on the CPU (the plain
    versions, which the CPU tests hold against the JAX package), through
    the trainer for 2 steps (``--opt csgd_asss``, ``nonadaptive``,
@@ -304,7 +322,13 @@ Phases, each fatal on failure (no phase catches and continues):
    4 tokens), and compare: equal
    greedy tokens and logits within 1e-4 of max|logits| for serving; and
    the zamba2 smoke (5 layers) through the trainer for 2 steps, equal
-   bytes and losses within rel 1e-5;
+   bytes and losses within rel 1e-5; the int8 smoke of qwen1.5-4b,
+   granite-moe-1b-a400m, zamba2-7b, seamless-m4t-large-v2 and
+   llama-3.2-vision-11b (gates live), ctx 96: the prefill's logits
+   within 1e-4 of max, its codes within 1 step and scales within 1e-5
+   of max, then each decode step on both devices from the CPU's cache,
+   equal tokens and logits within 1e-4 of max (free-running gaps
+   recorded);
 6. print the kernels as one JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -430,6 +454,12 @@ SEAMLESS_ARGS = ["--arch", SEAMLESS] + MOE_ARGS[2:]
 VLM, VLM_CTX, VLM_LAYERS, VLM_STEPS = "llama-3.2-vision-11b", 2048, 5, 3
 VLM_ARGS = ["--arch", VLM] + MOE_ARGS[2:]
 VLM_GATE_SEED = 11
+#: phase 4q: the int8 KV cache at phase 4d's qwen1.5-4b shape (its
+#: flash-attention and RMSNorm launches), and rematerialisation on and
+#: off in the granite trainer of phase 4m; phase 5's int8 smokes
+INT8_ARCH, INT8_CTX, INT8_LAUNCHES = SERVE_RUNS[0][:3]
+REMAT_STEPS = 3
+INT8_SMOKE = (INT8_ARCH, MOE_ARCH, ZAMBA, SEAMLESS, VLM)
 
 
 def fail(msg: str) -> None:
@@ -4285,6 +4315,291 @@ def vlm_card_vs_cpu() -> None:
         smoke_trainer_card_vs_cpu(VLM)
 
 
+def cache_bytes(cache) -> dict:
+    """Bytes of a decode cache's tensors, by dtype."""
+    out: dict = {}
+
+    def walk(t):
+        if isinstance(t, torch.Tensor):
+            key = str(t.dtype).replace("torch.", "")
+            out[key] = out.get(key, 0) + t.numel() * t.element_size()
+        elif isinstance(t, tuple):
+            for x in t:
+                walk(x)
+    walk(cache)
+    return out
+
+
+def int8_serving(dev) -> dict:
+    """Phase 4q: qwen1.5-4b at full width and depth through
+    ``serve.load``'s model and weights (batch 4, ctx 2048, 16 tokens),
+    served by that model (the bf16 cache) and by the model rebuilt with
+    ``kv_cache_dtype="int8"``, in turns bf16, int8, int8, bf16, the
+    counts set to 0 just before each run and read just after: exactly
+    phase 4d's flash-attention and RMSNorm launches each run (the
+    quantize and dequantize passes are plain PyTorch, as in JAX), finite
+    logits, the cache's bytes from the prefill's tensors, the peak of
+    each run (the weights included) and the int8 one at least 1 GiB
+    lower, prefill seconds and decode ms a step, and how far the int8
+    run's logits and greedy tokens are from the bf16 run's."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    model, params, batch = serve.load(INT8_ARCH, False, SERVE_BATCH,
+                                      INT8_CTX, dev)
+    cfg, cap = model.cfg, INT8_CTX + SERVE_GEN
+    models = {"bf16": model, "int8": build_model(dataclasses.replace(
+        cfg, kv_cache_dtype="int8"))}
+    n = cfg.n_layers * 2 * SERVE_BATCH * cap * cfg.n_kv_heads
+    want_bytes = {"bf16": {"bfloat16": n * cfg.hd * 2},
+                  "int8": {"int8": n * cfg.hd, "float32": n * 4}}
+    runs = {k: [] for k in models}
+    for label in ("bf16", "int8", "int8", "bf16"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launch_counts()
+        res = serve.generate(models[label], params, batch, SERVE_GEN)
+        counts = ops.launch_counts()
+        res["peak"] = torch.cuda.max_memory_allocated(dev)
+        runs[label].append(res)
+        print(f"serve [{INT8_ARCH} {label} cache]: launches {counts}; "
+              f"prefill {res['prefill_s']:.4f} s, decode "
+              f"{res['decode_ms_per_step']:.3f} ms/step, peak memory "
+              f"{res['peak'] / 2**30:.3f} GiB", flush=True)
+        for name, k in counts.items():
+            if k != INT8_LAUNCHES.get(name, 0):
+                fail(f"[serve {INT8_ARCH} {label}] {name} launched {k} "
+                     f"times, want {INT8_LAUNCHES.get(name, 0)}")
+        if not torch.isfinite(res["logits"]).all():
+            fail(f"[serve {INT8_ARCH} {label}] non-finite logits")
+    got_bytes = {}
+    for label, m in models.items():
+        with torch.inference_mode():
+            _, cache = m.prefill(params, batch, capacity=cap)
+        got_bytes[label] = cache_bytes(cache)
+        del cache
+        if got_bytes[label] != want_bytes[label]:
+            fail(f"[serve {INT8_ARCH} {label}] cache bytes "
+                 f"{got_bytes[label]}, want {want_bytes[label]}")
+    peak = {k: max(r["peak"] for r in v) for k, v in runs.items()}
+    if not peak["bf16"] - peak["int8"] >= 2**30:
+        fail(f"[serve {INT8_ARCH}] the int8 cache's peak {peak['int8']} B "
+             f"is not 1 GiB below the bf16 cache's {peak['bf16']} B")
+    # the logits' gap over the steps whose inputs agree: a request's
+    # steps up to its first differing greedy token (the later ones are
+    # fed other tokens)
+    b16, i8 = runs["bf16"][0], runs["int8"][0]
+    agree = int((i8["tokens"] == b16["tokens"]).sum())
+    first = [int((i8["tokens"][r] != b16["tokens"][r]).nonzero()[0])
+             if (i8["tokens"][r] != b16["tokens"][r]).any() else None
+             for r in range(SERVE_BATCH)]
+    diff = (i8["logits"] - b16["logits"]).abs().amax(-1)     # (gen, B)
+    same_inputs = torch.ones_like(diff, dtype=torch.bool)
+    for r, f in enumerate(first):
+        if f is not None:
+            same_inputs[f + 1:, r] = False
+    gap = float(diff[same_inputs].max() / b16["logits"].abs().max())
+    summary = dict(
+        cache_bytes=got_bytes, peak_bytes=peak,
+        prefill_s={k: [r["prefill_s"] for r in v] for k, v in runs.items()},
+        decode_ms={k: [r["decode_ms_per_step"] for r in v]
+                   for k, v in runs.items()},
+        logit_gap_of_max=gap, tokens_agree=agree,
+        tokens=SERVE_BATCH * SERVE_GEN, first_differing_step=first)
+    print(f"serve [{INT8_ARCH}] int8 against bf16 cache: bytes "
+          f"{got_bytes}; peaks {peak}; logits {gap:.4e} of max over the "
+          f"steps fed the same tokens; greedy "
+          f"tokens agree {agree} of {SERVE_BATCH * SERVE_GEN} (first "
+          f"differing step per request {first})", flush=True)
+    del model, models, params, batch, runs
+    torch.cuda.empty_cache()
+    return summary
+
+
+def max_diff(a, b) -> float:
+    """The largest |a - b| over two trees of tensors (or lists of
+    floats), in f64."""
+    from repro_torch.utils import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return max((float((torch.as_tensor(x).double()
+                       - torch.as_tensor(y).double()).abs().max())
+                for x, y in zip(la, lb)), default=0.0)
+
+
+def remat_trainer(dev) -> dict:
+    """Phase 4q: DCSGD-ASSS on granite at full width and depth (phase
+    4m's run) for 3 steps with ``remat=True`` (its config: each layer
+    rematerialised in the backward pass) and with ``remat=False``, from
+    one seed, the counts set to 0 just before each run and read just
+    after: the same kernel launches both ways, the losses, parameters and
+    EF memory bit for bit (if they differ, a second ``remat=False`` run
+    measures the card's run-to-run difference, and the remat run must be
+    as close to one of the plain runs as they are to each other); the
+    memory a gradient pass adds above the weights lower with remat; both
+    step peaks and warm step times."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.utils import value_and_grad
+
+    def one(remat):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launch_counts()
+        log, params, state = train.run(
+            MOE_ARGS + ["--steps", str(REMAT_STEPS)], remat=remat)
+        out = dict(counts=ops.launch_counts(), log=log,
+                   peak=torch.cuda.max_memory_allocated(dev),
+                   loss=[x["loss"] for x in log],
+                   params=[p.cpu() for p in tree_leaves(params)],
+                   memory=[m.cpu() for m in tree_leaves(state.memory)])
+        print(f"trainer [{MOE_ARCH} remat={remat}]: launches "
+              f"{out['counts']}; loss {out['loss']}; step_s "
+              f"{[round(x['step_s'], 4) for x in log]}; peak memory "
+              f"{out['peak'] / 2**30:.3f} GiB", flush=True)
+        return out
+    def grad_pass(remat):
+        """The device memory one gradient pass adds above the weights
+        (activations kept for the backward, recomputed ones, the
+        gradients), on a batch of the trainer's shape."""
+        cfg = dataclasses.replace(get_config(MOE_ARCH), remat=remat)
+        model = build_model(cfg)
+        params = model.init(0, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        tokens = torch.randint(0, cfg.vocab_size, (8, 257), device=dev,
+                               generator=gen)
+        torch.cuda.synchronize(dev)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        grads = value_and_grad(lambda p: model.loss(p, {"tokens": tokens}),
+                               params)[1]
+        torch.cuda.synchronize(dev)
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        del model, params, grads
+        torch.cuda.empty_cache()
+        return peak
+    grad_peak = {"remat": grad_pass(True), "plain": grad_pass(False)}
+    print(f"gradient pass [{MOE_ARCH}, batch 8 x 256]: above the weights "
+          f"{grad_peak['remat'] / 2**30:.3f} GiB with remat, "
+          f"{grad_peak['plain'] / 2**30:.3f} GiB without", flush=True)
+    if not grad_peak["remat"] < grad_peak["plain"]:
+        fail(f"[{MOE_ARCH} remat] a gradient pass takes {grad_peak} B: "
+             "rematerialisation saves nothing")
+    on, off = one(True), one(False)
+    if on["counts"] != off["counts"] or \
+            on["counts"].get("ef_stats_telemetry") != REMAT_STEPS:
+        fail(f"[{MOE_ARCH} remat] launches {on['counts']} with remat, "
+             f"{off['counts']} without")
+    if not all(np.isfinite(on["loss"])):
+        fail(f"[{MOE_ARCH} remat] non-finite loss {on['loss']}")
+    equal = on["loss"] == off["loss"] and trees_equal(
+        on["params"], off["params"]) and trees_equal(on["memory"],
+                                                     off["memory"])
+    diffs = {}
+    if not equal:
+        off2 = one(False)
+        for k in ("loss", "params", "memory"):
+            diffs[k] = dict(
+                remat=min(max_diff(on[k], off[k]), max_diff(on[k], off2[k])),
+                run_to_run=max_diff(off2[k], off[k]))
+        print(f"trainer [{MOE_ARCH}] remat differs from the plain run; "
+              f"max |diff| {diffs}", flush=True)
+        if any(d["remat"] > d["run_to_run"] for d in diffs.values()):
+            fail(f"[{MOE_ARCH} remat] the remat run is further from the "
+                 f"plain runs than they are from each other: {diffs}")
+    # the step's peak comes after the backward (the exchange's and the
+    # search's f32 copies of 1.385 B parameters), where no activation is
+    # live either way: it is recorded, and the gradient pass above holds
+    # what rematerialisation saves
+    summary = dict(bit_equal=equal, diffs=diffs, grad_pass_bytes=grad_peak,
+                   peak_bytes=dict(remat=on["peak"], plain=off["peak"]),
+                   step_s=dict(remat=[x["step_s"] for x in on["log"]],
+                               plain=[x["step_s"] for x in off["log"]]))
+    print(f"trainer [{MOE_ARCH}] remat against plain: bit for bit "
+          f"{equal}; step peaks {on['peak']} / {off['peak']} B "
+          f"({(on['peak'] - off['peak']) / 2**20:+.3f} MiB with remat); "
+          f"warm steps {summary['step_s']}", flush=True)
+    del on, off
+    torch.cuda.empty_cache()
+    return summary
+
+
+def cache_to(t, device):
+    """A copy of a decode cache (named tuples of tensors) on ``device``."""
+    if isinstance(t, torch.Tensor):
+        return t.to(device, copy=True)
+    if isinstance(t, tuple) and t:
+        return type(t)(*(cache_to(x, device) for x in t))
+    return t
+
+
+def int8_smoke_card_vs_cpu(dev) -> dict:
+    """Phase 5: the int8 smoke of each family with a self-attention cache
+    (the vlm's gates live) through ``serve.load``'s model and weights,
+    rebuilt with ``kv_cache_dtype="int8"``, on the card and on the CPU,
+    ctx 96, 4 tokens.  Held as the CPU tests hold the port against JAX:
+    the prefill's logits within 1e-4 of max, its int8 codes within 1 step
+    and scales within 1e-5 of max, then each decode step on both devices
+    from the CPU's cache, equal greedy tokens and logits within 1e-4 of
+    max.  ``serve.generate`` free running on both is recorded beside it
+    (a K/V value an ulp apart can round to the next code and move every
+    later step)."""
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    cpu, ctx, gen, out = torch.device("cpu"), 96, 4, {}
+    for arch in INT8_SMOKE:
+        runs = {}
+        for d in (dev, cpu):
+            model, params, batch = serve.load(arch, True, 2, ctx, d)
+            if "cross" in params:
+                live_gates(params)
+            runs[d.type] = (build_model(dataclasses.replace(
+                model.cfg, kv_cache_dtype="int8")), params, batch)
+        (gm, gp, gb), (cm, cp, cb) = runs["cuda"], runs["cpu"]
+        errs, worst = [], 0.0
+        with torch.inference_mode():
+            glog, gcache = gm.prefill(gp, gb, capacity=ctx + gen)
+            clog, ccache = cm.prefill(cp, cb, capacity=ctx + gen)
+            code_step = max(int((g.cpu().int() - c.int()).abs().max())
+                            for g, c in zip(gcache.kv[:2], ccache.kv[:2]))
+            scale_err = max(float((g.cpu() - c).abs().max()
+                                  / c.abs().max())
+                            for g, c in zip(gcache.kv[2:], ccache.kv[2:]))
+            for i in range(gen):
+                err = float((glog.cpu() - clog).abs().max()
+                            / clog.abs().max())
+                errs.append(err)
+                if not err <= 1e-4:
+                    fail(f"int8 smoke {arch} step {i}: logits {err} of "
+                         "max from the CPU's (limit 1e-4)")
+                tok = clog[:, -1:].argmax(-1)
+                if not torch.equal(glog[:, -1:].argmax(-1).cpu(), tok):
+                    fail(f"int8 smoke {arch} step {i}: greedy tokens differ")
+                if i == gen - 1:
+                    break
+                glog, _ = gm.decode_step(gp, tok.to(dev),
+                                         cache_to(ccache, dev), ctx + i)
+                clog, ccache = cm.decode_step(cp, tok, ccache, ctx + i)
+            free = {k: serve.generate(m, p, b, gen)
+                    for k, (m, p, b) in runs.items()}
+            worst = float((free["cuda"]["logits"] - free["cpu"]["logits"])
+                          .abs().max() / free["cpu"]["logits"].abs().max())
+        if code_step > 1 or not scale_err <= 1e-5:
+            fail(f"int8 smoke {arch} prefill cache: codes {code_step} steps"
+                 f" apart, scales {scale_err} of max (limits 1, 1e-5)")
+        out[arch] = dict(step_errs=errs, code_step=code_step,
+                         scale_err=scale_err, free_running_err=worst,
+                         free_running_tokens_equal=torch.equal(
+                             free["cuda"]["tokens"], free["cpu"]["tokens"]))
+        print(f"int8 smoke {arch} card vs cpu: logits {errs} of max "
+              f"(limit 1e-4), tokens equal, prefill codes {code_step} step"
+              f" apart, scales {scale_err:.3e} of max; free running: "
+              f"logits {worst:.3e} of max, tokens equal "
+              f"{out[arch]['free_running_tokens_equal']}", flush=True)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script runs only on "
@@ -4574,6 +4889,10 @@ def main() -> None:
     vlm_summary["trainer"] = vlm_trainer(dev)
     vlm_card_vs_cpu()
 
+    # ---- 4q. the int8 KV cache and rematerialisation ---------------------
+    int8_summary = dict(serve=int8_serving(dev))
+    int8_summary["remat"] = remat_trainer(dev)
+
     # ---- 5. small input: the card against the CPU's plain path ----------
     small = ["--smoke", "--steps", "2", "--seq-len", "33", "--global-batch",
              "4", "--compress-method", "block_topk", "--log-every", "1"]
@@ -4623,6 +4942,7 @@ def main() -> None:
     smoke_trainer_card_vs_cpu(ZAMBA)
     csgd_smoke(dev)
     serve_smoke(dev)
+    int8_summary["smoke"] = int8_smoke_card_vs_cpu(dev)
 
     # ---- 6. results -----------------------------------------------------
     # launches: each kernel's count on the path that runs it — the
@@ -4655,6 +4975,7 @@ def main() -> None:
     print("hybrid summary: " + json.dumps(hybrid_summary), flush=True)
     print("encdec summary: " + json.dumps(encdec_summary), flush=True)
     print("vlm summary: " + json.dumps(vlm_summary), flush=True)
+    print("int8 and remat summary: " + json.dumps(int8_summary), flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

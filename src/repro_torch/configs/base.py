@@ -54,12 +54,15 @@ class ModelConfig:
     n_patches: int = 0
     rwkv_lora_rank: int = 64
     sliding_window: int = 0       # 0 = full attention
-    # the int8 KV cache and rematerialisation are not ported: only the
-    # defaults are accepted (remat changes memory, never values)
-    kv_cache_dtype: str = ""      # "" = compute dtype
+    # "int8": the self-attention KV caches hold int8 codes with f32
+    # absmax scales per (position, head); any other string is the compute
+    # dtype, as in JAX
+    kv_cache_dtype: str = ""      # "" = compute dtype | "int8"
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
     attn_chunk: int = 1024        # query-chunked attention above this seq len
+    # rematerialise each of JAX's jax.checkpoint units (a layer; a hybrid
+    # or vlm group) in the backward pass: memory, never values
     remat: bool = True
     # JAX: "flip on real TPU".  In the port: take the hand-written CUDA
     # kernels (flash attention, RMSNorm, WKV) for CUDA tensors; False
@@ -90,9 +93,6 @@ class ModelConfig:
                 "(JAX's _maybe_expert_parallel / _moe_local) needs a "
                 "'model' mesh axis, which is not ported (it comes with "
                 "sharding.py); the port routes every expert locally")
-        if self.kv_cache_dtype != "" or not self.remat:
-            raise ValueError("kv_cache_dtype and remat: the port takes only "
-                             "their defaults ('' and True)")
 
     @property
     def hd(self) -> int:
@@ -469,12 +469,12 @@ def smoke_variant(cfg: ModelConfig) -> ModelConfig:
     and SSM heads of 32 for Mamba2, 5 layers with the shared block every
     2 for the hybrid, 2 encoder and 2 decoder layers for the
     encoder-decoder, 4 layers with a cross-attention block every 2 over
-    16 patches for the vlm (JAX's ``smoke_variant`` less the fields the
-    port does not read)."""
+    16 patches for the vlm, no rematerialisation (JAX's
+    ``smoke_variant`` less the fields the port does not read)."""
     kw = dict(n_layers=2, d_model=128, n_heads=4,
               n_kv_heads=min(cfg.n_kv_heads, 4) if cfg.n_kv_heads else 0,
               d_ff=256, vocab_size=512, head_dim=32, param_dtype="float32",
-              compute_dtype="float32", attn_chunk=64)
+              compute_dtype="float32", attn_chunk=64, remat=False)
     if cfg.family == "moe":
         kw.update(n_experts=4, experts_per_token=2, moe_d_ff=64,
                   capacity_factor=2.0)

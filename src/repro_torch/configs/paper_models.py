@@ -42,6 +42,7 @@ LM_100M_CONFIG = ModelConfig(
     d_ff=2048, vocab_size=16384,
     rope_theta=10000.0,
     param_dtype="float32", compute_dtype="float32",
+    attn_chunk=2048, remat=False,
     citation="end-to-end training model (~100M params)",
 )
 

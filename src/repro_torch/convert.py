@@ -53,8 +53,8 @@ _CACHES = ("DecodeCache", "KVCache", "RWKVState", "SSMState")
 
 
 def _cache_twin(tree, device):
-    """A JAX cache named tuple -> the port's twin, field by field (the
-    port's KVCache has no int8 scales: the int8 cache is not ported)."""
+    """A JAX cache named tuple -> the port's twin, field by field (an
+    int8 KVCache with its scales)."""
     from repro_torch.models import attention, lm, rwkv, ssm
     cls = {"DecodeCache": lm.DecodeCache, "KVCache": attention.KVCache,
            "RWKVState": rwkv.RWKVState,

@@ -388,18 +388,21 @@ def main(argv=None) -> list[dict]:
     return run(argv)[0]
 
 
-def run(argv=None, n_layers: int | None = None):
+def run(argv=None, n_layers: int | None = None, **model_fields):
     """Run the CLI; returns ``(log, params, state)``: the logged metrics
     as :func:`main` returns them, and this worker's final parameters and
     ``TrainState``.  ``n_layers`` cuts the depth of ``--arch`` (the
     widths stay the config's), as ``serve.load`` does; an
     encoder-decoder, whose depth is its ``n_enc_layers`` and
-    ``n_dec_layers``, refuses it."""
+    ``n_dec_layers``, refuses it.  ``model_fields`` replace fields of
+    the model config that no flag reaches (``remat=False``), as JAX's
+    dry-run replaces them."""
     args = parse_args(argv)
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if n_layers is not None:
         cfg = cut_depth(cfg, n_layers)
+    cfg = dataclasses.replace(cfg, **model_fields)
     run_cfg = RunConfig(
         model=cfg, shape=ShapeConfig(args.seq_len, args.global_batch),
         microbatches=args.microbatches,

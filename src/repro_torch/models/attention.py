@@ -21,11 +21,19 @@ attention's Sq may exceed its Sk.
 
 Decode attention is the JAX package's plain einsums in f32 over the
 whole cache, with the positions past the current one masked.
+
+With ``cfg.kv_cache_dtype == "int8"`` a self-attention cache holds int8
+codes and f32 absmax scales, one a (position, head) (``quantize_kv``):
+prefill attends with the unquantized k and v, then stores their codes;
+a decode step stores the new token's codes and attends over the whole
+cache dequantized to the compute dtype.  Cross K/V stay in the compute
+dtype, as in JAX.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import ops, ref
@@ -33,8 +41,70 @@ from .layers import apply_rope, dense, he_init
 
 
 class KVCache(NamedTuple):
-    k: torch.Tensor      # (B, S_max, H_kv, hd) in the compute dtype
+    k: torch.Tensor      # (B, S_max, H_kv, hd), the compute dtype or int8
     v: torch.Tensor      # (B, S_max, H_kv, hd)
+    k_scale: Any = ()    # (B, S_max, H_kv, 1) f32 absmax scales (int8 only)
+    v_scale: Any = ()
+
+    @property
+    def quantized(self) -> bool:
+        return isinstance(self.k_scale, torch.Tensor)
+
+    def at(self, i) -> "KVCache":
+        """Slot ``i`` of a cache stacked on leading layer axes (views, so
+        writes reach the stack)."""
+        return KVCache(*(t[i] if isinstance(t, torch.Tensor) else t
+                         for t in self))
+
+
+#: f32(1/127) and f32(1e-30), exactly, as Python floats
+_INV127 = float(np.float32(1.0) / np.float32(127.0))
+_TINY = float(np.float32(1e-30))
+
+
+def _kv_scale(amax: torch.Tensor) -> torch.Tensor:
+    """``amax / 127 + 1e-30`` as jitted XLA computes it: the division by
+    the constant becomes a product with f32(1/127), and the product and
+    the sum contract into one fused multiply-add, rounded once to f32
+    (eager JAX divides and rounds twice: other bits in a few rows; a
+    product rounded before the sum: other bits in ~2% of bf16 rows).
+    The product of two f32 values is exact in f64; the sum's rounding
+    error (TwoSum) breaks the tie where the f64 sum falls halfway
+    between two f32 values, so the f32 result is the exact sum's."""
+    p = amax.double() * _INV127
+    s = p + _TINY
+    b = s - p
+    err = (p - (s - b)) + (_TINY - b)
+    bits = s.view(torch.int64)
+    half = (bits & ((1 << 29) - 1)) == (1 << 28)
+    bits = bits + (half & (err > 0)).long() - (half & (err < 0)).long()
+    return bits.view(torch.float64).float()
+
+
+def quantize_kv(x: torch.Tensor):
+    """Per-(position, head) absmax int8 quantization of a K/V tensor:
+    (codes int8, scales f32 (..., 1)), as jitted JAX computes them: the
+    scale :func:`_kv_scale` of the row's absmax, the codes the true
+    quotient rounded half to even and clipped to +-127."""
+    xf = x.float()
+    scale = _kv_scale(xf.abs().amax(-1, keepdim=True))
+    q = torch.round(xf / scale).clamp_(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype):
+    """The codes times their scales in f32, rounded to ``dtype`` (the
+    int8 codes promote to f32 exactly inside the one product pass)."""
+    return (q * scale).to(dtype)
+
+
+def maybe_quantize_cache(kv: KVCache, cfg) -> KVCache:
+    """``kv`` quantized when the config asks for the int8 cache."""
+    if cfg.kv_cache_dtype != "int8":
+        return kv
+    kq, ks = quantize_kv(kv.k)
+    vq, vs = quantize_kv(kv.v)
+    return KVCache(k=kq, v=vq, k_scale=ks, v_scale=vs)
 
 
 def init_attn(gen, cfg, dtype, lead=()):
@@ -113,21 +183,31 @@ def decode_attention_block(p, x, cache: KVCache, cur_len: int, cfg,
                            window: int | None = None):
     """One-token decode against a cache.  x: (B, 1, D); cache.k/v:
     (B, S_max, H_kv, hd); ``cur_len`` valid history tokens; the new
-    token's k and v are written into the cache at index ``cur_len`` (in
-    place: the same values as JAX's ``where``); ``window`` masks the
-    keys at or below cur_len - window (the caller passes the config's,
-    as JAX's callers do).  Returns (out (B, 1, D), the cache)."""
+    token's k and v (a quantized cache: their codes and scales) are
+    written into the cache at index ``cur_len`` (in place: the same
+    values as JAX's ``where``); a quantized cache is then attended
+    dequantized to x's dtype; ``window`` masks the keys at or below
+    cur_len - window (the caller passes the config's, as JAX's callers
+    do).  Returns (out (B, 1, D), the cache)."""
     B = x.shape[0]
     hd = cfg.hd
     pos = torch.full((1,), cur_len, dtype=torch.int64, device=x.device)
     q, k_new, v_new = _project_qkv(p, x, cfg, pos)
-    cache.k[:, cur_len] = k_new[:, 0].to(cache.k.dtype)
-    cache.v[:, cur_len] = v_new[:, 0].to(cache.v.dtype)
+    if cache.quantized:
+        for new, codes, scales in ((k_new, cache.k, cache.k_scale),
+                                   (v_new, cache.v, cache.v_scale)):
+            codes[:, cur_len], scales[:, cur_len] = quantize_kv(new[:, 0])
+        k_all = dequantize_kv(cache.k, cache.k_scale, x.dtype)
+        v_all = dequantize_kv(cache.v, cache.v_scale, x.dtype)
+    else:
+        cache.k[:, cur_len] = k_new[:, 0].to(cache.k.dtype)
+        cache.v[:, cur_len] = v_new[:, 0].to(cache.v.dtype)
+        k_all, v_all = cache.k, cache.v
 
     G = cfg.n_heads // cfg.n_kv_heads
     qg = q.reshape(B, cfg.n_kv_heads, G, hd)
     scores = torch.einsum("bkgd,bskd->bkgs", qg.float(),
-                          cache.k.float()) / (hd ** 0.5)
+                          k_all.float()) / (hd ** 0.5)
     kpos = torch.arange(cache.k.shape[1], device=x.device)
     valid = kpos <= cur_len
     if window:
@@ -136,7 +216,7 @@ def decode_attention_block(p, x, cache: KVCache, cur_len: int, cfg,
     m = scores.amax(-1, keepdim=True)
     p_ = torch.exp(scores - m)
     denom = p_.sum(-1, keepdim=True)
-    out = torch.einsum("bkgs,bskd->bkgd", p_, cache.v.float())
+    out = torch.einsum("bkgs,bskd->bkgd", p_, v_all.float())
     out = (out / denom).reshape(B, 1, cfg.n_heads * hd)
     return dense(p["wo"], out.to(x.dtype)), cache
 

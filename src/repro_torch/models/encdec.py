@@ -32,7 +32,8 @@ from repro_torch.utils import tree_map
 from . import attention as attn
 from .layers import (embed, init_embed, init_lm_head, init_mlp,
                      init_rms_norm, lm_head, mlp, rms_norm, softmax_xent)
-from .lm import DecodeCache, _layer
+from .lm import (DecodeCache, _layer, remat, self_kv_cache,
+                 store_prefill_kv)
 
 
 def _norm(p, x, cfg):
@@ -76,12 +77,17 @@ def encode(params, src_embed: torch.Tensor, cfg,
     compute dtype."""
     x = src_embed.to(getattr(torch, cfg.compute_dtype))
     for i in range(cfg.n_enc_layers):
-        lp = _layer(params["enc_blocks"], i)
-        a, _ = attn.attention_block(lp["attn"], _norm(lp["attn_norm"], x, cfg),
-                                    cfg, causal=False, window=window)
-        x = x + a
-        x = x + mlp(lp["mlp"], _norm(lp["mlp_norm"], x, cfg))
+        x = remat(cfg, _enc_block, _layer(params["enc_blocks"], i), x, cfg,
+                  window)
     return _norm(params["enc_norm"], x, cfg)
+
+
+def _enc_block(lp, x, cfg, window):
+    """One encoder layer: self attention without causality, SwiGLU MLP."""
+    a, _ = attn.attention_block(lp["attn"], _norm(lp["attn_norm"], x, cfg),
+                                cfg, causal=False, window=window)
+    x = x + a
+    return x + mlp(lp["mlp"], _norm(lp["mlp_norm"], x, cfg))
 
 
 def _dec_block(lp, x, memory, cfg, window=None, kv_cross=None):
@@ -110,8 +116,9 @@ def loss_fn(params, batch: dict, cfg) -> torch.Tensor:
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     x = embed(params["embed"], inputs, cfg).to(memory.dtype)
     for i in range(cfg.n_dec_layers):
-        x, _, _ = _dec_block(_layer(params["dec_blocks"], i), x, memory, cfg,
-                             window=window)
+        x = remat(cfg, lambda lp, h: _dec_block(lp, h, memory, cfg,
+                                                window=window)[0],
+                  _layer(params["dec_blocks"], i), x)
     x = _norm(params["final_norm"], x, cfg)
     return softmax_xent(lm_head(params["lm_head"], x, cfg.vocab_size),
                         targets)
@@ -120,15 +127,16 @@ def loss_fn(params, batch: dict, cfg) -> torch.Tensor:
 def init_cache(cfg, B: int, capacity: int, s_enc: int,
                device="cpu") -> DecodeCache:
     """Zero caches in the compute dtype: the decoder's self K/V at
-    sequence capacity ``capacity`` and its cross K/V over ``s_enc``
-    encoder frames."""
+    sequence capacity ``capacity`` (int8 codes with f32 scales with
+    ``kv_cache_dtype="int8"``) and its cross K/V over ``s_enc`` encoder
+    frames."""
     dtype = getattr(torch, cfg.compute_dtype)
 
-    def kv(S):
-        shape = (cfg.n_dec_layers, B, S, cfg.n_kv_heads, cfg.hd)
-        return attn.KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
-                            v=torch.zeros(shape, dtype=dtype, device=device))
-    return DecodeCache(kv=kv(capacity), cross_kv=kv(s_enc))
+    def kv(S, int8=False):
+        return self_kv_cache((cfg.n_dec_layers, B, S, cfg.n_kv_heads,
+                              cfg.hd), dtype, int8, device)
+    return DecodeCache(kv=kv(capacity, cfg.kv_cache_dtype == "int8"),
+                       cross_kv=kv(s_enc))
 
 
 def prefill(params, batch: dict, cfg, capacity: int | None = None):
@@ -145,8 +153,7 @@ def prefill(params, batch: dict, cfg, capacity: int | None = None):
     for i in range(cfg.n_dec_layers):
         x, kv_self, kv_cross = _dec_block(_layer(params["dec_blocks"], i), x,
                                           memory, cfg, window=window)
-        cache.kv.k[i, :, :S] = kv_self.k
-        cache.kv.v[i, :, :S] = kv_self.v
+        store_prefill_kv(cache.kv, i, kv_self, cfg)
         cache.cross_kv.k[i] = kv_cross.k
         cache.cross_kv.v[i] = kv_cross.v
     x = _norm(params["final_norm"], x[:, -1:], cfg)
@@ -165,12 +172,11 @@ def decode_step(params, token: torch.Tensor, cache: DecodeCache,
         lp = _layer(params["dec_blocks"], i)
         a, _ = attn.decode_attention_block(
             lp["self_attn"], _norm(lp["self_norm"], x, cfg),
-            attn.KVCache(cache.kv.k[i], cache.kv.v[i]), cur_len, cfg,
-            window=window)
+            cache.kv.at(i), cur_len, cfg, window=window)
         x = x + a
         c, _ = attn.cross_attention_block(
             lp["cross"], _norm(lp["cross_norm"], x, cfg), None, cfg,
-            kv=attn.KVCache(cache.cross_kv.k[i], cache.cross_kv.v[i]))
+            kv=cache.cross_kv.at(i))
         x = x + c
         x = x + mlp(lp["mlp"], _norm(lp["mlp_norm"], x, cfg))
     x = _norm(params["final_norm"], x, cfg)

@@ -37,6 +37,7 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.utils import tree_map, tree_map_with_path
 from . import attention as attn
@@ -276,28 +277,71 @@ def _put(stacked, i, new) -> None:
 # train
 # ---------------------------------------------------------------------------
 
+def _units(params, cfg):
+    """The layers of :func:`_layers` in the units JAX's ``jax.checkpoint``
+    wraps under ``cfg.remat``: ``(wrapped, [layers])``.  A unit is one
+    layer (dense, MoE, RWKV, Mamba2), or a group: a hybrid's
+    ``shared_attn_every`` Mamba2 layers and the shared block, a vlm's
+    ``cross_attn_every`` dense layers and the cross block.  A hybrid's
+    tail layers are not wrapped, as JAX's tail scan is not."""
+    layers = list(_layers(params, cfg))
+    every = (cfg.shared_attn_every if cfg.family == "hybrid" else
+             cfg.cross_attn_every if cfg.family == "vlm" else 0)
+    if not every:
+        return [(True, [layer]) for layer in layers]
+    n = every + 1
+    groups = cfg.n_layers // every
+    return [(True, layers[g * n:(g + 1) * n]) for g in range(groups)] + \
+        [(False, [layer]) for layer in layers[groups * n:]]
+
+
+def remat(cfg, fn, *args):
+    """``fn(*args)``, rematerialised in the backward pass when
+    ``cfg.remat`` is set and autograd records (not under ``no_grad`` or
+    ``inference_mode``: the Armijo trials and serving): its activations
+    are recomputed from ``args`` instead of kept.  The forward draws no
+    random numbers, so no RNG state is kept either."""
+    if cfg.remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
+
+
+def _train_unit(layers, memory, cfg):
+    """The training forward of one unit's layers: (x, aux) -> (x, aux),
+    each MoE layer's aux loss added in layer order."""
+    def run(x, aux):
+        for kind, lp, _, _ in layers:
+            if kind == "cross":
+                x, _ = _cross_block(lp, x, memory, cfg)
+            elif kind == "rwkv":
+                x, _ = _rwkv_block(lp, x, cfg, rwkv_mod.init_rwkv_state(
+                    cfg, x.shape[0], x.device))
+            elif kind == "mamba":
+                x, _ = _mamba_block(lp, x, cfg)
+            else:
+                x, _, a = _dense_block(lp, x, cfg)
+                if a is not None:
+                    aux = aux + a
+        return x, aux
+    return run
+
+
 def loss_fn(params, batch: dict, cfg) -> torch.Tensor:
     """Next-token cross-entropy plus the MoE layers' aux losses, summed in
     layer order from an f32 zero (0 without MoE layers: the cross-entropy
     alone, bit for bit).  batch["tokens"]: (B, S) integers; a vlm's
-    ``image_embed`` (B, n_patches, d_model), cast to the compute dtype."""
+    ``image_embed`` (B, n_patches, d_model), cast to the compute dtype.
+    Under ``cfg.remat`` each of :func:`_units`' wrapped units is
+    rematerialised (:func:`remat`): the same values, less memory."""
     tokens = batch["tokens"]
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     x = embed(params["embed"], inputs, cfg)
     memory = _image(batch, x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for kind, lp, _, _ in _layers(params, cfg):
-        if kind == "cross":
-            x, _ = _cross_block(lp, x, memory, cfg)
-        elif kind == "rwkv":
-            x, _ = _rwkv_block(lp, x, cfg, rwkv_mod.init_rwkv_state(
-                cfg, x.shape[0], x.device))
-        elif kind == "mamba":
-            x, _ = _mamba_block(lp, x, cfg)
-        else:
-            x, _, a = _dense_block(lp, x, cfg)
-            if a is not None:
-                aux = aux + a
+    for wrapped, layers in _units(params, cfg):
+        run = _train_unit(layers, memory, cfg)
+        x, aux = remat(cfg, run, x, aux) if wrapped else run(x, aux)
     x = rms_norm(params["final_norm"], x, cfg.norm_eps, cfg.use_pallas)
     ce = softmax_xent(lm_head(_head(params), x, cfg.vocab_size), targets)
     return ce + aux
@@ -317,7 +361,9 @@ def init_cache(cfg, B: int, capacity: int, device="cpu") -> DecodeCache:
     """Zero caches with sequence capacity ``capacity`` (the KV cache and
     the Mamba2 conv windows in the compute dtype, the SSM states f32; a
     vlm's self K/V (groups, every, B, capacity, ...) and its cross K/V
-    (groups, B, n_patches, ...))."""
+    (groups, B, n_patches, ...)).  With ``kv_cache_dtype="int8"`` the
+    self K/V are int8 codes with f32 scales (:func:`self_kv_cache`); the
+    cross K/V stay in the compute dtype."""
     if _is_rwkv(cfg):
         st = rwkv_mod.init_rwkv_state(cfg, B, device)
         return DecodeCache(ssm=rwkv_mod.RWKVState(*(
@@ -330,10 +376,9 @@ def init_cache(cfg, B: int, capacity: int, device="cpu") -> DecodeCache:
                                               dtype=x.dtype, device=device)
                                   for x in st))
 
-    def kv_stack(*lead, S=capacity):
-        shape = lead + (B, S, cfg.n_kv_heads, cfg.hd)
-        return attn.KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
-                            v=torch.zeros(shape, dtype=dtype, device=device))
+    def kv_stack(*lead, S=capacity, int8=cfg.kv_cache_dtype == "int8"):
+        return self_kv_cache(lead + (B, S, cfg.n_kv_heads, cfg.hd), dtype,
+                             int8, device)
 
     if cfg.family == "ssm":
         return DecodeCache(ssm=ssm_stack(cfg.n_layers))
@@ -345,8 +390,33 @@ def init_cache(cfg, B: int, capacity: int, device="cpu") -> DecodeCache:
     if cfg.family == "vlm":
         groups, every = _vlm_depth(cfg)
         return DecodeCache(kv=kv_stack(groups, every),
-                           cross_kv=kv_stack(groups, S=cfg.n_patches))
+                           cross_kv=kv_stack(groups, S=cfg.n_patches,
+                                             int8=False))
     return DecodeCache(kv=kv_stack(cfg.n_layers))
+
+
+def self_kv_cache(shape, dtype, int8: bool, device) -> attn.KVCache:
+    """A zero K/V cache of ``shape`` (..., B, S, H_kv, hd): in ``dtype``,
+    or int8 codes with zero f32 scales (..., B, S, H_kv, 1), as JAX's
+    zero-padded prefill leaves the positions past the prompt."""
+    if not int8:
+        return attn.KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                            v=torch.zeros(shape, dtype=dtype, device=device))
+    codes = [torch.zeros(shape, dtype=torch.int8, device=device)
+             for _ in range(2)]
+    scales = [torch.zeros(tuple(shape[:-1]) + (1,), dtype=torch.float32,
+                          device=device) for _ in range(2)]
+    return attn.KVCache(*codes, *scales)
+
+
+def store_prefill_kv(cache: attn.KVCache, i, kv: attn.KVCache, cfg) -> None:
+    """Write a layer's prefill K/V (B, S, H_kv, hd) into slot ``i`` of
+    the stacked cache at positions 0 ... S - 1, quantized when the
+    config asks for the int8 cache."""
+    S = kv.k.shape[1]
+    for dst, src in zip(cache.at(i), attn.maybe_quantize_cache(kv, cfg)):
+        if isinstance(dst, torch.Tensor):
+            dst[:, :S] = src
 
 
 def prefill(params, batch: dict, cfg, capacity: int | None = None):
@@ -373,8 +443,7 @@ def prefill(params, batch: dict, cfg, capacity: int | None = None):
             _put(getattr(cache, field), i, st)
         else:
             x, kv, _ = _dense_block(lp, x, cfg)
-            cache.kv.k[i][:, :S] = kv.k
-            cache.kv.v[i][:, :S] = kv.v
+            store_prefill_kv(cache.kv, i, kv, cfg)
     x = rms_norm(params["final_norm"], x[:, -1:], cfg.norm_eps,
                  cfg.use_pallas)
     return lm_head(_head(params), x, cfg.vocab_size), cache
@@ -389,8 +458,7 @@ def decode_step(params, token: torch.Tensor, cache: DecodeCache,
     x = embed(params["embed"], token, cfg)
     for kind, lp, field, i in _layers(params, cfg):
         if kind == "cross":
-            x, _ = _cross_block(lp, x, None, cfg, kv=attn.KVCache(
-                cache.cross_kv.k[i], cache.cross_kv.v[i]))
+            x, _ = _cross_block(lp, x, None, cfg, kv=cache.cross_kv.at(i))
         elif kind == "rwkv":
             x, st = _rwkv_block(lp, x, cfg, rwkv_mod.RWKVState(
                 *(s[i] for s in cache.ssm)))
@@ -401,7 +469,6 @@ def decode_step(params, token: torch.Tensor, cache: DecodeCache,
                 *(s[i] for s in stacked)), cfg)
             _put(stacked, i, st)
         else:
-            x = _dense_block_decode(lp, x, attn.KVCache(
-                cache.kv.k[i], cache.kv.v[i]), cur_len, cfg)
+            x = _dense_block_decode(lp, x, cache.kv.at(i), cur_len, cfg)
     x = rms_norm(params["final_norm"], x, cfg.norm_eps, cfg.use_pallas)
     return lm_head(_head(params), x, cfg.vocab_size), cache

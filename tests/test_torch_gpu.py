@@ -1288,3 +1288,87 @@ def test_faulty_exchange_on_card(cuda, quarantine):
         assert g[2:4] == w[2:4]
         assert float(g[4].rows_quarantined) == float(w[4].rows_quarantined)
         assert (float(g[4].rows_quarantined) > 0) == quarantine
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_kv_on_card_matches_cpu(cuda, dtype):
+    """The int8 KV cache's quantization (plain PyTorch on both devices):
+    codes, f32 scales and the dequantized values bit for bit with the
+    CPU, over rows at eight decades, a zero row and rows near 1e-22 (the
+    scale's 1e-30 and the fused multiply-add's tie rule matter there)."""
+    from repro_torch.models.attention import dequantize_kv, quantize_kv
+    rng = np.random.default_rng(41)
+    x = rng.standard_normal((4, 512, 8, 128)) * 10.0 ** rng.integers(
+        -4, 4, (4, 512, 8, 1))
+    x[0, 0, 0] = 0.0
+    x[0, 1] *= 1e-20
+    x = torch.from_numpy(x.astype(np.float32)).to(dtype)
+    q, s = quantize_kv(x)
+    d = dequantize_kv(q, s, dtype)
+    cq, cs = quantize_kv(x.to(cuda))
+    cd = dequantize_kv(cq, cs, dtype)
+    assert torch.equal(cq.cpu(), q) and torch.equal(cd.cpu(), d)
+    assert torch.equal(cs.cpu().view(torch.int32), s.view(torch.int32))
+    assert int(q.abs().max()) == 127 and not q[0, 0, 0].any()
+
+
+def _cache_to(t, device):
+    """A copy of a decode cache (named tuples of tensors) on ``device``."""
+    if isinstance(t, torch.Tensor):
+        return t.to(device, copy=True)
+    if isinstance(t, tuple) and t:
+        return type(t)(*(_cache_to(x, device) for x in t))
+    return t
+
+
+def _close_to_max(got, want, rel):
+    torch.testing.assert_close(got.float().cpu(), want.float(), rtol=0,
+                               atol=rel * float(want.float().abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen1.5-4b", "granite-moe-1b-a400m",
+                                  "zamba2-7b", "seamless-m4t-large-v2",
+                                  "llama-3.2-vision-11b"])
+def test_int8_decode_on_card_matches_cpu(cuda, arch):
+    """The int8 smoke of each family with a self-attention cache (the
+    vlm's gates set to [0.5, 1)) through ``serve.load``'s model and
+    weights on the card (the kernels) and on the CPU (their plain
+    versions): the prefill's logits within 1e-4 of max, its int8 codes
+    within 1 step and scales within 1e-5 of max; then 3 decode steps,
+    each on both devices from the CPU's cache (free running, a K/V value
+    an ulp apart can round to the next code and move every later step,
+    as the CPU tests hold the port against JAX): equal greedy tokens,
+    logits within 1e-4 of max."""
+    import dataclasses
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    ctx, runs = 96, {}
+    for dev in (cuda, torch.device("cpu")):
+        model, params, batch = serve.load(arch, True, 2, ctx, dev)
+        if "cross" in params:
+            gen = torch.Generator().manual_seed(11)
+            for k in ("gate_attn", "gate_mlp"):
+                g = params["cross"][k]
+                g.copy_(torch.rand(g.shape, generator=gen) * 0.5 + 0.5)
+        runs[dev.type] = (build_model(dataclasses.replace(
+            model.cfg, kv_cache_dtype="int8")), params, batch)
+    (gm, gp, gb), (cm, cp, cb) = runs["cuda"], runs["cpu"]
+    with torch.inference_mode():
+        glog, gcache = gm.prefill(gp, gb, capacity=ctx + 4)
+        clog, ccache = cm.prefill(cp, cb, capacity=ctx + 4)
+        _close_to_max(glog, clog, 1e-4)
+        assert gcache.kv.quantized and ccache.kv.quantized
+        for g, c in zip(gcache.kv, ccache.kv):
+            if g.dtype == torch.int8:
+                assert int((g.cpu().int() - c.int()).abs().max()) <= 1
+            else:
+                _close_to_max(g, c, 1e-5)
+        for i in range(3):
+            tok = clog[:, -1:].argmax(-1)
+            assert torch.equal(glog[:, -1:].argmax(-1).cpu(), tok)
+            glog, _ = gm.decode_step(gp, tok.to(cuda),
+                                     _cache_to(ccache, cuda), ctx + i)
+            clog, ccache = cm.decode_step(cp, tok, ccache, ctx + i)
+            _close_to_max(glog, clog, 1e-4)

@@ -114,6 +114,7 @@ class Case:
     topology: str = "ring"        # read under transport="gossip"
     arch: str = ARCH              # the smoke variant of this config
     micro: int = 1                # microbatches of a one-step round
+    remat: bool = False           # the smoke variants' value: JAX's
 
     def comp_kw(self):
         return dict(gamma=self.gamma, method="block_topk",
@@ -131,7 +132,8 @@ class Case:
 
     def run(self) -> RunConfig:
         return RunConfig(
-            model=get_smoke_config(self.arch),
+            model=dataclasses.replace(get_smoke_config(self.arch),
+                                      remat=self.remat),
             shape=ShapeConfig(SEQ, BATCH),
             microbatches=max(self.local_steps, self.micro),
             optimizer=OptimizerConfig(
@@ -152,11 +154,12 @@ def case_id(case: Case) -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def jax_model(arch: str = ARCH):
-    """JAX's smoke model of ``arch`` and its initial weights; a vlm's
-    gates, 0 at init (which keeps its cross blocks out of the forward
-    and their gradient), drawn in [0.5, 1) from seed 11."""
-    model = build_model(jax_smoke_config(arch))
+def jax_model(arch: str = ARCH, remat: bool = False):
+    """JAX's smoke model of ``arch`` (``remat`` replaced) and its initial
+    weights; a vlm's gates, 0 at init (which keeps its cross blocks out
+    of the forward and their gradient), drawn in [0.5, 1) from seed 11."""
+    model = build_model(dataclasses.replace(jax_smoke_config(arch),
+                                            remat=remat))
     params = model.init(jax.random.PRNGKey(0))
     if "cross" in params:
         rng = np.random.default_rng(11)
@@ -174,7 +177,7 @@ def jax_step(case: Case):
     0-word placeholder without the downlink); ``ov`` the carried
     ``OverlapState`` (``()`` without the overlap transport), returned
     last."""
-    model, _ = jax_model(case.arch)
+    model, _ = jax_model(case.arch, case.remat)
     comp = JCompressor(**case.comp_kw())
     arm = JArmijo()
     ctrl = JGammaCfg(**case.ctrl_kw())
