@@ -308,6 +308,39 @@ Phases, each fatal on failure (no phase catches and continues):
    memory bit for bit (else held to the card's run-to-run difference of
    a second plain run), both step peaks (set after the backward, by the
    optimizer's f32 copies) and warm step times;
+4r. the model axis for serving (``launch/mesh.py``, ``sharding.py``):
+   each run on two ranks that share the card (two processes, a gloo
+   group over CUDA tensors: NCCL takes no two ranks on one card; the
+   backend chosen by ``mesh.backend_for`` before the group forms and
+   printed) against the one-process run of the same model and weights
+   in this process: qwen1.5-4b at full width and depth on ``--mesh
+   1x2`` (batch 4, ctx 2048, 16 tokens), on ``--mesh 2x1 --params-2d``
+   (4 tokens: each step gathers every layer's weights through the host)
+   and granite-moe-1b-a400m on ``--mesh 1x2`` with
+   ``moe_expert_parallel=True``, in bf16; then both 1x2 runs in f32 (8
+   tokens).  Each rank draws the whole tree from seed 0, keeps its
+   ``serve.shard`` slice and serves its rows; it fails unless each
+   rank's resident weights are exactly its shard's bytes
+   (3,951,232,000, 3,951,539,200, 1,387,890,688; f32 7,902,464,000 and
+   2,772,635,648) and each rank's flash-attention and RMSNorm launches
+   a prefill and a decode step (the counts set to 0 just before each,
+   read just after) equal the one-process run's (40 / 0 and 81 / 81 for
+   qwen, 24 / 0 and 49 / 49 for granite); for the f32 runs (against the
+   whole batch) and the 2x1 run (against each data half served alone,
+   the ranks' product shapes) also unless the logits of a run fed the
+   reference's tokens step by step lie within TP_LOGIT_BOUND of its
+   max|logits| and at least 7 in 8 of the free-running greedy tokens
+   equal its; qwen's bf16 1x2 run the same within TP_BF16_BOUND (its
+   ranks round a bf16 partial before each row-parallel sum).  Each
+   bf16 1x2 run also measures its noise floor: the one-process run
+   again with the embedding's every element moved by one bf16 ulp (its
+   bit pattern plus one), step-fed and free-running against the
+   unmoved run; granite's bf16 run, whose routing one ulp flips at
+   full depth, fails unless its step-fed gap is within TP_FLOOR_FACTOR
+   times that witness's, its tokens recorded beside the witness's; it
+   prints the backend, each rank's prefill s, decode ms a step and
+   peak memory after the slice, beside the card's name and power
+   limit;
 5. run the 2-layer smoke variants on the card and on the CPU (the plain
    versions, which the CPU tests hold against the JAX package), through
    the trainer for 2 steps (``--opt csgd_asss``, ``nonadaptive``,
@@ -350,9 +383,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
-F32_OPS_PER_S = 67e12            # H100 SXM, f32 outside the tensor cores
-BF16_OPS_PER_S = 989e12          # H100 SXM, dense bf16 tensor cores
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+try:
+    # the H100 SXM data sheet's rates, one source for the port
+    from repro_torch.launch.mesh import HBM_BW as HBM_BYTES_PER_S
+    from repro_torch.launch.mesh import PEAK_FLOPS_BF16 as BF16_OPS_PER_S
+    from repro_torch.launch.mesh import PEAK_FLOPS_F32 as F32_OPS_PER_S
+except ImportError:      # not in a checkout: main() says so and exits 1
+    HBM_BYTES_PER_S = F32_OPS_PER_S = BF16_OPS_PER_S = None
 MAIN_STEPS, VB8_STEPS, G10_STEPS, CSGD_STEPS = 4, 2, 2, 4
 MAIN_ARGS = ["--arch", "paper-lm-100m", "--compress-method", "block_topk",
              "--seq-len", "256", "--global-batch", "8", "--log-every", "1"]
@@ -460,6 +498,36 @@ VLM_GATE_SEED = 11
 INT8_ARCH, INT8_CTX, INT8_LAUNCHES = SERVE_RUNS[0][:3]
 REMAT_STEPS = 3
 INT8_SMOKE = (INT8_ARCH, MOE_ARCH, ZAMBA, SEAMLESS, VLM)
+#: phase 4r: (label, arch, mesh (data, model), --params-2d,
+#: moe_expert_parallel, tokens, parameter dtype, each rank's resident
+#: weight bytes, the launches of a prefill and of a decode step by kernel,
+#: how its logits and tokens are gated: against the one-process run of
+#: the whole batch or of each data half alone (the ranks' product
+#: shapes) within a bound of max|logits|, with 7 in 8 tokens equal; or
+#: "floor": within TP_FLOOR_FACTOR of the one-process run's own gap when
+#: its embedding moves one bf16 ulp (one ulp flips an MoE's routing)
+QWEN_COUNTS = dict(flash_attention=(40, 0), rmsnorm=(81, 81))
+GRANITE_COUNTS = dict(flash_attention=(24, 0), rmsnorm=(49, 49))
+#: a gated run's step-fed logits' largest gap from its reference, of the
+#: reference's max|logits| (PERF.md's predictions for phase 4r): f32 and
+#: the data axis alone, and qwen's bf16 model axis
+TP_LOGIT_BOUND = 1e-3
+TP_BF16_BOUND = 2e-2
+TP_FLOOR_FACTOR = 2.0
+TP_RUNS = (
+    ("qwen 1x2", INT8_ARCH, (1, 2), False, False, SERVE_GEN, "bfloat16",
+     3_951_232_000, QWEN_COUNTS, ("whole", TP_BF16_BOUND)),
+    ("qwen 2x1 params-2d", INT8_ARCH, (2, 1), True, False, 4, "bfloat16",
+     3_951_539_200, QWEN_COUNTS, ("halves", TP_LOGIT_BOUND)),
+    ("granite 1x2 ep", MOE_ARCH, (1, 2), False, True, SERVE_GEN, "bfloat16",
+     1_387_890_688, GRANITE_COUNTS, ("floor", None)),
+    ("qwen 1x2 f32", INT8_ARCH, (1, 2), False, False, 8, "float32",
+     7_902_464_000, QWEN_COUNTS, ("whole", TP_LOGIT_BOUND)),
+    ("granite 1x2 ep f32", MOE_ARCH, (1, 2), False, True, 8, "float32",
+     2_772_635_648, GRANITE_COUNTS, ("whole", TP_LOGIT_BOUND)))
+TP_CTX = 2048
+#: seconds a phase-4r rank may take (the 2x1 run gathers through the host)
+TP_TIMEOUT = 600
 
 
 def fail(msg: str) -> None:
@@ -4600,6 +4668,254 @@ def int8_smoke_card_vs_cpu(dev) -> dict:
     return out
 
 
+def nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def tp_pass(model, params, batch, gen: int, mesh=None, feed=None) -> dict:
+    """A prefill and ``gen - 1`` decode steps under ``mesh``: each step
+    takes ``feed``'s column (step-fed) where given, else the greedy
+    token.  Returns the launch counts of the prefill and of the first
+    decode step (each set to 0 just before), the logits (gen, B, vocab)
+    and tokens (B, gen) on the host, prefill s and decode ms a step."""
+    from repro_torch.kernels import ops
+    B, ctx = batch["tokens"].shape
+    vocab = model.cfg.vocab_size
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, batch, capacity=ctx + gen,
+                                      mesh=mesh)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        counts = [ops.launch_counts()]
+        toks = [logits[:, -1:, :vocab].argmax(-1)]
+        outs = [logits[:, -1, :vocab]]
+        t0 = time.perf_counter()
+        for i in range(gen - 1):
+            tok = toks[-1] if feed is None else feed[:, i:i + 1].to(
+                toks[-1].device)
+            ops.reset_launch_counts()
+            logits, cache = model.decode_step(params, tok, cache, ctx + i,
+                                              mesh=mesh)
+            if i == 0:
+                counts.append(ops.launch_counts())
+            toks.append(logits[:, -1:, :vocab].argmax(-1))
+            outs.append(logits[:, -1, :vocab])
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) / max(gen - 1, 1) * 1e3
+    return dict(counts=counts, logits=torch.stack(outs).float().cpu(),
+                tokens=torch.cat(toks, dim=1).cpu(), prefill_s=prefill_s,
+                decode_ms=decode_ms)
+
+
+def tp_model(run, dev):
+    """(model, weights, prompt) of a phase-4r run: ``serve.load``'s, in
+    the run's parameter dtype (an f32 run draws the same values from
+    seed 0 on the card, unrounded)."""
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    _, arch, _, _, ep, _, dtype = run[:7]
+    model, params, batch = serve.load(arch, False, SERVE_BATCH, TP_CTX, dev)
+    model = build_model(dataclasses.replace(
+        model.cfg, moe_expert_parallel=ep, param_dtype=dtype,
+        compute_dtype=dtype))
+    if params["embed"]["w"].dtype != getattr(torch, dtype):
+        del params
+        params = model.init(0, device=dev, draw_device=dev)
+    return model, params, batch
+
+
+def tp_reference(model, params, batch, gen: int, halves: int) -> dict:
+    """The one-process run of ``model`` on the whole batch, or on each of
+    ``halves`` row blocks alone (tokens and logits joined back)."""
+    if halves == 1:
+        return tp_pass(model, params, batch, gen)
+    n = SERVE_BATCH // halves
+    parts = [tp_pass(model, params, {k: v[i * n:(i + 1) * n]
+                                     for k, v in batch.items()}, gen)
+             for i in range(halves)]
+    return dict(parts[0], logits=torch.cat([p["logits"] for p in parts], 1),
+                tokens=torch.cat([p["tokens"] for p in parts], 0),
+                prefill_s=[p["prefill_s"] for p in parts],
+                decode_ms=[p["decode_ms"] for p in parts])
+
+
+def noise_floor(model, params, batch, gen: int, ref: dict) -> dict:
+    """The one-process bf16 run's own sensitivity: the run again with
+    every element of the embedding moved by one bf16 ulp (its bit
+    pattern plus one), step-fed by ``ref``'s tokens (its logits' largest
+    gap from ``ref``'s, of their max) and free-running (its greedy
+    tokens equal to ``ref``'s)."""
+    w = params["embed"]["w"]
+    moved = dict(params, embed=dict(params["embed"], w=(
+        w.view(torch.int16) + 1).view(w.dtype)))
+    fed = tp_pass(model, moved, batch, gen, feed=ref["tokens"])
+    free = tp_pass(model, moved, batch, gen)
+    scale = float(ref["logits"].abs().max())
+    return dict(logit_gap=float((fed["logits"] - ref["logits"]).abs().max())
+                / scale,
+                tokens_agree=int((free["tokens"] == ref["tokens"]).sum()),
+                tokens=ref["tokens"].numel())
+
+
+def tp_rank(rank: int, world: int, port: int, run, ref_tokens,
+            out_dir: str) -> None:
+    """One rank of a phase-4r run (a spawned process): its mesh, the
+    whole tree from seed 0 cut to its slice, a free-running and a
+    step-fed pass; its results saved to ``out_dir``."""
+    import os
+    import torch.distributed as dist
+    from repro_torch import sharding
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import serve
+    label, arch, shape, two_d, ep, gen = run[:6]
+    os.environ["LOCAL_RANK"] = str(rank)
+    dev = mesh_mod.resolve_device("cuda")
+    backend = mesh_mod.backend_for(dev, world)
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank)
+    try:
+        mesh = mesh_mod.make_mesh(shape, mesh_mod.AXES_2D)
+        model, params, batch = tp_model(run, dev)
+        params, batch = serve.shard(model, params, batch, mesh, two_d)
+        torch.cuda.empty_cache()
+        out = dict(backend=backend, coords=mesh.coords, dp=mesh.dp_index,
+                   weight_bytes=sharding.tensor_bytes(params),
+                   resident=torch.cuda.memory_allocated(dev))
+        torch.cuda.reset_peak_memory_stats(dev)
+        n = SERVE_BATCH // mesh.data_size
+        out["free"] = tp_pass(model, params, batch, gen, mesh)
+        out["fed"] = tp_pass(model, params, batch, gen, mesh,
+                             feed=ref_tokens[mesh.dp_index * n:
+                                             (mesh.dp_index + 1) * n])
+        out["peak"] = torch.cuda.max_memory_allocated(dev)
+        torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_serving(dev, smi: str) -> dict:
+    """Phase 4r: each of TP_RUNS on two ranks sharing the card against
+    the one-process run of the same model and weights."""
+    import multiprocessing as mp
+    import socket
+    import tempfile
+    from repro_torch.launch import mesh as mesh_mod
+    summary = {}
+    for run in TP_RUNS:
+        label, _, shape, _, _, gen, dtype, want_bytes, want, gated = run
+        gate, bound = gated
+        model, params, batch = tp_model(run, dev)
+        ref = tp_reference(model, params, batch, gen,
+                           shape[0] if gate == "halves" else 1)
+        floor = noise_floor(model, params, batch, gen, ref) \
+            if dtype == "bfloat16" and gate != "halves" else None
+        if gate == "floor":
+            bound = TP_FLOOR_FACTOR * floor["logit_gap"]
+        if floor is not None:
+            print(f"4r [{label}]: noise floor, the one-process run with its "
+                  f"embedding moved one bf16 ulp: step-fed logits "
+                  f"{floor['logit_gap']:.4e} of max, greedy tokens agree "
+                  f"{floor['tokens_agree']} of {floor['tokens']}",
+                  flush=True)
+        del model, params, batch
+        torch.cuda.empty_cache()
+        want_counts = [nonzero({k: v[i] for k, v in want.items()})
+                       for i in (0, 1)]
+        for got, w in zip(ref["counts"], want_counts):
+            if nonzero(got) != w:
+                fail(f"[4r {label}] the one-process run launched {got}, "
+                     f"want {w}")
+        with socket.socket() as sk:
+            sk.bind(("localhost", 0))
+            port = sk.getsockname()[1]
+        print(f"4r [{label}]: mesh {shape} (data, model) on "
+              f"{torch.cuda.device_count()} card(s), backend "
+              f"{mesh_mod.backend_for(dev, 2)}; {smi}", flush=True)
+        with tempfile.TemporaryDirectory() as tmp:
+            ctx = mp.get_context("spawn")
+            procs = [ctx.Process(target=tp_rank, args=(
+                r, 2, port, run, ref["tokens"], tmp)) for r in range(2)]
+            for p in procs:
+                p.start()
+            t0 = time.perf_counter()
+            for p in procs:
+                p.join(timeout=max(1.0, TP_TIMEOUT
+                                   - (time.perf_counter() - t0)))
+            alive = [p for p in procs if p.is_alive()]
+            for p in alive:
+                p.kill()
+                p.join()
+            if alive or any(p.exitcode != 0 for p in procs):
+                fail(f"[4r {label}] ranks exited {[p.exitcode for p in procs]}"
+                     f" ({len(alive)} killed after {TP_TIMEOUT} s)")
+            ranks = [torch.load(Path(tmp) / f"rank{r}.pt") for r in range(2)]
+        scale = float(ref["logits"].abs().max())
+        agree = total = 0
+        rows = {}
+        for r, res in enumerate(ranks):
+            n = SERVE_BATCH // shape[0]
+            sl = slice(res["dp"] * n, (res["dp"] + 1) * n)
+            if res["weight_bytes"] != want_bytes:
+                fail(f"[4r {label}] rank {r} holds {res['weight_bytes']} B of"
+                     f" weights, want {want_bytes}")
+            for kind in ("free", "fed"):
+                for got, w in zip(res[kind]["counts"], ref["counts"]):
+                    if got != w:
+                        fail(f"[4r {label}] rank {r} ({kind}) launched {got},"
+                             f" the one-process run {w}")
+            fed = res["fed"]["logits"]
+            if not torch.isfinite(fed).all() or \
+                    not torch.isfinite(res["free"]["logits"]).all():
+                fail(f"[4r {label}] rank {r}: non-finite logits")
+            gap = float((fed - ref["logits"][:, sl]).abs().max()) / scale
+            if not gap <= bound:
+                fail(f"[4r {label}] rank {r}: step-fed logits {gap:.4e} of "
+                     f"max from the one-process run's (bound {bound:.4e}, "
+                     f"{gate})")
+            if res["coords"][1] == 0:
+                same_tok = res["free"]["tokens"] == ref["tokens"][sl]
+                agree, total = agree + int(same_tok.sum()), \
+                    total + same_tok.numel()
+            rows[r] = dict(coords=res["coords"], backend=res["backend"],
+                           weight_bytes=res["weight_bytes"],
+                           resident_bytes=res["resident"],
+                           peak_gib=res["peak"] / 2**30, logit_gap=gap,
+                           prefill_s=[res[k]["prefill_s"]
+                                      for k in ("free", "fed")],
+                           decode_ms=[res[k]["decode_ms"]
+                                      for k in ("free", "fed")])
+            print(f"4r [{label}] rank {r} {res['coords']} ({res['backend']}):"
+                  f" weights {res['weight_bytes']} B, resident "
+                  f"{res['resident'] / 2**30:.3f} GiB, peak after the slice "
+                  f"{res['peak'] / 2**30:.3f} GiB; prefill "
+                  f"{rows[r]['prefill_s']} s, decode {rows[r]['decode_ms']} "
+                  f"ms/step (free, fed); launches "
+                  f"{[nonzero(c) for c in res['free']['counts']]}; "
+                  f"step-fed logits {gap:.4e} of max", flush=True)
+        if total != SERVE_BATCH * gen or (gate != "floor"
+                                          and 8 * agree < 7 * total):
+            fail(f"[4r {label}] {agree} of {total} greedy tokens equal the "
+                 f"one-process run's (want 7 in 8 of {SERVE_BATCH * gen})")
+        summary[label] = dict(ranks=rows, tokens_agree=agree, tokens=total,
+                              gate=gate, logit_bound=bound,
+                              noise_floor=floor,
+                              one_process=dict(prefill_s=ref["prefill_s"],
+                                               decode_ms=ref["decode_ms"]))
+        how = (f"logits gated at {bound:.4e} of max against the one-process"
+               f" run of " + ("the whole batch" if gate == "whole"
+                              else "each data half") + ", tokens at 7 in 8"
+               if gate != "floor" else f"logits gated at {bound:.4e} of "
+               f"max, {TP_FLOOR_FACTOR} times the noise floor's; tokens "
+               f"recorded beside the noise floor's")
+        print(f"4r [{label}]: greedy tokens agree {agree} of {total} "
+              f"({how}); the one-process run: prefill {ref['prefill_s']} s,"
+              f" decode {ref['decode_ms']} ms/step", flush=True)
+    return summary
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script runs only on "
@@ -4608,7 +4924,6 @@ def main() -> None:
     if not (root / "src" / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
              "a checkout of the repository")
-    sys.path.insert(0, str(root / "src"))
     from repro_torch.comm.bucket import build_bucket_plan
     from repro_torch.configs import get_config
     from repro_torch.core.acgd import AcgdConfig, acgd
@@ -4893,6 +5208,10 @@ def main() -> None:
     int8_summary = dict(serve=int8_serving(dev))
     int8_summary["remat"] = remat_trainer(dev)
 
+    # ---- 4r. the model axis for serving: two ranks on the card ----------
+    torch.cuda.empty_cache()
+    tp_summary = tp_serving(dev, smi)
+
     # ---- 5. small input: the card against the CPU's plain path ----------
     small = ["--smoke", "--steps", "2", "--seq-len", "33", "--global-batch",
              "4", "--compress-method", "block_topk", "--log-every", "1"]
@@ -4976,6 +5295,7 @@ def main() -> None:
     print("encdec summary: " + json.dumps(encdec_summary), flush=True)
     print("vlm summary: " + json.dumps(vlm_summary), flush=True)
     print("int8 and remat summary: " + json.dumps(int8_summary), flush=True)
+    print("model axis summary: " + json.dumps(tp_summary), flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 """Packed payload exchange over the data-parallel process group (twin of
-``src/repro/comm/exchange.py``).
+``src/repro/comm/exchange.py``), and the model axis's two collectives,
+:func:`all_reduce_sum` and :func:`all_gather_dim`.
 
 The compressed path's only collective is an ``all_gather`` of packed
 words: ONE flat buffer on the ``bucketed`` transport, one per leaf on
@@ -71,6 +72,26 @@ def gather_packed(payload: torch.Tensor, group=None) -> torch.Tensor:
     dist.all_gather_into_tensor(out, payload.contiguous().reshape(-1),
                                 group=group)
     return out.reshape(W, *payload.shape)
+
+
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum over the process group (the JAX ``psum`` of a row-parallel
+    product): the ranks' tensors added in f32 (or wider), the sum rounded
+    once to x's dtype.  gloo moves a CUDA tensor through the host."""
+    y = x.to(torch.promote_types(x.dtype, torch.float32), copy=True)
+    dist.all_reduce(y, group=group)
+    return y.to(x.dtype)
+
+
+def all_gather_dim(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """The ranks' equal-shaped tensors concatenated along ``dim`` in rank
+    order (the gather a sharded leaf or activation takes back to
+    whole).  The list form of ``all_gather``, which gloo takes for CUDA
+    tensors too."""
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts, dim=dim)
 
 
 def all_reduce_mean(x: torch.Tensor, group=None) -> torch.Tensor:

@@ -35,8 +35,9 @@ class ModelConfig:
     moe_d_ff: int = 0             # per-expert hidden size
     capacity_factor: float = 1.25
     router_aux_coef: float = 0.01
-    # JAX's expert-parallel shard_map needs a ``model`` mesh axis, which
-    # comes with sharding.py: only the default is accepted
+    # serving under a mesh: True routes each data rank's tokens alone
+    # (JAX's expert-parallel shard_map manualizes the batch), False over
+    # the global batch (JAX's partitioner); one device: no effect
     moe_expert_parallel: bool = False
     # --- SSM (Mamba2) ---
     ssm_state: int = 0
@@ -87,12 +88,35 @@ class ModelConfig:
                 f"{self.cross_attn_every} must be >= 1 and divide "
                 f"n_layers={self.n_layers} (the self layers stack as "
                 "(groups, cross_attn_every, ...))")
-        if self.moe_expert_parallel:
+
+    def check_mesh(self, model: int, data: int = 1,
+                   batch: int | None = None) -> None:
+        """Raise ``ValueError`` where a mesh of ``model`` x ``data`` ranks
+        cannot serve this config: a family not cut over the model axis
+        yet, a dim the model axis cuts that does not divide (JAX would
+        cut mid-head; the port takes whole heads, experts and rows), or
+        a batch of ``batch`` rows that the data axis does not divide."""
+        if model > 1 and self.family not in ("dense", "moe"):
             raise ValueError(
-                "moe_expert_parallel=True: the expert-parallel shard_map "
-                "(JAX's _maybe_expert_parallel / _moe_local) needs a "
-                "'model' mesh axis, which is not ported (it comes with "
-                "sharding.py); the port routes every expert locally")
+                f"{self.name!r} ({self.family}): a model axis of {model} "
+                "serves the dense and MoE families only; the others wait "
+                "for ROADMAP queue 1 item 6c (the remaining families under "
+                "a model axis)")
+        if model > 1:
+            cut = dict(n_heads=self.n_heads, n_kv_heads=self.n_kv_heads,
+                       d_model=self.d_model, padded_vocab=self.padded_vocab)
+            if self.family == "moe":
+                cut["n_experts"] = self.n_experts
+            else:
+                cut["d_ff"] = self.d_ff
+            for name, n in cut.items():
+                if n % model:
+                    raise ValueError(
+                        f"{self.name!r}: {name}={n} does not divide over a "
+                        f"model axis of {model}")
+        if batch is not None and batch % data:
+            raise ValueError(f"batch {batch} does not divide over a data "
+                             f"axis of {data}")
 
     @property
     def hd(self) -> int:
@@ -127,7 +151,9 @@ FED_KINDS = ("csgd_asss", "nonadaptive")
 EF_DTYPES = ("float32", "bfloat16")
 #: fields of JAX paths the port lacks: (the only value taken, the feature)
 NOT_PORTED = {
-    "shard_local_topk": (False, "shard-local top-k under a model mesh")}
+    "shard_local_topk": (False, "shard-local top-k under a model mesh "
+                         "(ROADMAP queue 1 item 6b: the trainer's model "
+                         "axis)")}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -117,6 +117,7 @@ from repro_torch.core.gamma import SCHEDULES, GammaControllerConfig
 from repro_torch.core.health import check_divergence
 from repro_torch.data.synthetic import TokenPipeline
 from repro_torch.fed.sampling import participation_mask
+from repro_torch.launch.mesh import resolve_device
 from repro_torch.launch.train_step import init_train_state, train_step
 from repro_torch.models import build_model
 
@@ -133,21 +134,6 @@ def cut_depth(cfg, n_layers: int):
                          "encoder-decoder, whose depth is n_enc_layers and "
                          "n_dec_layers; cutting n_layers would cut nothing")
     return dataclasses.replace(cfg, n_layers=n_layers)
-
-
-def resolve_device(name: str) -> torch.device:
-    """``cuda`` (this process's local GPU under torchrun) or ``cpu``; no
-    fallback from one to the other."""
-    if name == "cpu":
-        return torch.device("cpu")
-    if name != "cuda":
-        raise ValueError(f"unknown device {name!r} (want cuda | cpu)")
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass --device cpu to run the "
-                           "plain PyTorch path on the CPU")
-    dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
-    torch.cuda.set_device(dev)
-    return dev
 
 
 def parse_args(argv=None):

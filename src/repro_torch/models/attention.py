@@ -28,6 +28,16 @@ prefill attends with the unquantized k and v, then stores their codes;
 a decode step stores the new token's codes and attends over the whole
 cache dequantized to the compute dtype.  Cross K/V stay in the compute
 dtype, as in JAX.
+
+Under a mesh each rank holds the heads of its ``wq``/``wk``/``wv``
+column slices, H/M query and H_kv/M kv heads (the head counts come from
+the weights' shapes, not the config; the GQA map ``h // rep`` keeps its
+meaning, as rep is the same on every rank), attends over them alone and
+adds its ``wo`` row slice's partial product over the model axis.  Each
+rank caches its own kv heads, the full sequence of each: JAX hints its
+decode cache sequence-sharded over ``model`` instead (a layout the
+partitioner turns into a flash-decoding combine); the values a rank
+attends to are the same either way, and no collective writes a cache.
 """
 from __future__ import annotations
 
@@ -37,7 +47,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops, ref
-from .layers import apply_rope, dense, he_init
+from .layers import apply_rope, dense, he_init, row_dense
 
 
 class KVCache(NamedTuple):
@@ -126,11 +136,13 @@ def init_attn(gen, cfg, dtype, lead=()):
 
 
 def _project_qkv(p, x, cfg, pos):
+    """q (B, S, H, hd), k and v (B, S, H_kv, hd): the heads of the
+    weights given (a rank's slices under a mesh)."""
     B, S, _ = x.shape
     hd = cfg.hd
-    q = dense(p["wq"], x).reshape(B, S, cfg.n_heads, hd)
-    k = dense(p["wk"], x).reshape(B, S, cfg.n_kv_heads, hd)
-    v = dense(p["wv"], x).reshape(B, S, cfg.n_kv_heads, hd)
+    q = dense(p["wq"], x).reshape(B, S, -1, hd)
+    k = dense(p["wk"], x).reshape(B, S, -1, hd)
+    v = dense(p["wv"], x).reshape(B, S, -1, hd)
     return (apply_rope(q, pos, cfg.rope_theta),
             apply_rope(k, pos, cfg.rope_theta), v)
 
@@ -163,24 +175,25 @@ def _sdpa(q, k, v, cfg, causal: bool, window: int | None):
 
 
 def attention_block(p, x, cfg, *, pos=None, causal: bool = True,
-                    window: int | None = None):
+                    window: int | None = None, mesh=None):
     """Full-sequence attention (train/prefill, the encoder with
     ``causal=False``).  x: (B, S, D); ``pos`` (S,) the rotary positions
-    (default 0 ... S - 1); ``window`` None takes the config's.  Returns
-    (out, KVCache of this sequence's k and v)."""
+    (default 0 ... S - 1); ``window`` None takes the config's; ``mesh``
+    the model axis the weights are cut over.  Returns (out, KVCache of
+    this sequence's k and v, this rank's heads)."""
     B, S, _ = x.shape
     if pos is None:
         pos = torch.arange(S, device=x.device)
     q, k, v = _project_qkv(p, x, cfg, pos)
     win = window if window is not None else (cfg.sliding_window or None)
-    out = _sdpa(q, _expand_kv(k, cfg.n_heads), _expand_kv(v, cfg.n_heads),
-                cfg, causal, win)
-    out = out.reshape(B, S, cfg.n_heads * cfg.hd)
-    return dense(p["wo"], out), KVCache(k=k, v=v)
+    H = q.shape[2]
+    out = _sdpa(q, _expand_kv(k, H), _expand_kv(v, H), cfg, causal, win)
+    out = out.reshape(B, S, H * cfg.hd)
+    return row_dense(p["wo"], out, mesh), KVCache(k=k, v=v)
 
 
 def decode_attention_block(p, x, cache: KVCache, cur_len: int, cfg,
-                           window: int | None = None):
+                           window: int | None = None, mesh=None):
     """One-token decode against a cache.  x: (B, 1, D); cache.k/v:
     (B, S_max, H_kv, hd); ``cur_len`` valid history tokens; the new
     token's k and v (a quantized cache: their codes and scales) are
@@ -204,8 +217,8 @@ def decode_attention_block(p, x, cache: KVCache, cur_len: int, cfg,
         cache.v[:, cur_len] = v_new[:, 0].to(cache.v.dtype)
         k_all, v_all = cache.k, cache.v
 
-    G = cfg.n_heads // cfg.n_kv_heads
-    qg = q.reshape(B, cfg.n_kv_heads, G, hd)
+    H, Hkv = q.shape[2], k_new.shape[2]
+    qg = q.reshape(B, Hkv, H // Hkv, hd)
     scores = torch.einsum("bkgd,bskd->bkgs", qg.float(),
                           k_all.float()) / (hd ** 0.5)
     kpos = torch.arange(cache.k.shape[1], device=x.device)
@@ -217,8 +230,8 @@ def decode_attention_block(p, x, cache: KVCache, cur_len: int, cfg,
     p_ = torch.exp(scores - m)
     denom = p_.sum(-1, keepdim=True)
     out = torch.einsum("bkgs,bskd->bkgd", p_, v_all.float())
-    out = (out / denom).reshape(B, 1, cfg.n_heads * hd)
-    return dense(p["wo"], out.to(x.dtype)), cache
+    out = (out / denom).reshape(B, 1, H * hd)
+    return row_dense(p["wo"], out.to(x.dtype), mesh), cache
 
 
 # ------------------------------ cross attention ------------------------------

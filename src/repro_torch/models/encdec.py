@@ -22,12 +22,16 @@ source, ingest the decoder's context; the self K/V into caches of
 (one token against the self cache and the cross K/V).  ``decode_step``
 writes the new token's self K/V into the cache it is given, in place,
 and returns it.  Every RMSNorm gets ``cfg.use_pallas``, as in ``lm.py``,
-so serving reaches the RMSNorm kernel.
+so serving reaches the RMSNorm kernel.  ``prefill`` and ``decode_step``
+take a ``mesh`` with a model axis of 1 (the family is not cut over the
+model axis yet): each rank serves its rows, and a leaf cut over
+``data`` (``--params-2d``) is gathered just before its layer runs.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.sharding import gather_data
 from repro_torch.utils import tree_map
 from . import attention as attn
 from .layers import (embed, init_embed, init_lm_head, init_mlp,
@@ -72,12 +76,13 @@ def init_params(cfg, seed: int = 0, device="cpu", draw_device="cpu"):
 
 
 def encode(params, src_embed: torch.Tensor, cfg,
-           window: int | None = None) -> torch.Tensor:
+           window: int | None = None, mesh=None) -> torch.Tensor:
     """src_embed: (B, S_enc, D) -> encoder memory (B, S_enc, D) in the
     compute dtype."""
     x = src_embed.to(getattr(torch, cfg.compute_dtype))
     for i in range(cfg.n_enc_layers):
-        x = remat(cfg, _enc_block, _layer(params["enc_blocks"], i), x, cfg,
+        x = remat(cfg, _enc_block,
+                  gather_data(_layer(params["enc_blocks"], i), mesh), x, cfg,
                   window)
     return _norm(params["enc_norm"], x, cfg)
 
@@ -139,37 +144,46 @@ def init_cache(cfg, B: int, capacity: int, s_enc: int,
                        cross_kv=kv(s_enc))
 
 
-def prefill(params, batch: dict, cfg, capacity: int | None = None):
+def prefill(params, batch: dict, cfg, capacity: int | None = None,
+            mesh=None):
     """Encode the source and ingest the (B, S) decoder context; return
     the last position's logits (B, 1, padded vocab) f32 and the caches
     (the self K/V allocated at ``capacity``, default S)."""
+    if mesh is not None:
+        cfg.check_mesh(mesh.model_size, mesh.data_size)
     window = cfg.sliding_window or None
-    memory = encode(params, batch["src_embed"], cfg, window=window)
+    memory = encode(params, batch["src_embed"], cfg, window=window,
+                    mesh=mesh)
     tokens = batch["tokens"]
     B, S = tokens.shape
-    x = embed(params["embed"], tokens, cfg).to(memory.dtype)
+    x = embed(gather_data(params["embed"], mesh), tokens, cfg).to(
+        memory.dtype)
     cache = init_cache(cfg, B, capacity or S, memory.shape[1],
                        device=x.device)
     for i in range(cfg.n_dec_layers):
-        x, kv_self, kv_cross = _dec_block(_layer(params["dec_blocks"], i), x,
-                                          memory, cfg, window=window)
+        x, kv_self, kv_cross = _dec_block(
+            gather_data(_layer(params["dec_blocks"], i), mesh), x, memory,
+            cfg, window=window)
         store_prefill_kv(cache.kv, i, kv_self, cfg)
         cache.cross_kv.k[i] = kv_cross.k
         cache.cross_kv.v[i] = kv_cross.v
     x = _norm(params["final_norm"], x[:, -1:], cfg)
-    return lm_head(params["lm_head"], x, cfg.vocab_size), cache
+    return lm_head(gather_data(params["lm_head"], mesh), x,
+                   cfg.vocab_size), cache
 
 
 def decode_step(params, token: torch.Tensor, cache: DecodeCache,
-                cur_len: int, cfg, window: int | None = None):
+                cur_len: int, cfg, window: int | None = None, mesh=None):
     """One decoder token against (the self cache, the cross K/V of
     prefill).  token: (B, 1) integers; the new token's self K/V are
     written at index ``cur_len``, in place.  Returns (logits (B, 1,
     padded vocab) f32, cache)."""
+    if mesh is not None:
+        cfg.check_mesh(mesh.model_size, mesh.data_size)
     window = window or (cfg.sliding_window or None)
-    x = embed(params["embed"], token, cfg)
+    x = embed(gather_data(params["embed"], mesh), token, cfg)
     for i in range(cfg.n_dec_layers):
-        lp = _layer(params["dec_blocks"], i)
+        lp = gather_data(_layer(params["dec_blocks"], i), mesh)
         a, _ = attn.decode_attention_block(
             lp["self_attn"], _norm(lp["self_norm"], x, cfg),
             cache.kv.at(i), cur_len, cfg, window=window)
@@ -180,4 +194,5 @@ def decode_step(params, token: torch.Tensor, cache: DecodeCache,
         x = x + c
         x = x + mlp(lp["mlp"], _norm(lp["mlp_norm"], x, cfg))
     x = _norm(params["final_norm"], x, cfg)
-    return lm_head(params["lm_head"], x, cfg.vocab_size), cache
+    return lm_head(gather_data(params["lm_head"], mesh), x,
+                   cfg.vocab_size), cache

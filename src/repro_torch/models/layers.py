@@ -3,7 +3,17 @@ RMSNorm, rotary embeddings, SwiGLU MLP, embeddings, LM head and the
 cross-entropy.  Functional: params are nested dicts of tensors in the JAX
 package's layout; each function takes ``(params, x, ...)``.  Params may
 be bf16: each product casts the weight to the activation's type, as the
-JAX package does."""
+JAX package does.
+
+Under a mesh (``mesh``, :mod:`repro_torch.launch.mesh`) each function
+takes this rank's slices of the weights that ``sharding.leaf_pspec``
+cuts over the model axis, as JAX's ``hint(..., TP)`` marks them: a
+column-parallel product (``wq``, ``wk``, ``wv``, ``wg``, ``wi``) gives
+its slice of the output with no collective; a row-parallel one (``wo``)
+gives a partial sum, added over the model axis (``sharding.tp_sum``)
+before a bias; the embedding gathers its d_model slices, the head its
+vocab slices.  Norm weights and the residual stream stay whole on every
+rank.  ``mesh=None`` (or a model axis of 1) is the one-device path."""
 from __future__ import annotations
 
 import math
@@ -12,6 +22,7 @@ import torch
 import torch.nn.functional as F_
 
 from repro_torch.kernels import ops
+from repro_torch.sharding import tp_gather, tp_sum
 
 
 def he_init(gen: torch.Generator, shape, dtype, fan_in=None, lead=()):
@@ -25,6 +36,15 @@ def he_init(gen: torch.Generator, shape, dtype, fan_in=None, lead=()):
 def dense(p, x):
     """x @ w (+ b)."""
     y = x @ p["w"].to(x.dtype)
+    if "b" in p:
+        y = y + p["b"].to(x.dtype)
+    return y
+
+
+def row_dense(p, x, mesh=None):
+    """A row-parallel x @ w: the model axis's partial products summed,
+    then the bias (replicated by the rules) added once."""
+    y = tp_sum(x @ p["w"].to(x.dtype), mesh)
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y
@@ -61,10 +81,10 @@ def init_mlp(gen, cfg, dtype, lead=()):
             "wo": he_init(gen, (cfg.d_ff, cfg.d_model), dtype, lead=lead)}
 
 
-def mlp(p, x):
-    """SwiGLU."""
+def mlp(p, x, mesh=None):
+    """SwiGLU; the hidden dim is the model axis's."""
     h = F_.silu(x @ p["wg"].to(x.dtype)) * (x @ p["wi"].to(x.dtype))
-    return h @ p["wo"].to(x.dtype)
+    return tp_sum(h @ p["wo"].to(x.dtype), mesh)
 
 
 def init_embed(gen, cfg, dtype):
@@ -72,8 +92,10 @@ def init_embed(gen, cfg, dtype):
                               device=gen.device) * 0.02).to(dtype)}
 
 
-def embed(p, tokens, cfg):
-    return p["w"][tokens.long()].to(getattr(torch, cfg.compute_dtype))
+def embed(p, tokens, cfg, mesh=None):
+    """The rows of ``tokens``; the table's d_model slices gathered."""
+    return tp_gather(p["w"][tokens.long()], -1, mesh).to(
+        getattr(torch, cfg.compute_dtype))
 
 
 def init_lm_head(gen, cfg, dtype):
@@ -81,9 +103,17 @@ def init_lm_head(gen, cfg, dtype):
                          fan_in=cfg.d_model)}
 
 
-def lm_head(p, x, true_vocab: int | None = None):
-    """Logits in f32; padded vocab columns masked to -1e30."""
-    logits = (x @ p["w"].to(x.dtype)).float()
+def lm_head(p, x, true_vocab: int | None = None, mesh=None):
+    """Logits in f32; padded vocab columns masked to -1e30 (after the
+    gather: a slice boundary can fall inside the padding).  Under a mesh
+    the head's vocab slices are gathered; a tied head (the embedding's
+    table, transposed, cut on d_model) is row-parallel instead."""
+    w = p["w"].to(x.dtype)
+    if w.shape[0] == x.shape[-1]:
+        logits = tp_gather((x @ w).float(), -1, mesh)
+    else:
+        x = x.narrow(-1, mesh.coord("model") * w.shape[0], w.shape[0])
+        logits = tp_sum((x @ w).float(), mesh)
     V = logits.shape[-1]
     if true_vocab is not None and true_vocab < V:
         mask = torch.arange(V, device=logits.device) < true_vocab

@@ -31,6 +31,15 @@ the cache it is given, in place, and returns it.
 Every RMSNorm gets ``cfg.use_pallas``, so serving reaches the RMSNorm
 kernel; the JAX package leaves the flag at its default (False) in every
 call of its ``lm.py``, so its model never reaches its own kernel.
+
+``prefill``, ``decode_step`` and ``init_cache`` take a ``mesh``
+(:mod:`repro_torch.launch.mesh`) and ``params`` this rank's slices
+(``sharding.shard_params``): the dense and MoE families run their layers
+tensor-parallel over the model axis (``layers``, ``attention``, ``moe``)
+with caches of this rank's kv heads; any family runs under a data axis
+alone, on this rank's rows of the batch.  A leaf cut over ``data``
+(``--params-2d``) is gathered whole just before its layer runs and
+freed after it.
 """
 from __future__ import annotations
 
@@ -39,6 +48,7 @@ from typing import Any, NamedTuple
 import torch
 import torch.utils.checkpoint
 
+from repro_torch.sharding import gather_data
 from repro_torch.utils import tree_map, tree_map_with_path
 from . import attention as attn
 from . import moe as moe_mod
@@ -166,37 +176,42 @@ def _layer(blocks, i):
     return blocks[i]
 
 
-def _head(params):
-    return params.get("lm_head", {"w": params["embed"]["w"].T})
+def _head(params, mesh=None):
+    """The head's weights (the tied embedding's, transposed), gathered
+    over ``data`` where cut there."""
+    if "lm_head" in params:
+        return gather_data(params["lm_head"], mesh)
+    return {"w": gather_data(params["embed"], mesh)["w"].T}
 
 
 # ---------------------------------------------------------------------------
 # per-layer blocks
 # ---------------------------------------------------------------------------
 
-def _dense_block(p, x, cfg):
+def _dense_block(p, x, cfg, mesh=None):
     """Pre-norm attention + SwiGLU MLP or MoE (with capacity drops).
     Returns (x, this layer's KV, the MoE's aux loss or None)."""
     h, kv = attn.attention_block(
         p["attn"], rms_norm(p["attn_norm"], x, cfg.norm_eps, cfg.use_pallas),
-        cfg)
+        cfg, mesh=mesh)
     x = x + h
     hn = rms_norm(p["mlp_norm"], x, cfg.norm_eps, cfg.use_pallas)
     if cfg.family == "moe":
-        h2, aux = moe_mod.moe_block(p["moe"], hn, cfg)
+        h2, aux = moe_mod.moe_block(p["moe"], hn, cfg, mesh=mesh)
         return x + h2, kv, aux
-    return x + mlp(p["mlp"], hn), kv, None
+    return x + mlp(p["mlp"], hn, mesh), kv, None
 
 
-def _dense_block_decode(p, x, kv, cur_len, cfg):
+def _dense_block_decode(p, x, kv, cur_len, cfg, mesh=None):
     h, _ = attn.decode_attention_block(
         p["attn"], rms_norm(p["attn_norm"], x, cfg.norm_eps, cfg.use_pallas),
-        kv, cur_len, cfg, window=cfg.sliding_window or None)
+        kv, cur_len, cfg, window=cfg.sliding_window or None, mesh=mesh)
     x = x + h
     hn = rms_norm(p["mlp_norm"], x, cfg.norm_eps, cfg.use_pallas)
     if cfg.family == "moe":
-        return x + moe_mod.moe_block(p["moe"], hn, cfg, no_drop=True)[0]
-    return x + mlp(p["mlp"], hn)
+        return x + moe_mod.moe_block(p["moe"], hn, cfg, no_drop=True,
+                                     mesh=mesh)[0]
+    return x + mlp(p["mlp"], hn, mesh)
 
 
 def _mamba_block(p, x, cfg, state=None, return_state=False):
@@ -357,13 +372,15 @@ def _image(batch: dict, x: torch.Tensor):
 # caches, prefill, decode
 # ---------------------------------------------------------------------------
 
-def init_cache(cfg, B: int, capacity: int, device="cpu") -> DecodeCache:
+def init_cache(cfg, B: int, capacity: int, device="cpu",
+               mesh=None) -> DecodeCache:
     """Zero caches with sequence capacity ``capacity`` (the KV cache and
     the Mamba2 conv windows in the compute dtype, the SSM states f32; a
     vlm's self K/V (groups, every, B, capacity, ...) and its cross K/V
     (groups, B, n_patches, ...)).  With ``kv_cache_dtype="int8"`` the
     self K/V are int8 codes with f32 scales (:func:`self_kv_cache`); the
-    cross K/V stay in the compute dtype."""
+    cross K/V stay in the compute dtype.  Under ``mesh`` the self K/V
+    hold this rank's kv heads of the model axis."""
     if _is_rwkv(cfg):
         st = rwkv_mod.init_rwkv_state(cfg, B, device)
         return DecodeCache(ssm=rwkv_mod.RWKVState(*(
@@ -377,8 +394,10 @@ def init_cache(cfg, B: int, capacity: int, device="cpu") -> DecodeCache:
                                   for x in st))
 
     def kv_stack(*lead, S=capacity, int8=cfg.kv_cache_dtype == "int8"):
-        return self_kv_cache(lead + (B, S, cfg.n_kv_heads, cfg.hd), dtype,
-                             int8, device)
+        heads = cfg.n_kv_heads // (mesh.model_size if mesh is not None
+                                     else 1)
+        return self_kv_cache(lead + (B, S, heads, cfg.hd), dtype, int8,
+                             device)
 
     if cfg.family == "ssm":
         return DecodeCache(ssm=ssm_stack(cfg.n_layers))
@@ -419,17 +438,21 @@ def store_prefill_kv(cache: attn.KVCache, i, kv: attn.KVCache, cfg) -> None:
             dst[:, :S] = src
 
 
-def prefill(params, batch: dict, cfg, capacity: int | None = None):
+def prefill(params, batch: dict, cfg, capacity: int | None = None,
+            mesh=None):
     """Ingest (B, S) context; return the last position's logits
     (B, 1, padded vocab) f32 and the caches, allocated at ``capacity``
     (default S) along the sequence; a vlm's cross K/V over its
-    ``image_embed`` patches."""
+    ``image_embed`` patches.  ``mesh``: see the module docstring."""
+    if mesh is not None:
+        cfg.check_mesh(mesh.model_size, mesh.data_size)
     tokens = batch["tokens"]
     B, S = tokens.shape
-    x = embed(params["embed"], tokens, cfg)
+    x = embed(gather_data(params["embed"], mesh), tokens, cfg, mesh)
     memory = _image(batch, x)
-    cache = init_cache(cfg, B, capacity or S, device=x.device)
+    cache = init_cache(cfg, B, capacity or S, device=x.device, mesh=mesh)
     for kind, lp, field, i in _layers(params, cfg):
+        lp = gather_data(lp, mesh)
         if kind == "cross":
             x, kv = _cross_block(lp, x, memory, cfg)
             cache.cross_kv.k[i] = kv.k
@@ -442,21 +465,25 @@ def prefill(params, batch: dict, cfg, capacity: int | None = None):
             x, st = _mamba_block(lp, x, cfg, return_state=True)
             _put(getattr(cache, field), i, st)
         else:
-            x, kv, _ = _dense_block(lp, x, cfg)
+            x, kv, _ = _dense_block(lp, x, cfg, mesh)
             store_prefill_kv(cache.kv, i, kv, cfg)
     x = rms_norm(params["final_norm"], x[:, -1:], cfg.norm_eps,
                  cfg.use_pallas)
-    return lm_head(_head(params), x, cfg.vocab_size), cache
+    return lm_head(_head(params, mesh), x, cfg.vocab_size, mesh), cache
 
 
 def decode_step(params, token: torch.Tensor, cache: DecodeCache,
-                cur_len: int, cfg):
+                cur_len: int, cfg, mesh=None):
     """One decode step.  token: (B, 1) integers; ``cur_len``: history
     length (the new token is written at cache index cur_len).  Updates
     ``cache`` in place; returns (logits (B, 1, padded vocab) f32, cache).
-    A vlm's cross blocks take the cached K/V of prefill and no memory."""
-    x = embed(params["embed"], token, cfg)
+    A vlm's cross blocks take the cached K/V of prefill and no memory.
+    ``mesh``: see the module docstring."""
+    if mesh is not None:
+        cfg.check_mesh(mesh.model_size, mesh.data_size)
+    x = embed(gather_data(params["embed"], mesh), token, cfg, mesh)
     for kind, lp, field, i in _layers(params, cfg):
+        lp = gather_data(lp, mesh)
         if kind == "cross":
             x, _ = _cross_block(lp, x, None, cfg, kv=cache.cross_kv.at(i))
         elif kind == "rwkv":
@@ -469,6 +496,7 @@ def decode_step(params, token: torch.Tensor, cache: DecodeCache,
                 *(s[i] for s in stacked)), cfg)
             _put(stacked, i, st)
         else:
-            x = _dense_block_decode(lp, x, cache.kv.at(i), cur_len, cfg)
+            x = _dense_block_decode(lp, x, cache.kv.at(i), cur_len, cfg,
+                                    mesh)
     x = rms_norm(params["final_norm"], x, cfg.norm_eps, cfg.use_pallas)
-    return lm_head(_head(params), x, cfg.vocab_size), cache
+    return lm_head(_head(params, mesh), x, cfg.vocab_size, mesh), cache

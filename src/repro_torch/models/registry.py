@@ -4,7 +4,10 @@ API over the port's decoder-only families (the vlm among them, in
 
 ``build_model(cfg)`` returns a ``Model`` with ``init / loss / prefill /
 decode_step / init_cache / stacked_mask``; the serving launcher, the
-trainer and the tests go through this object.
+trainer and the tests go through this object.  ``prefill``,
+``decode_step`` and ``init_cache`` take a ``mesh=`` keyword
+(:mod:`repro_torch.launch.mesh`), which the server passes to serve a
+rank's slices of the parameters.
 """
 from __future__ import annotations
 
@@ -34,9 +37,9 @@ def build_model(cfg) -> Model:
             prefill=lambda p, b, **kw: encdec.prefill(p, b, cfg, **kw),
             decode_step=lambda p, t, c, n, **kw: encdec.decode_step(
                 p, t, c, n, cfg, **kw),
-            init_cache=lambda B, capacity, s_enc=None, device="cpu":
-                encdec.init_cache(cfg, B, capacity, s_enc or capacity,
-                                  device),
+            init_cache=lambda B, capacity, s_enc=None, device="cpu",
+            mesh=None: encdec.init_cache(cfg, B, capacity, s_enc or capacity,
+                                         device),
             # JAX's registry gives the encoder-decoder lm.stacked_mask,
             # which marks none of its leaves
             stacked_mask=lm.stacked_mask,
@@ -46,8 +49,9 @@ def build_model(cfg) -> Model:
         init=lambda seed=0, **kw: lm.init_params(cfg, seed, **kw),
         loss=lambda p, b: lm.loss_fn(p, b, cfg),
         prefill=lambda p, b, **kw: lm.prefill(p, b, cfg, **kw),
-        decode_step=lambda p, t, c, n: lm.decode_step(p, t, c, n, cfg),
-        init_cache=lambda B, capacity, device="cpu":
-            lm.init_cache(cfg, B, capacity, device),
+        decode_step=lambda p, t, c, n, **kw: lm.decode_step(p, t, c, n, cfg,
+                                                            **kw),
+        init_cache=lambda B, capacity, device="cpu", mesh=None:
+            lm.init_cache(cfg, B, capacity, device, mesh),
         stacked_mask=lm.stacked_mask,
     )

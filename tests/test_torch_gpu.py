@@ -1372,3 +1372,23 @@ def test_int8_decode_on_card_matches_cpu(cuda, arch):
                                      _cache_to(ccache, cuda), ctx + i)
             clog, ccache = cm.decode_step(cp, tok, ccache, ctx + i)
             _close_to_max(glog, clog, 1e-4)
+
+
+@pytest.mark.gpu
+def test_model_axis_serves_on_card_like_one_process(cuda):
+    """qwen1.5-4b's smoke on a 1x2 mesh, two gloo ranks sharing the card
+    (tests/torch_tp_workers.py), against the one-process run on the
+    card: equal greedy tokens, logits within 1e-4 of max."""
+    from repro_torch.launch import serve
+    from torch_overlap_workers import Spawned
+    from torch_tp_workers import serve_smoke_on_card
+    ranks = Spawned(serve_smoke_on_card, 2, (1, 2), "qwen1.5-4b", 96,
+                    4).result(timeout=300)
+    model, params, batch = serve.load("qwen1.5-4b", True, 2, 96, cuda)
+    want = serve.generate(model, params, batch, 4)
+    for tokens, logits in ranks.values():
+        np.testing.assert_array_equal(tokens, want["tokens"].numpy())
+        ref_logits = want["logits"].numpy()
+        np.testing.assert_allclose(
+            logits, ref_logits, rtol=0,
+            atol=1e-4 * float(np.abs(ref_logits).max()))

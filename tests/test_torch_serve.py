@@ -310,7 +310,7 @@ def test_serve_without_cuda_raises(monkeypatch):
 
 @pytest.mark.parametrize("kw", [dict(family="vlm", n_layers=3,
                                      cross_attn_every=2),
-                                dict(family="moe", moe_expert_parallel=True)])
+                                dict(family="rnn")])
 def test_config_refuses_what_is_not_ported(kw):
     base = dict(name="x", family="dense", n_layers=1, d_model=64,
                 n_heads=2, n_kv_heads=2, d_ff=64, vocab_size=256)
